@@ -11,6 +11,13 @@ serving path through ``repro_torch.reach.QuerySession`` on the card:
            one seed word, ELL width ≤ 32 — the ferrari-web widths) over
            scale_free_digraph(4M, 4.0); 2^20 random + 2^17 positive
            queries in micro-batches of 16384 (kernel 1).
+  wavefront  the device build (builder="wavefront", top-gap cover, the
+           default widths: slab W = 8, merge chunk 64, m_cap 2049) of the
+           main graph on the card (kernel 5 in every wave and every
+           tree-reduction round), every kernel-5 call held against its
+           plain version, then save_index → QuerySession.load and the
+           main phase's queries, whose answers must equal the main
+           phase's (kernel 1).
   phase2   a weak index (k=1, no seeds) over 1M nodes with the sparse
            phase 2, at the default frontier cap and at cap 256, which
            forces the overflow retry (kernels 1, 3, 4).
@@ -39,6 +46,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
+BUILD_DIR = ROOT / "build"     # gitignored: kernels, temporary index
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 ALU_OPS_PER_S = 67e12          # 32-bit non-tensor peak (H100 SXM)
 PARITY_ROWS = 1 << 20
@@ -58,6 +66,9 @@ KERNELS = {
     "classify_emit": dict(
         source="src/repro_torch/csrc/frontier.cu",
         replaces="src/repro/kernels/frontier_fused.py:78", phase="phase2"),
+    "merge_cover": dict(
+        source="src/repro_torch/csrc/merge_cover.cu",
+        replaces="src/repro/kernels/merge_cover.py:153", phase="wavefront"),
 }
 
 
@@ -143,6 +154,24 @@ def naive_tables(g, n, k, w, dev):
             _seed_words(g, (n, w), dev))
 
 
+def cover_rows(g, rows, m, dev):
+    """Begin-sorted rows [rows, m] for kernel 5: a random number of valid
+    slots per row (INVALID tails, some rows empty), begins drawn from a
+    range of 4m so that intervals overlap, touch, nest and tie."""
+    import torch
+    i32 = dict(device=dev, dtype=torch.int32)
+    b = torch.sort(torch.randint(0, 4 * m, (rows, m), generator=g, **i32),
+                   dim=1).values
+    e = b + torch.randint(0, 6, (rows, m), generator=g, **i32)
+    x = (torch.rand((rows, m), generator=g, device=dev) < 0.5).to(
+        torch.int32)
+    n_valid = torch.randint(0, m + 1, (rows, 1), generator=g, device=dev)
+    dead = torch.arange(m, device=dev)[None, :] >= n_valid
+    return (torch.where(dead, 2**31 - 1, b).contiguous(),
+            torch.where(dead, -1, e).contiguous(),
+            torch.where(dead, 0, x).contiguous())
+
+
 # ------------------------------------------------------------ parity ----
 def _compare(name, got, want):
     import torch
@@ -212,6 +241,17 @@ def kernel_parity(dev) -> dict:
     _tally(err, "classify_emit", _compare(
         "classify_emit", ff.classify_emit(*args),
         ff.classify_emit_plain(*args)))
+    del meta, slab, args
+    # kernel 5: the build's working widths, k = w_out as the build calls it
+    from repro_torch.kernels import merge_cover as mc
+    for m, w_out, rows in ((9, 2, PARITY_ROWS), (9, 8, PARITY_ROWS),
+                           (513, 8, 1 << 14), (2049, 8, 1 << 12),
+                           (2049, 32, 1 << 12)):
+        rows_in = cover_rows(g, rows, m, dev)
+        _tally(err, "merge_cover", _compare(
+            f"merge_cover m={m} w_out={w_out}",
+            mc.merge_cover(*rows_in, w_out, w_out),
+            mc.merge_cover_plain(*rows_in, w_out, w_out)))
     return err
 
 
@@ -280,6 +320,41 @@ class Recorder:
             setattr(mod, name, fn)
 
 
+class BuildRecorder:
+    """Wraps kernel 5's wrapper and the prologue of ``merge_cover_rows``
+    while the device build runs: keeps every kernel-5 call (inputs and
+    the kernel's outputs, by reference) for the parity check, and the
+    prologue inputs of the largest call for timing it. Counting stays in
+    the wrapper."""
+
+    def __init__(self):
+        from repro_torch.core.build import merge_kernels as mk
+        from repro_torch.kernels import merge_cover as mc
+        self.calls = []
+        self.prologue = (0, None)
+        kernel, prologue = mc.merge_cover, mk.gather_sorted
+        self._orig = [(mc, "merge_cover", kernel),
+                      (mk, "gather_sorted", prologue)]
+
+        def wrapped_kernel(cb, ce, cx, k, w_out):
+            out = kernel(cb, ce, cx, k, w_out)
+            self.calls.append(((cb, ce, cx, k, w_out), out))
+            return out
+
+        def wrapped_prologue(*args):
+            slots = args[3].shape[0] * max(
+                args[-1], args[3].shape[1] * args[0].shape[1] + 1)
+            if slots > self.prologue[0]:
+                self.prologue = (slots, args)
+            return prologue(*args)
+        mc.merge_cover = wrapped_kernel
+        mk.gather_sorted = wrapped_prologue
+
+    def close(self):
+        for mod, name, fn in self._orig:
+            setattr(mod, name, fn)
+
+
 def _distinct(*ids) -> int:
     import torch
     return int(torch.unique(torch.cat(ids)).numel())
@@ -318,6 +393,16 @@ def work_of(name, args):
                   + _distinct(q * visited.shape[1] + (v >> 5)) * 4
                   + _distinct(q[fresh]) * 4)
         return nbytes, c * 2 + int(valid.sum()) * 10
+    if name == "merge_cover":
+        cb, ce, cx, k, w_out = args
+        rows, m = cb.shape
+        n_valid = (cb != 2**31 - 1).sum(1)
+        valid = int(n_valid.sum())
+        # 12 B per valid slot, the first INVALID begin of a row that has
+        # one, the outputs; ~10 int32 ops per slot for the recurrence
+        nbytes = (valid * 12 + int((n_valid < m).sum()) * 4
+                  + rows * (12 * w_out + 4))
+        return nbytes, valid * 10
     meta_s, meta_t, slab_s, keys, eq = args
     c, k = keys.shape[0], slab_s.shape[1] // 2
     live = keys != 2**31 - 1
@@ -329,11 +414,14 @@ def work_of(name, args):
 def time_kernels(recorded: dict) -> dict:
     from repro_torch.kernels import frontier_fused as ff
     from repro_torch.kernels import interval_stab as st
+    from repro_torch.kernels import merge_cover as mc
     plain = {"stab_packed": st.stab_packed_plain,
              "stab_naive": st.stab_naive_plain,
-             "probe": ff.probe_plain, "classify_emit": ff.classify_emit_plain}
+             "probe": ff.probe_plain, "classify_emit": ff.classify_emit_plain,
+             "merge_cover": mc.merge_cover_plain}
     kernel = {"stab_packed": st.stab_packed, "stab_naive": st.stab_naive,
-              "probe": ff.probe, "classify_emit": ff.classify_emit}
+              "probe": ff.probe, "classify_emit": ff.classify_emit,
+              "merge_cover": mc.merge_cover}
     out = {}
     for name in KERNELS:
         rows, args = recorded[name]
@@ -489,7 +577,128 @@ def main_phase(dev, rec):
     check(bool(ans_p.all()), "main: a positive-workload answer is false")
     hold_to_host(ix, sess, qs, qt, ans, 10_000, "main random")
     profile_window(sess, qs[:1 << 18], qt[:1 << 18], "main random")
-    return counts, calls
+    return counts, calls, dict(g=g, queries=(qs, qt, ps, pt),
+                               answers=(ans, ans_p))
+
+
+def wavefront_phase(dev, rec, main):
+    """The device build of the main graph, then save → load → serve."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.build import pipeline
+    from repro_torch.core.packed import pack_index
+    from repro_torch.kernels import merge_cover as mc
+    from repro_torch.reach import IndexSpec, QuerySession, build, save_index
+    g = main["g"]
+    qs, qt, ps, pt = main["queries"]
+    spec = IndexSpec(builder="wavefront", cover_method="topgap")
+    print(f"wavefront: device build of the main graph ({g.n} nodes), "
+          f"k={spec.k}, {spec.variant}, c={spec.c}, merge_chunk "
+          f"{spec.merge_chunk}", flush=True)
+    drain_s = []
+    drain = pipeline._drain_to_budget
+
+    def timed_drain(*args):
+        t0 = time.perf_counter()
+        out = drain(*args)
+        drain_s.append(time.perf_counter() - t0)
+        return out
+    pipeline._drain_to_budget = timed_drain
+    build_rec = BuildRecorder()
+    reset_counters()
+    rec.reset()
+    try:
+        t0 = time.perf_counter()
+        ix = build(g, spec, device=dev)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+    finally:
+        build_rec.close()
+        pipeline._drain_to_budget = drain
+    t0 = time.perf_counter()
+    pk = pack_index(ix)
+    ell = pk.ell_layout(width=spec.ell_width)
+    t_pack = time.perf_counter() - t0
+    st = ix.stats
+    waves = int(ix.tl.blevel[:ix.tl.n].max()) + 1
+    t_drain = sum(drain_s)
+    print(f"  build {t_build:.1f} s: condense {st.seconds_condense:.2f} s, "
+          f"tree {st.seconds_tree:.2f} s, waves "
+          f"{st.seconds_assign - t_drain:.2f} s, drain {t_drain:.2f} s "
+          f"({st.heap_recover_count} nodes), seeds {st.seconds_seeds:.2f} "
+          f"s, labels + rest {t_build - st.seconds_total:.2f} s; pack "
+          f"{t_pack:.2f} s", flush=True)
+    launches = read_counters()["merge_cover"]
+    print(f"  {st.n_comp} condensed nodes, {waves} waves, hub_nodes "
+          f"{st.hub_nodes}, merge_rounds {st.merge_rounds}, host_fallbacks "
+          f"{st.host_fallbacks}, peak_slab_bytes {st.peak_slab_bytes}, "
+          f"{st.total_intervals} intervals, merge_cover launches "
+          f"{launches} ({len(build_rec.calls)} calls)", flush=True)
+    check(st.hub_nodes >= 1, "wavefront: no hub took the tree reduction")
+    check(st.merge_rounds >= 2, "wavefront: fewer than 2 merge rounds")
+    check(st.host_fallbacks == 0, "wavefront: host fallbacks")
+    check(launches == len(build_rec.calls) > 0,
+          "wavefront: kernel 5 launches differ from the recorded calls")
+
+    # every kernel-5 call of the build against its plain version
+    bad = err = 0
+    for args, out in build_rec.calls:
+        want = mc.merge_cover_plain(*args)
+        bad += sum(int((a != b).sum()) for a, b in zip(out, want))
+        err = max([err] + [int((a.long() - b.long()).abs().max())
+                           for a, b in zip(out, want) if a.numel()])
+    torch.cuda.synchronize()
+    print(f"  parity merge_cover on the build's {len(build_rec.calls)} "
+          f"calls: {bad} mismatches", flush=True)
+    check(bad == 0, "wavefront: kernel 5 disagrees with its plain version")
+    shapes = [(a[0].shape[0], a[0].shape[1]) for a, _ in build_rec.calls]
+    print(f"  kernel-5 calls (rows x m): {shapes}", flush=True)
+    largest = max(build_rec.calls, key=lambda c: c[0][0].numel())[0]
+    m_round = spec.merge_chunk * spec.c * spec.k + 1
+    rounds = [a for a, _ in build_rec.calls if a[0].shape[1] == m_round]
+    few = min(rounds, key=lambda a: a[0].shape[0]) if rounds else None
+    prologue_args = build_rec.prologue[1]
+    build_rec.calls = []
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as path:
+        t0 = time.perf_counter()
+        save_index(path, ix, spec, packed=pk, ell=ell)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sess = QuerySession.load(path, device=dev)
+        t_load = time.perf_counter() - t0
+    print(f"  save_index {t_save:.1f} s, QuerySession.load {t_load:.1f} s; "
+          f"phase 2 {sess.engine.phase2_mode}", flush=True)
+    sess.query(qs[:spec.max_batch], qt[:spec.max_batch])     # warm up
+    ans, _ = serve(sess, qs, qt, "random (loaded)")
+    ans_p, _ = serve(sess, ps, pt, "positive (loaded)")
+    counts = read_counters()
+    print(f"  counts: {counts}", flush=True)
+    want, want_p = main["answers"]
+    diff = int((ans != want).sum()) + int((ans_p != want_p).sum())
+    print(f"  loaded answers against the main phase's: {diff} of "
+          f"{ans.size + ans_p.size} differ", flush=True)
+    check(diff == 0, "wavefront: answers after save/load differ from main")
+    check(bool(ans_p.all()), "wavefront: a positive answer is false")
+
+    # the prologue (gather + stable sort) of the largest call, and the
+    # kernel at the tree round with the fewest rows
+    from repro_torch.core.build import merge_kernels as mk
+    print(f"  time prologue (gather + stable sort) of the largest call "
+          f"({prologue_args[3].shape[0]} groups x {prologue_args[-1]} "
+          f"slots): {device_ms(lambda: mk.gather_sorted(*prologue_args)):.4f}"
+          f" ms (L2 cold)", flush=True)
+    if few is not None:
+        ms = device_ms(lambda: mc.merge_cover(*few))
+        nbytes, ops = work_of("merge_cover", few)
+        print(f"  time merge_cover at the tree round with the fewest rows "
+              f"({few[0].shape[0]} x {few[0].shape[1]}): {ms:.4f} ms, "
+              f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.3e} ms ({nbytes} B)",
+              flush=True)
+    return counts, (largest[0].shape[0], largest)
 
 
 def phase2_phase(dev, rec):
@@ -609,14 +818,17 @@ def main() -> int:
 
     rec = Recorder()
     try:
-        main_counts, main_calls = main_phase(dev, rec)
+        main_counts, main_calls, main_out = main_phase(dev, rec)
+        wf_counts, wf_call = wavefront_phase(dev, rec, main_out)
+        del main_out
         p2_counts, p2_calls = phase2_phase(dev, rec)
         s64_counts, s64_calls = seeds64_phase(dev, rec)
         dense_counts = dense_phase(dev, rec)
     finally:
         rec.close()
-    phase_counts = {"main": main_counts, "phase2": p2_counts,
-                    "seeds64": s64_counts, "dense": dense_counts}
+    phase_counts = {"main": main_counts, "wavefront": wf_counts,
+                    "phase2": p2_counts, "seeds64": s64_counts,
+                    "dense": dense_counts}
     for kname, meta in KERNELS.items():
         n = phase_counts[meta["phase"]][kname]
         print(f"  launches {kname} on its phase ({meta['phase']}): {n}",
@@ -624,6 +836,8 @@ def main() -> int:
         check(n > 0, f"{kname} was not launched on the {meta['phase']} "
               "phase")
     check(dense_counts["stab_packed"] > 0, "dense: kernel 1 not launched")
+    check(wf_counts["stab_packed"] > 0, "wavefront: the loaded index did "
+          "not serve through kernel 1")
     print(f"  sparse steps/syncs on phase2: {p2_counts['sparse_steps']}/"
           f"{p2_counts['sparse_syncs']} (one host sync per BFS step, plus "
           "one per expansion call)", flush=True)
@@ -632,7 +846,8 @@ def main() -> int:
     recorded = {"stab_packed": main_calls["stab_packed"],
                 "stab_naive": s64_calls["stab_naive"],
                 "probe": p2_calls["probe"],
-                "classify_emit": p2_calls["classify_emit"]}
+                "classify_emit": p2_calls["classify_emit"],
+                "merge_cover": wf_call}
     times = time_kernels(recorded)
     rows = []
     for kname, meta in KERNELS.items():

@@ -1,0 +1,338 @@
+"""Staged device construction pipeline.
+
+Stage 0  PLAN    — host: blevel wave schedule (`tree_cover.wavefront_schedule`),
+                   per-wave degree census, and the split of each wave into
+                   *fitting* nodes (single-shot merge) and *hub* nodes
+                   (tree reduction) under the working-width cap ``m_cap``.
+Stage 1  WAVES   — device: for each wave, fitting nodes merge+cover in one
+                   `merge_cover_rows` call sized to THIS wave's max fitting
+                   degree, hub nodes run the chunked tree reduction of
+                   ``tree_merge.py``; both write the fixed-width [n+1, W]
+                   label tables, which live on the device and are updated
+                   in place.
+Stage 2  DRAIN   — host (variant "G" only): post-hoc re-cover of oversized
+                   nodes in stable lowest-out-degree order until the global
+                   budget holds (Alg. 3 semantics, deferred).
+
+Semantics: identical to the host ``assign_intervals(variant="L",
+cover_method="topgap")`` for every node whose merge fan-in fits the working
+width (deg·W + 1 ≤ m_cap). Hub nodes get a sound over-approximation from
+the tree reduction — reach answers are unchanged, and no fan-in is ever
+sent back to the host: ``host_fallbacks`` stays 0 by construction.
+
+Variant "G-posthoc": nodes keep ≤ c·k intervals during the sweep; after all
+levels, lowest-out-degree oversized nodes are re-covered to k until the
+global budget holds (same budget semantics as Alg. 3; parents saw the
+richer c·k sets).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ...graphs.csr import CSR
+from ..tree_cover import TreeLabels, build_tree_labels, wavefront_schedule
+from .merge_kernels import INVALID, merge_cover_rows, slab_bytes
+from .tree_merge import MergeStats, _pow2, ragged, reduce_wave
+
+DEFAULT_MERGE_CHUNK = 64
+# auto-m_cap keeps fan-in up to this degree on the host-bit-identical
+# single-shot path; only genuinely hub-like nodes pay the tree reduction
+SINGLE_SHOT_DEG = 256
+
+
+def effective_widths(w_out: int, merge_chunk: int, m_cap: Optional[int]):
+    """Resolve the (m_cap, chunk) policy for slab width W = w_out.
+
+    ``m_cap`` is the maximum working width (interval slots) any single
+    merge may allocate; ``None`` derives it from ``SINGLE_SHOT_DEG`` (or
+    ``merge_chunk`` if larger), so moderate fan-in keeps the bit-identical
+    single-shot merge and only real hubs tree-reduce. The reduction chunk
+    shrinks to fit an explicit cap. Returns (m_cap, chunk); chunk ≥ 2 or
+    the reduction could not terminate.
+    """
+    if m_cap is None:
+        m_cap = max(merge_chunk, SINGLE_SHOT_DEG) * w_out + 1
+    chunk = min(merge_chunk, (m_cap - 1) // w_out)
+    if chunk < 2:
+        raise ValueError(
+            f"m_cap={m_cap} admits merge chunks of {chunk} rows at slab "
+            f"width {w_out}; need >= 2 (m_cap >= {2 * w_out + 1})")
+    return m_cap, chunk
+
+
+def prior_peak_slab_bytes(deg: np.ndarray, blevel: np.ndarray, w_out: int,
+                          scope: str = "wave") -> int:
+    """Peak working set of the allocation rules this pipeline replaced —
+    the yardstick for memory-regression checks.
+
+    ``scope="wave"``: every wave padded to its OWN max degree with no
+    fit/hub split, so one hub dictates the buffer of its whole wave.
+    ``scope="global"``: the global slab (``max_m = global_max_deg·W + 1``)
+    applied to the busiest wave — the upper bound both rules share.
+    """
+    waves = np.bincount(blevel, minlength=1)
+    if scope == "global":
+        b_pad = _pow2(int(waves.max(initial=1)))
+        d_glob = int(deg.max(initial=0))
+        d_pad = _pow2(d_glob) if d_glob > 0 else 1
+        return slab_bytes(b_pad, d_pad * w_out + 1)
+    if scope != "wave":
+        raise ValueError(f"scope must be 'wave' or 'global', got {scope!r}")
+    peak = 0
+    for lv in range(waves.size):
+        members = blevel == lv
+        if not members.any():
+            continue
+        d_lv = int(deg[members].max(initial=0))
+        d_pad = _pow2(d_lv) if d_lv > 0 else 1
+        b_pad = _pow2(int(members.sum()))
+        peak = max(peak, slab_bytes(b_pad, d_pad * w_out + 1))
+    return peak
+
+
+@dataclass
+class WavefrontIndex:
+    begins: np.ndarray      # [n+1, W] int32 (row n = dummy/empty)
+    ends: np.ndarray
+    exact: np.ndarray       # bool
+    counts: np.ndarray
+    tl: TreeLabels
+    k: int
+    levels: int
+    seconds: float = 0.0
+    # staged-pipeline accounting (MergeStats of both stages)
+    hub_nodes: int = 0
+    merge_rounds: int = 0
+    host_fallbacks: int = 0
+    peak_slab_bytes: int = 0
+    drain_order: List[int] = field(default_factory=list)
+
+
+def build_wavefront(dag: CSR, tl: Optional[TreeLabels] = None, k: int = 2,
+                    c: int = 4, variant: str = "L",
+                    budget: Optional[int] = None,
+                    merge_chunk: int = DEFAULT_MERGE_CHUNK,
+                    m_cap: Optional[int] = None,
+                    device="cuda") -> WavefrontIndex:
+    """Device wavefront construction over blevel waves (sinks first), on
+    ``device`` ("cuda" by default; "cpu" runs kernel 5's plain version)."""
+    from ..query_torch import resolve_device
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    n = dag.n
+    if tl is None:
+        tl = build_tree_labels(dag)
+    w_out = k if variant == "L" else c * k
+    m_cap, chunk = effective_widths(w_out, merge_chunk, m_cap)
+    order, bounds = wavefront_schedule(tl.blevel[:n])
+    deg = dag.degrees()
+    stats = MergeStats()
+
+    i32 = dict(dtype=torch.int32, device=dev)
+    begins = torch.full((n + 1, w_out), INVALID, **i32)
+    ends = torch.full((n + 1, w_out), -1, **i32)
+    exact = torch.zeros((n + 1, w_out), **i32)
+    counts = np.zeros(n + 1, dtype=np.int32)
+
+    tree_b_all = tl.tbegin[:n].astype(np.int32)
+    tree_e_all = tl.pi[:n].astype(np.int32)
+    n_levels = len(bounds) - 1
+    for lv in range(n_levels):
+        nodes = order[bounds[lv]: bounds[lv + 1]]
+        if nodes.size:
+            _merge_wave(begins, ends, exact, counts, nodes, deg[nodes],
+                        m_cap, chunk, dag.indptr, dag.indices, tree_b_all,
+                        tree_e_all, w_out, stats)
+
+    ix = WavefrontIndex(begins=begins.cpu().numpy(), ends=ends.cpu().numpy(),
+                        exact=exact.cpu().numpy() != 0, counts=counts,
+                        tl=tl, k=k, levels=n_levels,
+                        hub_nodes=stats.hub_nodes,
+                        merge_rounds=stats.merge_rounds,
+                        host_fallbacks=stats.host_fallbacks,
+                        peak_slab_bytes=stats.peak_slab_bytes)
+    if variant == "G":
+        ix.drain_order = _drain_to_budget(ix, dag, k, budget or k * n)
+    ix.seconds = time.perf_counter() - t0
+    return ix
+
+
+def _merge_wave(begins, ends, exact, counts, nodes, deg_lv, m_cap: int,
+                chunk: int, indptr, indices, tree_b_all, tree_e_all,
+                w_out: int, stats: MergeStats) -> None:
+    """One wave's merges: the fit/hub split, the single-shot call for
+    fitting nodes, the tree reduction for hubs, and the write of their
+    rows into the device tables (in place; ``counts`` on the host).
+    Written for any subset of a wave's nodes, so an affected-subgraph
+    rebuild can share it with the from-scratch build."""
+    fits = deg_lv * w_out + 1 <= m_cap
+    small, hubs = nodes[fits], nodes[~fits]
+    dev = begins.device
+
+    if small.size:
+        nb, ne, nx, ncnt = _single_shot_wave(
+            begins, ends, exact, small, int(deg_lv[fits].max(initial=0)),
+            indptr, indices, tree_b_all, tree_e_all, w_out, stats)
+        rows = torch.from_numpy(small).to(dev)
+        begins[rows] = nb[: small.size]
+        ends[rows] = ne[: small.size]
+        exact[rows] = nx[: small.size]
+        counts[small] = ncnt[: small.size].cpu().numpy()
+
+    if hubs.size:
+        hb, he, hx, hcnt = reduce_wave(
+            begins, ends, exact, hubs, indptr, indices,
+            tree_b_all[hubs], tree_e_all[hubs], w_out, chunk, stats)
+        rows = torch.from_numpy(hubs).to(dev)
+        begins[rows] = hb
+        ends[rows] = he
+        exact[rows] = hx
+        counts[hubs] = hcnt.cpu().numpy()
+
+
+def _single_shot_wave(begins, ends, exact, nodes, d_max, indptr, indices,
+                      tree_b_all, tree_e_all, w_out: int, stats: MergeStats):
+    """One wave of fitting nodes in one `merge_cover_rows` call.
+
+    The working width is sized to THIS wave's max fitting degree (bucketed
+    to powers of two), not to the global max degree; pad groups point at
+    the dummy row and carry no tree interval, so they come out empty.
+    """
+    dev = begins.device
+    n_dummy = begins.shape[0] - 1
+    d_pad = _pow2(d_max) if d_max > 0 else 1
+    b_pad = _pow2(nodes.size)
+    deg = (indptr[nodes + 1] - indptr[nodes]).astype(np.int64)
+    owner, pos = ragged(deg)
+    succ = np.full((b_pad, d_pad), n_dummy, dtype=np.int64)
+    succ[owner, pos] = indices[indptr[nodes][owner] + pos]
+    tb = np.full(b_pad, INVALID, dtype=np.int32)
+    te = np.full(b_pad, -1, dtype=np.int32)
+    tb[: nodes.size] = tree_b_all[nodes]
+    te[: nodes.size] = tree_e_all[nodes]
+    m_pad = d_pad * w_out + 1
+    stats.record(b_pad, m_pad)
+    return merge_cover_rows(begins, ends, exact,
+                            torch.from_numpy(succ).to(dev),
+                            torch.from_numpy(tb).to(dev),
+                            torch.from_numpy(te).to(dev),
+                            k=w_out, w_out=w_out, m=m_pad)
+
+
+def _drain_to_budget(ix: WavefrontIndex, dag: CSR, k: int,
+                     budget: int) -> List[int]:
+    """Post-hoc global draining: re-cover lowest-out-degree oversized nodes
+    to ≤ k until the total fits the budget (Alg. 3 semantics, deferred).
+    Returns the drained node ids in drain order (stable lowest-out-degree
+    first)."""
+    from .. import cover as cov
+    from .. import intervals as iv
+    drained: List[int] = []
+    total = int(ix.counts[:-1].sum())
+    if total <= budget:
+        return drained
+    deg = dag.degrees()
+    oversized = np.flatnonzero(ix.counts[:-1] > k)
+    for v in oversized[np.argsort(deg[oversized], kind="stable")]:
+        v = int(v)
+        c = int(ix.counts[v])
+        s = iv.make_set(ix.begins[v, :c], ix.ends[v, :c], ix.exact[v, :c])
+        cv = cov.cover(s, k, method="topgap")
+        nc = iv.size(cv)
+        ix.begins[v, :] = INVALID
+        ix.ends[v, :] = -1
+        ix.exact[v, :] = False
+        ix.begins[v, :nc] = cv[0]
+        ix.ends[v, :nc] = cv[1]
+        ix.exact[v, :nc] = cv[2]
+        total += nc - c
+        ix.counts[v] = nc
+        drained.append(v)
+        if total <= budget:
+            break
+    return drained
+
+
+def labels_from_wavefront(ix: WavefrontIndex):
+    """Per-node IntervalSets (for equivalence tests vs the host build)."""
+    from .. import intervals as iv
+    out = []
+    for v in range(ix.tl.n):
+        c = int(ix.counts[v])
+        out.append(iv.make_set(ix.begins[v, :c], ix.ends[v, :c],
+                               ix.exact[v, :c]))
+    return out
+
+
+def build_index_device(g: CSR, k: int = 2, variant: str = "G", c: int = 4,
+                       cover_method: str = "topgap", n_seeds: int = 32,
+                       use_seeds: bool = True, precondensed: bool = False,
+                       merge_chunk: int = DEFAULT_MERGE_CHUNK,
+                       m_cap: Optional[int] = None,
+                       budget: Optional[int] = None, device="cuda"):
+    """End-to-end device construction producing a host-queryable
+    ``FerrariIndex`` — the `builder="wavefront"` target of ``reach.build``.
+
+    Same pipeline shape as ``core.ferrari.build_index`` (condense → tree
+    cover → interval assignment → seeds) with the assignment stage replaced
+    by the staged device pipeline above, on ``device``. Device covering is
+    top-gap; ``cover_method`` must be "topgap".
+    """
+    from .. import intervals as iv
+    from ..ferrari import BuildStats, FerrariIndex
+    from ..query_torch import resolve_device
+    from ..scc import Condensation, condense
+    from ..seeds import build_seed_labels
+    if variant not in ("L", "G"):
+        raise ValueError("builder='wavefront' supports variants 'L'/'G' "
+                         f"(got {variant!r}); use the host builder for "
+                         "the k=None full baseline")
+    if cover_method != "topgap":
+        raise ValueError("the device builder covers with 'topgap' only "
+                         f"(got cover_method={cover_method!r})")
+    dev = resolve_device(device)
+    st = BuildStats(n=g.n, m=g.m, budget=k * g.n, builder="wavefront")
+
+    t0 = time.perf_counter()
+    if precondensed:
+        cond = Condensation(comp=np.arange(g.n, dtype=np.int32),
+                            n_comp=g.n, dag=g,
+                            comp_size=np.ones(g.n, dtype=np.int64))
+    else:
+        cond = condense(g)
+    st.seconds_condense = time.perf_counter() - t0
+    st.n_comp = cond.n_comp
+
+    t0 = time.perf_counter()
+    tl = build_tree_labels(cond.dag)
+    st.seconds_tree = time.perf_counter() - t0
+
+    wf = build_wavefront(cond.dag, tl, k=k, c=c, variant=variant,
+                         budget=budget, merge_chunk=merge_chunk, m_cap=m_cap,
+                         device=dev)
+    st.seconds_assign = wf.seconds
+    st.heap_recover_count = len(wf.drain_order)
+    st.hub_nodes = wf.hub_nodes
+    st.merge_rounds = wf.merge_rounds
+    st.host_fallbacks = wf.host_fallbacks
+    st.peak_slab_bytes = wf.peak_slab_bytes
+
+    n_aug = tl.n + 1
+    labels = labels_from_wavefront(wf)
+    labels.append(iv.single(1, n_aug, True))        # virtual root
+    st.total_intervals = int(wf.counts[:-1].sum()) + 1
+    st.exact_intervals = sum(int(np.sum(s[2])) for s in labels)
+
+    seeds = None
+    if use_seeds:
+        t0 = time.perf_counter()
+        seeds = build_seed_labels(cond.dag, n_seeds=n_seeds)
+        st.seconds_seeds = time.perf_counter() - t0
+
+    return FerrariIndex(cond=cond, tl=tl, labels=labels, seeds=seeds, k=k,
+                        variant=variant, stats=st)

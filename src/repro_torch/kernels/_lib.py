@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("interval_stab.cu", "frontier.cu")
+SOURCES = ("interval_stab.cu", "frontier.cu", "merge_cover.cu")
 HEADERS = ("verdict.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,6 +37,7 @@ SIGNATURES = {
     "reach_stab_naive": [_P] * 11 + [_I64, _I32, _I32, _P],
     "reach_probe": [_P] * 6 + [_I64, _I64, _I32, _P],
     "reach_classify_emit": [_P] * 7 + [_I64, _I32, _P],
+    "reach_merge_cover": [_P] * 7 + [_I64, _I32, _I32, _I32, _P],
 }
 
 
@@ -48,7 +49,8 @@ class Counters(dict):
             self[key] = 0
 
 
-LAUNCHES = Counters(stab_packed=0, stab_naive=0, probe=0, classify_emit=0)
+LAUNCHES = Counters(stab_packed=0, stab_naive=0, probe=0, classify_emit=0,
+                    merge_cover=0)
 
 
 class _Library:

@@ -15,7 +15,10 @@ evolution as the reference's ``expand_frontier_loop_fused``:
              then a fixed-size sorted unique with SENTINEL fill. A raw
              survivor count above cap+1 raises the overflow flag (the
              reference's conservative rule), as does a live key in slot
-             ``cap``.
+             ``cap``. With ``distinct_overflow`` (the 12-array layout,
+             where the reference runs its XLA loop) the unique runs over
+             all survivors instead and only a live key in slot ``cap``
+             (more than cap distinct keys) overflows.
   classify — kernel 4: the phase-1 packed verdict on the survivors, the
              s == t early positive, and the next-frontier emit. Replaces
              the reference's ``_classify_emit_kernel``.
@@ -124,7 +127,8 @@ def unique_fixed(x):
 def expand_frontier_loop_fused(ell, tail_src, tail_dst, is_hub, cs, ct,
                                pad, *, n_nodes: int, max_steps: int,
                                cap: int, gather_rows, fetch_rows,
-                               classify=classify_emit):
+                               classify=classify_emit,
+                               distinct_overflow: bool = False):
     """The fused-step BFS loop over one chunk of Q queries.
 
     ell [n, W], tail_src/tail_dst [m_t], cs/ct [Q] int32; is_hub [n] and
@@ -132,7 +136,10 @@ def expand_frontier_loop_fused(ell, tail_src, tail_dst, is_hub, cs, ct,
     id; ``fetch_rows(cands, tgts)`` returns the operands that
     ``classify(*operands, keys, eq)`` turns into (verdict, front) — the
     gathered meta/slab rows for kernel 4 on one device. Both hooks stay
-    pluggable for a sharded placement. Returns (pos [Q] bool, overflow).
+    pluggable for a sharded placement. ``distinct_overflow`` selects the
+    overflow rule of the reference's XLA loop (``kernels/frontier.py``):
+    overflow iff more than ``cap`` distinct survivor keys. Returns
+    (pos [Q] bool, overflow).
     """
     n, w = n_nodes, ell.shape[1]
     q = cs.shape[0]
@@ -180,15 +187,21 @@ def expand_frontier_loop_fused(ell, tail_src, tail_dst, is_hub, cs, ct,
             ok = torch.cat([ok, (act == 1).reshape(-1)])
         keys = probe(cq.contiguous(), cv.contiguous(), ok.to(torch.int32),
                      visited, pos, vbits)
-        # O(C) compaction into cap+1 slots, then a small sorted unique
-        emit = keys != SENTINEL
-        raw = emit.sum()
-        slot = torch.cumsum(emit, 0) - 1
-        slot = torch.where(emit & (slot <= cap), slot, cap + 1)
-        compacted = torch.full((cap + 2,), SENTINEL, **i32).scatter_(
-            0, slot, keys)[:cap + 1]
-        uniq = unique_fixed(compacted)
-        overflow = overflow | (raw > cap + 1) | (uniq[cap] != SENTINEL)
+        if distinct_overflow:
+            # the XLA loop's rule: a sorted unique of every survivor
+            uniq = unique_fixed(torch.cat(
+                [keys, torch.full((cap + 1,), SENTINEL, **i32)]))[:cap + 1]
+            overflow = overflow | (uniq[cap] != SENTINEL)
+        else:
+            # O(C) compaction into cap+1 slots, then a small sorted unique
+            emit = keys != SENTINEL
+            raw = emit.sum()
+            slot = torch.cumsum(emit, 0) - 1
+            slot = torch.where(emit & (slot <= cap), slot, cap + 1)
+            compacted = torch.full((cap + 2,), SENTINEL, **i32).scatter_(
+                0, slot, keys)[:cap + 1]
+            uniq = unique_fixed(compacted)
+            overflow = overflow | (raw > cap + 1) | (uniq[cap] != SENTINEL)
         new = uniq[:cap]
         nvalid = new != SENTINEL
         nq = torch.where(nvalid, new >> vbits, 0)

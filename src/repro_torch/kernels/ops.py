@@ -51,8 +51,11 @@ def expand_frontier(dev: dict, ell, tail_src, tail_dst, is_hub, cs, ct,
     The fused layout classifies survivors with kernel 4 on their gathered
     meta/slab rows; the 12-array layout (multi-word seeds or n > 2**24)
     classifies them with kernel 2, which gathers its own rows, followed
-    by the same emit rule."""
-    if "slab" in dev:
+    by the same emit rule, and overflows by the reference's XLA-loop rule
+    (more than ``cap`` distinct survivors), which is the loop the
+    reference runs there."""
+    fused = "slab" in dev
+    if fused:
         meta, slab = dev["meta"], dev["slab"]
 
         def fetch_rows(cands, tgts):
@@ -74,4 +77,5 @@ def expand_frontier(dev: dict, ell, tail_src, tail_dst, is_hub, cs, ct,
         ell, tail_src, tail_dst, is_hub, cs, ct, pad,
         n_nodes=ell.shape[0], max_steps=max_steps, cap=cap,
         gather_rows=lambda table, ids: table[ids.long()],
-        fetch_rows=fetch_rows, classify=classify)
+        fetch_rows=fetch_rows, classify=classify,
+        distinct_overflow=not fused)

@@ -1,46 +1,91 @@
 """Reachability serving driver of the PyTorch/CUDA port.
 
-Builds a FERRARI index over a synthetic scale-free graph on the host, then
+Builds a FERRARI index over a synthetic scale-free graph — on the host
+(``--builder host``) or on the device (``--builder wavefront
+--cover-method topgap``, kernel 5 on a card) — or loads a saved one, then
 serves a query stream through ``repro_torch.reach.QuerySession`` on one
 device: phase 1 and the sparse phase 2 run the CUDA kernels on a card.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --mode reachability \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode reachability \
         --nodes 20000 --queries 100000 --k 2 --device cuda
 
-``--device cpu`` runs the kernels' plain PyTorch versions instead.
+``--index-dir DIR`` loads the artifact committed there, or builds and
+saves one (first run builds, reruns load). ``--device cpu`` runs the
+kernels' plain PyTorch versions instead.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import replace
+from pathlib import Path
 
 from ..core.packed import pack_index
 from ..core.workload import positive_queries, random_queries
 from ..graphs.generators import scale_free_digraph
-from ..reach import IndexSpec, QuerySession, build
+from ..reach import (IndexSpec, QuerySession, build, load_manifest,
+                     save_index)
+from ..reach.spec import BUILD_FIELDS
+
+
+def _load_session(index_dir, spec: IndexSpec, graph_meta: dict, n: int,
+                  device) -> QuerySession:
+    """A session on the artifact under ``index_dir``. Build knobs come
+    from the artifact's manifest (they are baked into it); the serve-time
+    knobs of ``spec`` still apply, and ``ell_width`` adopts the saved
+    value when ``spec`` leaves it None, so the saved ELL layout is reused.
+    An artifact built over another graph is refused."""
+    saved = load_manifest(index_dir)["extra"].get("spec")
+    if saved is not None:
+        saved_spec = IndexSpec.from_dict(saved)
+        merged = {f: getattr(saved_spec, f) for f in BUILD_FIELDS}
+        if spec.ell_width is None:
+            merged["ell_width"] = saved_spec.ell_width
+        dropped = {f: (getattr(spec, f), v) for f, v in merged.items()
+                   if getattr(spec, f) != v}
+        if dropped:
+            print("note: taking build knobs from the artifact: "
+                  + ", ".join(f"{f}: {cli!r} -> {art!r}"
+                              for f, (cli, art) in dropped.items()),
+                  flush=True)
+        spec = replace(spec, **merged)
+    sess = QuerySession.load(index_dir, spec, device=device)
+    # an index answers only for the graph it was built over
+    saved_graph = sess.artifact_manifest["extra"].get(
+        "user_meta", {}).get("graph")
+    if saved_graph is not None and saved_graph != graph_meta:
+        raise ValueError(
+            f"index artifact at {index_dir} was built over {saved_graph}, "
+            f"not {graph_meta}; rebuild it or point --index-dir elsewhere")
+    if sess.index.cond.comp.shape[0] != n:
+        raise ValueError(
+            f"index artifact at {index_dir} covers "
+            f"{sess.index.cond.comp.shape[0]} nodes, graph has {n}")
+    return sess
 
 
 def serve_reachability(n_nodes: int, avg_deg: float, n_queries: int,
                        spec: IndexSpec, *, seed: int = 0,
-                       workload: str = "random", device="cuda") -> dict:
-    """Build, warm up, then serve ``n_queries`` of ``workload`` once,
-    timed. Returns the wall time, ns/query, positives and SessionStats."""
+                       workload: str = "random", device="cuda",
+                       index_dir=None) -> dict:
+    """Build (or load from ``index_dir``), warm up, then serve
+    ``n_queries`` of ``workload`` once, timed. Returns the wall time,
+    ns/query, positives and SessionStats."""
     print(f"building graph n={n_nodes} avg_deg={avg_deg} ...", flush=True)
     g = scale_free_digraph(n_nodes, avg_deg, seed=seed)
+    graph_meta = {"generator": "scale_free_digraph", "n_nodes": n_nodes,
+                  "avg_deg": avg_deg, "seed": seed}
     t0 = time.perf_counter()
-    ix = build(g, spec)
-    # pack once and share the ELL layout with the session (both are O(n)
-    # host loops); it is built only when phase 2 resolves to sparse
-    pk = pack_index(ix)
-    t_build = time.perf_counter() - t0
-    print(f"index built in {t_build:.2f}s: {ix.stats.n_comp} SCCs, "
-          f"{ix.stats.total_intervals} intervals "
-          f"({ix.byte_size() / 2**20:.1f} MiB)", flush=True)
-    p2 = spec.phase2_mode
-    if p2 == "auto":
-        p2 = "dense" if pk.n <= spec.n_dense_max else "sparse"
-    ell = pk.ell_layout(width=spec.ell_width) if p2 == "sparse" else None
-    sess = QuerySession(ix, spec, packed=pk, ell=ell, device=device)
+    loaded = index_dir is not None and any(Path(index_dir).glob(
+        "step_*.done"))
+    if loaded:
+        sess = _load_session(index_dir, spec, graph_meta, g.n, device)
+        spec = sess.spec
+        t_build = time.perf_counter() - t0
+        print(f"index loaded from {index_dir} in {t_build:.2f}s", flush=True)
+    else:
+        sess, t_build = _build_session(g, spec, device, index_dir,
+                                       graph_meta)
     print(f"device: {sess.engine.device}; phase-2 engine: "
           f"{sess.engine.phase2_mode}", flush=True)
     qs, qt = (random_queries if workload == "random"
@@ -62,7 +107,42 @@ def serve_reachability(n_nodes: int, avg_deg: float, n_queries: int,
     print(f"phase stats: {stats}")
     return {"seconds": dt, "ns_per_query": dt / n_queries * 1e9,
             "positive": pos, "stats": stats, "build_seconds": t_build,
-            "trace_count": sess.trace_count, "spec": spec}
+            "trace_count": sess.trace_count, "spec": spec,
+            "loaded": loaded}
+
+
+def _build_session(g, spec: IndexSpec, device, index_dir, graph_meta):
+    """Build the index (on ``device`` for the wavefront builder), pack it
+    once for the session and the artifact, and save it to ``index_dir``
+    when given. Returns (session, build seconds)."""
+    t0 = time.perf_counter()
+    ix = build(g, spec, device=device)
+    t_build = time.perf_counter() - t0
+    print(f"index built in {t_build:.2f}s ({spec.builder}): "
+          f"{ix.stats.n_comp} SCCs, {ix.stats.total_intervals} intervals "
+          f"({ix.byte_size() / 2**20:.1f} MiB)", flush=True)
+    if spec.builder == "wavefront":
+        # hub fan-in stays on the device
+        print(f"wavefront build: {ix.stats.hub_nodes} hub nodes, "
+              f"{ix.stats.merge_rounds} merge rounds, "
+              f"{ix.stats.host_fallbacks} host fallbacks, "
+              f"peak slab {ix.stats.peak_slab_bytes / 2**20:.1f} MiB",
+              flush=True)
+    # pack once and share between the session and the artifact (both are
+    # O(n) host loops); the ELL layout is built only when something uses
+    # it: a saved artifact, or a sparse phase 2
+    pk = pack_index(ix)
+    p2 = spec.phase2_mode
+    if p2 == "auto":
+        p2 = "dense" if pk.n <= spec.n_dense_max else "sparse"
+    ell = (pk.ell_layout(width=spec.ell_width)
+           if index_dir is not None or p2 == "sparse" else None)
+    sess = QuerySession(ix, spec, packed=pk, ell=ell, device=device)
+    if index_dir is not None:
+        save_index(index_dir, ix, spec, meta={"graph": graph_meta},
+                   packed=pk, ell=ell)
+        print(f"index saved to {index_dir}", flush=True)
+    return sess, time.perf_counter() - t0
 
 
 def main(argv=None):
@@ -78,13 +158,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (their plain "
                          "PyTorch versions)")
+    ap.add_argument("--index-dir", default=None,
+                    help="load the index artifact committed here, or "
+                         "build and save one")
     IndexSpec.add_cli_args(ap)       # --k --variant --phase2 --max-batch ...
     args = ap.parse_args(argv)
     # clamp before construction: IndexSpec validates max_batch >= min_bucket
     args.min_bucket = min(args.min_bucket, args.max_batch)
     return serve_reachability(args.nodes, args.avg_deg, args.queries,
                               IndexSpec.from_args(args), seed=args.seed,
-                              workload=args.workload, device=args.device)
+                              workload=args.workload, device=args.device,
+                              index_dir=args.index_dir)
 
 
 if __name__ == "__main__":

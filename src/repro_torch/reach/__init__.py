@@ -8,12 +8,20 @@
     answers = sess.query(srcs, dsts)             # bucketed micro-batches
     print(sess.stats)                            # SessionStats
 
-``index_from_arrays`` rebuilds an index from the leaves of an artifact
-saved by the reference package.
+    spec = reach.IndexSpec(builder="wavefront", cover_method="topgap")
+    ix = reach.build(g, spec)                    # device build, on the card
+    reach.save_index(path, ix, spec)             # artifact on disk
+    sess = reach.QuerySession.load(path)         # serve it again later
+
+Artifacts share the reference package's format; ``index_from_arrays``
+rebuilds an index from an artifact's leaves.
 """
 from .convert import index_from_arrays                      # noqa: F401
+from .persist import (IndexArtifact, load_index,            # noqa: F401
+                      load_manifest, save_index)
 from .session import QuerySession, SessionStats             # noqa: F401
 from .spec import IndexSpec, build, make_engine             # noqa: F401
 
 __all__ = ["IndexSpec", "build", "make_engine", "QuerySession",
-           "SessionStats", "index_from_arrays"]
+           "SessionStats", "index_from_arrays", "IndexArtifact",
+           "save_index", "load_index", "load_manifest"]

@@ -7,6 +7,7 @@ they resolve in phase 1 by the [s] == [t] early-positive rule, never reach
 phase 2, and their deterministic contribution is subtracted from the
 session statistics.
 
+``QuerySession.load(path)`` opens a session on a saved index artifact.
 ``submit()``/``drain()`` coalesce many small requests into full
 micro-batches (capped at ``spec.max_batch``); ``stage()``/``begin()``/
 ``finish()`` split one batch into host→device copy, phase-1 launch and
@@ -88,7 +89,32 @@ class QuerySession:
                                         ell=ell, device=device))
         self._pending: List[Tuple[int, np.ndarray, np.ndarray]] = []
         self._next_ticket = 0
+        self.artifact_manifest: Optional[dict] = None   # set by load()
+        self.epoch = 0                # graph epoch of a loaded artifact
         self.reset_stats()
+
+    # ------------------------------------------------------------- loading
+    @classmethod
+    def load(cls, path, spec: Optional[IndexSpec] = None,
+             device="cuda") -> "QuerySession":
+        """Open a session on ``device`` over a persisted index artifact
+        (``reach.persist``), written by this package or the reference.
+
+        ``spec`` overrides the spec stored with the artifact; the stored
+        ELL layout is reused only when its width still matches. An
+        artifact with logged edge inserts for its epoch is refused
+        (``NotImplementedError``): replaying them needs live updates.
+        """
+        from .persist import load_index
+        art = load_index(path)
+        saved_width = None if art.spec is None else art.spec.ell_width
+        use_spec = spec if spec is not None else (art.spec or IndexSpec())
+        ell = art.ell if use_spec.ell_width == saved_width else None
+        sess = cls(art.index, use_spec, packed=art.packed, ell=ell,
+                   device=device)
+        sess.artifact_manifest = art.manifest
+        sess.epoch = art.epoch
+        return sess
 
     # ------------------------------------------------------------ querying
     def query(self, srcs, dsts) -> np.ndarray:

@@ -7,13 +7,15 @@ AND serve-time knob in one validated value that round-trips through dicts
 are those of the reference package's ``IndexSpec``, so a manifest's
 ``spec`` dict written there loads here through ``from_dict``.
 
-This port serves one device. ``build`` runs the host builder only, and
-``make_engine`` the single placement only; the other choices raise
+This port serves one device. ``build`` runs the host builder or the
+staged device builder (``builder="wavefront"``, on ``device``), and
+``make_engine`` the single placement only; the other placements raise
 ``NotImplementedError``. ``kernel_impl`` and ``use_pallas`` keep their
 names so manifests round-trip, but choose nothing beyond the device: on a
 CUDA device the hand-written kernels run, and a spec that asks for the
 XLA path (``kernel_impl="xla"``) or the no-kernel path
-(``use_pallas=False``) is refused there.
+(``use_pallas=False``) is refused there, by the device build as by the
+engine.
 """
 from __future__ import annotations
 
@@ -347,13 +349,36 @@ class IndexSpec:
 
 # ---------------------------------------------------------------- facade --
 
-def build(g, spec: IndexSpec = IndexSpec()):
-    """Build a :class:`~repro_torch.core.ferrari.FerrariIndex` from a spec
-    with the paper-faithful host sweep (``core.ferrari.build_index``).
-    The staged device builder (``builder="wavefront"``) is not ported."""
-    if spec.builder != "host":
-        raise NotImplementedError(
-            f"builder={spec.builder!r} is not ported; use builder='host'")
+def _refuse_plain_path(spec: IndexSpec, dev) -> None:
+    """On a CUDA device the port runs its CUDA kernels only."""
+    if dev.type == "cuda" and (spec.kernel_impl == "xla"
+                               or not spec.use_pallas):
+        raise ValueError(
+            "on a CUDA device the port runs its CUDA kernels only; "
+            f"kernel_impl={spec.kernel_impl!r}, use_pallas={spec.use_pallas} "
+            "asks for a path it does not have")
+
+
+def build(g, spec: IndexSpec = IndexSpec(), device="cuda"):
+    """Build a :class:`~repro_torch.core.ferrari.FerrariIndex` from a spec.
+
+    ``spec.builder`` picks the constructor: ``"host"`` is the
+    paper-faithful numpy sweep (``core.ferrari.build_index``; ``device``
+    is not used); ``"wavefront"`` is the staged device pipeline
+    (``core.build.build_index_device``) on ``device`` — per-level-sized
+    wave merges plus the chunked tree reduction for hub fan-in, through
+    kernel 5 on a card — governed by ``merge_chunk`` / ``m_cap``.
+    """
+    if spec.builder == "wavefront":
+        from ..core.build import build_index_device
+        from ..core.query_torch import resolve_device
+        dev = resolve_device(device)
+        _refuse_plain_path(spec, dev)
+        return build_index_device(
+            g, k=spec.k, variant=spec.variant, c=spec.c,
+            cover_method=spec.cover_method, n_seeds=spec.n_seeds,
+            use_seeds=spec.use_seeds, precondensed=spec.precondensed,
+            merge_chunk=spec.merge_chunk, m_cap=spec.m_cap, device=dev)
     from ..core.ferrari import build_index
     variant = "G" if spec.variant == "full" else spec.variant
     return build_index(g, k=spec.k, variant=variant, c=spec.c,
@@ -372,12 +397,7 @@ def make_engine(index, spec: IndexSpec = IndexSpec(), *, packed=None,
             f"placement={spec.placement!r} is not ported; use 'single'")
     from ..core.query_torch import DeviceQueryEngine, resolve_device
     dev = resolve_device(device)
-    if dev.type == "cuda" and (spec.kernel_impl == "xla"
-                               or not spec.use_pallas):
-        raise ValueError(
-            "on a CUDA device the port runs its CUDA kernels only; "
-            f"kernel_impl={spec.kernel_impl!r}, use_pallas={spec.use_pallas} "
-            "asks for a path it does not have")
+    _refuse_plain_path(spec, dev)
     return DeviceQueryEngine(
         index, n_dense_max=spec.n_dense_max, phase2_chunk=spec.phase2_chunk,
         phase2_mode=spec.phase2_mode, ell_width=spec.ell_width,

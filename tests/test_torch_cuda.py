@@ -12,14 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.build import build_wavefront
 from repro_torch.core.query_torch import DeviceQueryEngine
 from repro_torch.core.workload import random_queries
-from repro_torch.graphs.generators import layered_dag, scale_free_digraph
+from repro_torch.graphs.generators import (add_hub_edges, layered_dag,
+                                           scale_free_digraph)
 from repro_torch.kernels import _lib
 from repro_torch.kernels import frontier_fused as ff
 from repro_torch.kernels.interval_stab import (stab_naive, stab_naive_plain,
                                                stab_packed,
                                                stab_packed_plain)
+from repro_torch.kernels.merge_cover import merge_cover, merge_cover_plain
 from repro_torch.reach import IndexSpec, QuerySession, build
 
 pytestmark = pytest.mark.cuda
@@ -192,3 +195,68 @@ def test_naive_layout_sparse_on_card_matches_cpu(dev):
     assert asdict(sess.engine.stats) == asdict(cpu.engine.stats)
     assert sess.stats.phase2_sparse > 0
     assert _lib.LAUNCHES["stab_naive"] > 0 and _lib.LAUNCHES["probe"] > 0
+
+
+def _cover_rows(rng, rows, m, spread):
+    """Begin-sorted rows with INVALID tails: empty rows, equal begins,
+    touching intervals, equal gaps, and begins next to INVALID."""
+    n_iv = rng.integers(0, m + 1, rows)
+    n_iv[::7] = 0
+    b = np.sort(rng.integers(0, spread, (rows, m)), axis=1)
+    b[1::5] = b[1::5, :1]                                # all begins equal
+    b[2::5] = 9 * np.arange(m)                           # equal gaps
+    e = b + rng.integers(0, 6, (rows, m))
+    e[3::5] = b[3::5] + 2                                # touching runs
+    b[4::11] = SENTINEL - 1 - np.arange(m)[::-1]         # near INVALID
+    e[4::11] = b[4::11]
+    x = rng.random((rows, m)) < 0.5
+    dead = np.arange(m)[None, :] >= n_iv[:, None]
+    return [_i32(a) for a in (np.where(dead, SENTINEL, b),
+                              np.where(dead, -1, e), x & ~dead)]
+
+
+@pytest.mark.parametrize("m,k,w_out", [(1, 1, 1), (9, 2, 2), (9, 8, 8),
+                                       (65, 8, 8), (513, 8, 8),
+                                       (2049, 32, 32), (65, 12, 8),
+                                       (33, 3, 32)])
+def test_merge_cover_matches_plain(dev, m, k, w_out):
+    rng = np.random.default_rng(m + k)
+    rows = 20_000 if m < 100 else 600
+    args = _cover_rows(rng, rows, m, spread=8 * m)
+    before = _lib.LAUNCHES["merge_cover"]
+    _same(merge_cover(*(a.to(dev) for a in args), k, w_out),
+          merge_cover_plain(*args, k, w_out))
+    assert _lib.LAUNCHES["merge_cover"] == before + 1
+    with pytest.raises(ValueError):
+        merge_cover(*(a.to(dev) for a in args), 40, w_out)
+
+
+@pytest.mark.parametrize("variant", ["L", "G"])
+def test_wavefront_build_on_card_matches_cpu(dev, variant):
+    g = add_hub_edges(layered_dag(3000, 12, 3.0, seed=4), 700, seed=5)
+    kw = dict(k=2, variant=variant, merge_chunk=8, m_cap=129)
+    want = build_wavefront(g, device="cpu", **kw)
+    before = _lib.LAUNCHES["merge_cover"]
+    got = build_wavefront(g, **kw)                  # device="cuda" default
+    assert _lib.LAUNCHES["merge_cover"] > before
+    assert got.hub_nodes >= 1 and got.merge_rounds >= 2
+    for name in ("begins", "ends", "exact", "counts"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    for name in ("drain_order", "hub_nodes", "merge_rounds",
+                 "host_fallbacks", "peak_slab_bytes"):
+        assert getattr(got, name) == getattr(want, name)
+
+
+def test_device_build_save_load_on_card(dev, tmp_path):
+    from repro_torch.reach import save_index
+    g = add_hub_edges(scale_free_digraph(20_000, 3.0, seed=1), 3000, seed=2)
+    spec = IndexSpec(builder="wavefront", cover_method="topgap")
+    ix = build(g, spec)                              # on the card
+    assert ix.stats.hub_nodes >= 1 and ix.stats.host_fallbacks == 0
+    save_index(tmp_path, ix, spec)
+    qs, qt = random_queries(g, 20_000, seed=3)
+    want = QuerySession(build(g, IndexSpec()), IndexSpec(),
+                        device="cpu").query(qs, qt)
+    sess = QuerySession.load(tmp_path)               # on the card
+    assert sess.engine.device.type == "cuda"
+    np.testing.assert_array_equal(sess.query(qs, qt), want)

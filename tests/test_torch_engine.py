@@ -234,9 +234,6 @@ def test_spec_dict_roundtrips_reference_manifest(spec_kw):
 
 def test_unported_choices_raise():
     g = ref_gen.random_dag(100, 2.0, seed=0)
-    with pytest.raises(NotImplementedError):
-        reach.build(g, reach.IndexSpec(builder="wavefront",
-                                       cover_method="topgap"))
     ix = reach.build(g)
     with pytest.raises(NotImplementedError):
         reach.make_engine(ix, reach.IndexSpec(placement="replicated"),
@@ -253,6 +250,9 @@ def test_no_cuda_means_no_silent_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         reach.QuerySession(ix)
     assert reach.QuerySession(ix, device="cpu").engine.device.type == "cpu"
+    wavefront = reach.IndexSpec(builder="wavefront", cover_method="topgap")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reach.build(ref_gen.random_dag(100, 2.0, seed=0), wavefront)
 
 
 @pytest.mark.parametrize("spec_kw", [dict(kernel_impl="xla"),
@@ -262,5 +262,10 @@ def test_card_refuses_plain_paths(monkeypatch, spec_kw):
     ix = reach.build(ref_gen.random_dag(100, 2.0, seed=0))
     with pytest.raises(ValueError, match="CUDA kernels only"):
         reach.make_engine(ix, reach.IndexSpec(**spec_kw), device="cuda:0")
+    with pytest.raises(ValueError, match="CUDA kernels only"):
+        reach.build(ref_gen.random_dag(100, 2.0, seed=0),
+                    reach.IndexSpec(builder="wavefront",
+                                    cover_method="topgap", **spec_kw),
+                    device="cuda:0")
     # the CPU runs the plain versions whatever these two fields say
     reach.make_engine(ix, reach.IndexSpec(**spec_kw), device="cpu")

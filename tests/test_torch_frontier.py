@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import reach as ref_reach
 from repro.core.ferrari import build_index as ref_build
 from repro.core.packed import pack_index as ref_pack
 from repro.core.query import brute_force_closure
@@ -19,6 +20,7 @@ from repro.kernels.frontier_fused import (_classify_call, _probe_kernel,
                                           _row_call)
 from repro.kernels.frontier_fused import \
     expand_frontier_fused as ref_expand_fused
+from repro_torch import reach
 from repro_torch.core.ferrari import build_index
 from repro_torch.core.packed import pack_index
 from repro_torch.core.workload import positive_queries, random_queries
@@ -126,6 +128,31 @@ def test_loop_naive_layout_matches_reference_xla():
                           max_steps=p.n, cap=1 << 16)
     assert not got[1] and not bool(want[1])
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def test_naive_layout_overflow_rule_matches_reference_session():
+    """64 seeds, k=1: the 12-array layout, where the reference runs its XLA
+    loop, which overflows only on more than ``cap`` DISTINCT survivors.
+    Here duplicate candidates push the raw survivor count past cap+1
+    (the fused loop's conservative rule) while the distinct keys fit, so
+    the reference does not retry, and neither may the port."""
+    kw = dict(k=1, n_seeds=64, phase2_mode="sparse", phase2_chunk=16,
+              frontier_cap=300, ell_width=8)
+    g = gen.layered_dag(400, 8, 8.0, seed=1)
+    qs, qt = random_queries(g, 1024, seed=1)
+    spec_ref = ref_reach.IndexSpec(**kw)
+    want_sess = ref_reach.QuerySession(
+        ref_reach.build(ref_gen.layered_dag(400, 8, 8.0, seed=1), spec_ref),
+        spec_ref)
+    want = want_sess.query(qs, qt)
+    spec = reach.IndexSpec(**kw)
+    sess = reach.QuerySession(reach.build(g, spec), spec, device="cpu")
+    assert "slab" not in sess.engine.dev
+    got = sess.query(qs, qt)
+    np.testing.assert_array_equal(got, want)
+    assert want_sess.stats.phase2_sparse > 0
+    assert sess.stats.phase2_sparse == want_sess.stats.phase2_sparse
+    assert sess.stats.sparse_retries == want_sess.stats.sparse_retries == 0
 
 
 # ------------------------------------------------------- kernel level ----
