@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version bit for bit, then drives the port's
-serving path through ``repro_torch.reach.QuerySession`` on the card:
+each against its plain PyTorch version (the integer kernels bit for bit,
+the float kernels 9 and 10 within rtol 1e-5, atol 1e-5), then drives the
+port's reachability serving path through ``repro_torch.reach.
+QuerySession`` and its two model paths on the card:
 
   main     the default IndexSpec (k=2, FERRARI-G, c=4, 32 seeds: k_max ≤ 8,
            one seed word, ELL width ≤ 32 — the ferrari-web widths) over
@@ -24,10 +26,23 @@ serving path through ``repro_torch.reach.QuerySession`` on the card:
   seeds64  a weak index (k=1) with 64 seeds over 1M nodes: the 12-array
            layout, in phase 1 and in the sparse phase 2 (kernels 2, 3).
   dense    the dense phase 2 on a graph of ≤ 8192 condensed nodes.
+  recsys   MIND at its published widths (2^23-item table, D 64, 4
+           interests, 3 routing rounds, history 50) through
+           ``models.api.build_cell``: serve_p99 (512 users), serve_bulk
+           (262,144 users) and retrieval_cand (1 user × 1,000,448
+           candidates, kernel 10), held against the port's CPU run of the
+           same cells on the same state (64 sampled users; every score and
+           the top 100).
+  gnn      ``models.gnn.forward_dense`` for gin-tu, gcn-cora,
+           graphsage-reddit and gatedgcn at full width on the molecule
+           shape (128 graphs × 30 nodes), and gin-tu on a bulk batch of
+           65,536 molecules (kernel 9), held against the CPU run.
 
 Every phase sets the launch counters to 0 just before it is driven and
-reads them just after, and holds its answers against the host guided DFS
-(``core.query.QueryEngine``). Any mismatch or exception exits non-zero.
+reads them just after; the reachability phases hold their answers against
+the host guided DFS (``core.query.QueryEngine``), the model phases against
+the CPU (rtol 1e-4, atol 1e-5 times the output's largest magnitude, at
+least 1). Any mismatch or exception exits non-zero.
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -35,6 +50,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -52,6 +68,13 @@ ALU_OPS_PER_S = 67e12          # 32-bit non-tensor peak (H100 SXM)
 PARITY_ROWS = 1 << 20
 MAIN_NODES = 4_000_000
 SIDE_NODES = 1_000_000
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)    # float kernels vs plain
+# model paths, card vs CPU: rtol 1e-4 and atol 1e-5 times the output's
+# scale (its largest magnitude, at least 1), since a readout or a score
+# near zero keeps the rounding of terms as large as that scale
+FORWARD_RTOL, FORWARD_ATOL = 1e-4, 1e-5
+GNN_ARCHS = ("gin-tu", "gcn-cora", "graphsage-reddit", "gatedgcn")
+GNN_BULK_GRAPHS = 65_536
 
 KERNELS = {
     "stab_packed": dict(
@@ -69,6 +92,12 @@ KERNELS = {
     "merge_cover": dict(
         source="src/repro_torch/csrc/merge_cover.cu",
         replaces="src/repro/kernels/merge_cover.py:153", phase="wavefront"),
+    "retrieval_score": dict(
+        source="src/repro_torch/csrc/retrieval_score.cu",
+        replaces="src/repro/kernels/retrieval_score.py:32", phase="recsys"),
+    "batched_mp": dict(
+        source="src/repro_torch/csrc/batched_mp.cu",
+        replaces="src/repro/kernels/batched_mp.py:31", phase="gnn"),
 }
 
 
@@ -173,35 +202,69 @@ def cover_rows(g, rows, m, dev):
 
 
 # ------------------------------------------------------------ parity ----
+def close_stats(got, want, rtol: float, atol: float):
+    """(max_abs_err, mismatches, max_rel_err) of float tensors: an element
+    mismatches when |got - want| > atol + rtol·|want| or exactly one is
+    NaN; the relative error is taken where |want| > atol."""
+    import torch
+    got, want = got.double(), want.to(got.device).double()
+    diff = (got - want).abs()
+    nan = torch.isnan(got) != torch.isnan(want)
+    both = torch.isnan(got) & torch.isnan(want)
+    diff = torch.where(both, 0.0, diff)
+    bad = int(((diff > atol + rtol * want.abs()) & ~both).sum()
+              + nan.sum())
+    if not got.numel():
+        return 0.0, bad, 0.0
+    big = want.abs() > atol
+    rel = float((diff[big] / want[big].abs()).max()) if big.any() else 0.0
+    return float(diff.nan_to_num(0.0).max()), bad, rel
+
+
 def _compare(name, got, want):
+    """Parity of a kernel's outputs with its plain version's: exact for
+    integers, within KERNEL_TOL for floats. Returns (max_abs_err,
+    mismatches, max_rel_err)."""
     import torch
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     torch.cuda.synchronize()
-    bad = sum(int((a != b).sum()) for a, b in zip(got, want))
-    err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
-              for a, b in zip(got, want))
+    if got[0].is_floating_point():
+        stats = [close_stats(a, b, **KERNEL_TOL) for a, b in zip(got, want)]
+        err = max(s[0] for s in stats)
+        bad = sum(s[1] for s in stats)
+        rel = max(s[2] for s in stats)
+        what = (f"max abs err {err:.3e}, max rel err {rel:.3e} (rtol "
+                f"{KERNEL_TOL['rtol']}, atol {KERNEL_TOL['atol']})")
+    else:
+        bad = sum(int((a != b).sum()) for a, b in zip(got, want))
+        err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
+                  for a, b in zip(got, want))
+        rel, what = 0.0, "bit for bit"
     rows = got[0].shape[0]
-    print(f"  parity {name}: {rows} rows, {bad} mismatches", flush=True)
+    print(f"  parity {name}: {rows} rows, {bad} mismatches, {what}",
+          flush=True)
     check(bad == 0, f"{name} disagrees with its plain version")
-    return err, bad
+    return err, bad, rel
 
 
 def _tally(total: dict, name: str, result) -> None:
-    err, bad = result
-    total[name] = (max(total[name][0], err), total[name][1] + bad)
+    err, bad, rel = result
+    total[name] = (max(total[name][0], err), total[name][1] + bad,
+                   max(total[name][2], rel))
 
 
 def kernel_parity(dev) -> dict:
-    """Each kernel against its plain version on ≥ 2^20 random rows:
-    {name: (max_abs_err, mismatches)}."""
+    """Each kernel against its plain version on random inputs (≥ 2^20
+    rows where a row is small): {name: (max_abs_err, mismatches,
+    max_rel_err)}."""
     import torch
 
     from repro_torch.kernels import frontier_fused as ff
     from repro_torch.kernels import interval_stab as st
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    err = {name: (0, 0) for name in KERNELS}
+    err = {name: (0, 0, 0.0) for name in KERNELS}
     n = 1 << 22
     for k in (1, 8, 32):
         meta, slab = packed_tables(g, n, k, dev)
@@ -252,6 +315,35 @@ def kernel_parity(dev) -> dict:
             f"merge_cover m={m} w_out={w_out}",
             mc.merge_cover(*rows_in, w_out, w_out),
             mc.merge_cover_plain(*rows_in, w_out, w_out)))
+    del rows_in
+    # kernel 10: the retrieval widths (D 64, I 4, float4 rows), a scalar
+    # path (D 30), more interests than one register pass (I 12), one row
+    from repro_torch.kernels import retrieval_score as rs
+    for c, d, i in ((PARITY_ROWS + 5, 64, 4), (1 << 16, 30, 5),
+                    (1 << 16, 64, 12), (1, 64, 4)):
+        cands = torch.randn((c, d), generator=g, device=dev)
+        ints = torch.randn((i, d), generator=g, device=dev)
+        _tally(err, "retrieval_score", _compare(
+            f"retrieval_score C={c} D={d} I={i}",
+            rs.retrieval_score(cands, ints),
+            rs.retrieval_score_plain(cands, ints)))
+    del cands
+    # kernel 9: the molecule shape at the GNN widths, the bulk-like batch,
+    # F tiles (N 128) and H tiles (N 200); w glorot-scaled as in the models
+    from repro_torch.kernels import batched_mp as bm
+    for b, n, f, h in ((4096, 30, 64, 64), (4096, 30, 16, 128),
+                       (1024, 30, 128, 128), (4096, 30, 70, 70),
+                       (256, 128, 128, 128), (64, 200, 128, 128)):
+        adj = (torch.rand((b, n, n), generator=g, device=dev) < 0.2).float()
+        x = torch.randn((b, n, f), generator=g, device=dev)
+        w = torch.randn((f, h), generator=g, device=dev) * (2 / (f + h)) ** 0.5
+        _tally(err, "batched_mp", _compare(
+            f"batched_mp B={b} N={n} F={f} H={h}", bm.batched_mp(adj, x, w),
+            bm.batched_mp_plain(adj, x, w)))
+        eye = torch.eye(f, device=dev)
+        _tally(err, "batched_mp", _compare(
+            f"batched_mp B={b} N={n} F={f} w=eye", bm.batched_mp(adj, x, eye),
+            bm.batched_mp_plain(adj, x, eye)))
     return err
 
 
@@ -285,35 +377,48 @@ def device_ms(fn, reps: int = 30, cold: bool = True) -> float:
 
 class Recorder:
     """Wraps the kernel wrappers as the serving path calls them and keeps
-    the inputs of the largest call of each, for timing at the path's own
-    shapes. Counting stays in the wrappers themselves."""
+    the inputs of the largest call of each (and of the smallest, in
+    ``small``), for timing at the path's own shapes. Counting stays in the
+    wrappers themselves."""
 
     def __init__(self):
         from repro_torch.kernels import frontier_fused as ff
         from repro_torch.kernels import ops
-        self.calls = {}
+        self.reset()
         self._orig = {}
         for mod, name in ((ops, "stab_packed"), (ops, "stab_naive"),
-                          (ff, "probe"), (ops, "classify_emit")):
+                          (ff, "probe"), (ops, "classify_emit"),
+                          (ops, "retrieval_score"), (ops, "batched_mp")):
             fn = getattr(mod, name)
             self._orig[(mod, name)] = fn
             setattr(mod, name, self._wrap(name, fn))
 
     ROWS_ARG = {"stab_packed": -2, "stab_naive": -2, "probe": 0,
-                "classify_emit": -1}
+                "classify_emit": -1, "retrieval_score": 0, "batched_mp": 0}
 
     def _wrap(self, name, fn):
         # references, not copies: copying would add to the served time;
-        # only the probe's visited/pos change afterwards (same shapes)
+        # only the probe's visited/pos change afterwards (same shapes).
+        # Kernel 9's size is its input elements; calls on CPU tensors (the
+        # reference runs) are not kept.
         def wrapped(*args):
             rows = args[self.ROWS_ARG[name]].shape[0]
-            if rows > self.calls.get(name, (0, None))[0]:
-                self.calls[name] = (rows, args)
+            size = (args[0].numel() + args[1].numel()
+                    if name == "batched_mp" else rows)
+            if args[0].is_cuda:
+                if size > self.sizes.get(name, (0, 0))[1]:
+                    self.calls[name] = (rows, args)
+                if size < self.sizes.get(name, (size + 1, 0))[0]:
+                    self.small[name] = (rows, args)
+                lo, hi = self.sizes.get(name, (size, size))
+                self.sizes[name] = (min(lo, size), max(hi, size))
             return fn(*args)
         return wrapped
 
     def reset(self):
         self.calls = {}
+        self.small = {}
+        self.sizes = {}
 
     def close(self):
         for (mod, name), fn in self._orig.items():
@@ -361,7 +466,9 @@ def _distinct(*ids) -> int:
 
 
 def work_of(name, args):
-    """(bytes, int32 ops) the call must move and do on this call's data.
+    """(bytes, ops) the call must move and do on this call's data: int32
+    ops for the reachability kernels, float32 flops (2 per multiply-add)
+    for kernels 9 and 10, whose work does not depend on the data.
     Each input element the result depends on is read once — a table row,
     bitset word or flag that several queries gather counts once — and
     each output is written once. Rows the result does not depend on are
@@ -393,6 +500,15 @@ def work_of(name, args):
                   + _distinct(q * visited.shape[1] + (v >> 5)) * 4
                   + _distinct(q[fresh]) * 4)
         return nbytes, c * 2 + int(valid.sum()) * 10
+    if name == "retrieval_score":
+        cands, ints = args
+        (c, d), i = cands.shape, ints.shape[0]
+        return 4 * (c * d + i * d + c), 2 * c * i * d
+    if name == "batched_mp":
+        adj, x, w = args
+        (b, n, f), h = x.shape, w.shape[1]
+        return (4 * (b * n * n + b * n * f + f * h + b * n * h),
+                2 * b * n * n * f + 2 * b * n * f * h)
     if name == "merge_cover":
         cb, ce, cx, k, w_out = args
         rows, m = cb.shape
@@ -411,37 +527,73 @@ def work_of(name, args):
             c * 2 + rows * (6 * k + 30))
 
 
-def time_kernels(recorded: dict) -> dict:
+# The yardstick of kernels 9 and 10: no single PyTorch call computes
+# either function, so two calls are timed ("2 calls" in the output).
+def _scores_pair(cands, interests):
+    return (cands @ interests.T).amax(1)
+
+
+def _mp_pair(adj, x, w):
+    import torch
+    return torch.bmm(adj, x) @ w
+
+
+LIBRARY_PAIRS = {
+    "retrieval_score": ("(cands @ interests.T).amax(1), 2 calls",
+                        _scores_pair),
+    "batched_mp": ("torch.bmm(adj, x) @ w, 2 calls", _mp_pair),
+}
+
+
+def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
+    """Times each kernel at ``recorded[name]`` (the path's largest call),
+    and at each ``(name, label, call)`` of ``extra``, which is printed and
+    returned under ``label``."""
+    from repro_torch.kernels import batched_mp as bm
     from repro_torch.kernels import frontier_fused as ff
     from repro_torch.kernels import interval_stab as st
     from repro_torch.kernels import merge_cover as mc
+    from repro_torch.kernels import retrieval_score as rs
     plain = {"stab_packed": st.stab_packed_plain,
              "stab_naive": st.stab_naive_plain,
              "probe": ff.probe_plain, "classify_emit": ff.classify_emit_plain,
-             "merge_cover": mc.merge_cover_plain}
+             "merge_cover": mc.merge_cover_plain,
+             "retrieval_score": rs.retrieval_score_plain,
+             "batched_mp": bm.batched_mp_plain}
     kernel = {"stab_packed": st.stab_packed, "stab_naive": st.stab_naive,
               "probe": ff.probe, "classify_emit": ff.classify_emit,
-              "merge_cover": mc.merge_cover}
+              "merge_cover": mc.merge_cover,
+              "retrieval_score": rs.retrieval_score,
+              "batched_mp": bm.batched_mp}
     out = {}
-    for name in KERNELS:
-        rows, args = recorded[name]
-        err = _compare(f"{name} on the path's inputs", kernel[name](*args),
+    for name, label, (rows, args) in ([(n, n, recorded[n]) for n in KERNELS]
+                                      + list(extra)):
+        err = _compare(f"{label} on the path's inputs", kernel[name](*args),
                        plain[name](*args))
         ms = device_ms(lambda: kernel[name](*args))
         warm_ms = device_ms(lambda: kernel[name](*args), cold=False)
         plain_ms = device_ms(lambda: plain[name](*args))
+        library, library_ms = None, None
+        if name in LIBRARY_PAIRS:
+            library, pair = LIBRARY_PAIRS[name]
+            library_ms = device_ms(lambda: pair(*args))
         nbytes, ops = work_of(name, args)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / ALU_OPS_PER_S * 1e3
-        out[name] = dict(rows=rows, ms=ms, plain_ms=plain_ms,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else
-                         "operations", bytes=nbytes, err=err)
-        print(f"  time {name}: {rows} rows, kernel {ms:.4f} ms (L2 cold; "
-              f"{warm_ms:.4f} ms L2 warm), plain {plain_ms:.4f} ms, bound "
-              f"{out[name]['bound_ms']:.6f} ms ({nbytes} B, "
-              f"{out[name]['bound_by']}), {ms / max(rows, 1) * 1e6:.2f} "
-              f"ns/row", flush=True)
+        out[label] = dict(rows=rows, ms=ms, plain_ms=plain_ms,
+                          library=library, library_ms=library_ms,
+                          bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops else
+                          "operations", bytes=nbytes, ops=ops, err=err)
+        lib = ("" if library is None else
+               f", library {library_ms:.4f} ms ({library})")
+        shapes = " x ".join(str(tuple(a.shape)) for a in args
+                            if hasattr(a, "shape"))
+        print(f"  time {label}: {rows} rows ({shapes}), kernel {ms:.4f} ms "
+              f"(L2 cold; {warm_ms:.4f} ms L2 warm), plain {plain_ms:.4f} "
+              f"ms{lib}, bound {out[label]['bound_ms']:.6f} ms ({nbytes} B, "
+              f"{ops} ops; {out[label]['bound_by']}), "
+              f"{ms / max(rows, 1) * 1e6:.2f} ns/row", flush=True)
     return out
 
 
@@ -509,31 +661,31 @@ def serve(sess, qs, qt, label):
     return ans, st
 
 
-def profile_window(sess, qs, qt, label):
+def profile_window(fn, label, top: int = 6):
     """Where the time goes: device time by kernel and copy (torch.profiler,
-    device-side events only) over one serve of ``qs``, against the wall
-    time of the same serve without the profiler; their ratio is the
+    device-side events only) over one call of ``fn``, against the wall
+    time of the same call without the profiler; their ratio is the
     device's busy share (one stream, so events do not overlap)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sess.query(qs, qt)
+    fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sess.query(qs, qt)
+        fn()
         torch.cuda.synchronize()
     rows = sorted(((e.device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"  profile {label}: {qs.size} queries, wall {wall * 1e3:.2f} ms "
-          f"unprofiled, device busy {busy * 1e3:.3f} ms "
-          f"({busy / wall:.1%}); top device time:", flush=True)
-    for us, count, key in rows[:6]:
+    print(f"  profile {label}: wall {wall * 1e3:.2f} ms unprofiled, device "
+          f"busy {busy * 1e3:.3f} ms ({busy / wall:.1%}); top device time:",
+          flush=True)
+    for us, count, key in rows[:top]:
         print(f"    {us / 1e3:9.3f} ms  x{count:<5} {key[:70]}", flush=True)
 
 
@@ -576,7 +728,8 @@ def main_phase(dev, rec):
           flush=True)
     check(bool(ans_p.all()), "main: a positive-workload answer is false")
     hold_to_host(ix, sess, qs, qt, ans, 10_000, "main random")
-    profile_window(sess, qs[:1 << 18], qt[:1 << 18], "main random")
+    profile_window(lambda: sess.query(qs[:1 << 18], qt[:1 << 18]),
+                   f"main random, {1 << 18} queries")
     return counts, calls, dict(g=g, queries=(qs, qt, ps, pt),
                                answers=(ans, ans_p))
 
@@ -725,7 +878,8 @@ def phase2_phase(dev, rec):
             check(st.sparse_retries > 0, "phase2: cap 256 did not retry")
             print(f"  sparse_retries > 0: {st.sparse_retries}", flush=True)
         hold_to_host(ix, sess, qs, qt, ans, 2000, f"cap={cap}")
-        profile_window(sess, qs, qt, f"cap={cap}")
+        profile_window(lambda: sess.query(qs, qt),
+                       f"cap={cap}, {qs.size} queries")
         out.setdefault("counts", counts)
         out.setdefault("calls", calls)
         out.setdefault("answers", ans)
@@ -783,7 +937,210 @@ def dense_phase(dev, rec):
     return counts
 
 
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _timed(fn):
+    """(result, wall seconds) of ``fn()`` ending in a device sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def forward_atol(want) -> float:
+    return FORWARD_ATOL * max(1.0, float(want.abs().max()))
+
+
+def _hold(label, got, want) -> None:
+    atol = forward_atol(want)
+    err, bad, rel = close_stats(got, want, FORWARD_RTOL, atol)
+    print(f"  card vs CPU {label}: {want.numel()} values, {bad} mismatches, "
+          f"max abs err {err:.3e}, max rel err {rel:.3e} (rtol "
+          f"{FORWARD_RTOL}, atol {atol:.3e})", flush=True)
+    check(bad == 0, f"{label}: the card disagrees with the CPU run")
+
+
+def _top_items_agree(ids, got, want, k: int = 100) -> int:
+    """Items in the card's top k and not the CPU's, or the reverse, that
+    do not tie with the CPU's k-th score within the forward tolerance."""
+    import torch
+    g_pos = torch.topk(got, k).indices.numpy()
+    w_val, w_pos = torch.topk(want, k)
+    cut = float(w_val[-1])
+    score = {int(ids[p]): float(want[p]) for p in np.concatenate([g_pos,
+                                                                  w_pos])}
+    differ = set(ids[g_pos].tolist()) ^ set(ids[w_pos.numpy()].tolist())
+    tol = forward_atol(want) + FORWARD_RTOL * abs(cut)
+    bad = [it for it in differ if abs(score[it] - cut) > tol]
+    print(f"  top {k}: {len(differ)} items differ between card and CPU, "
+          f"{len(bad)} of them not tied at the cut-off ({cut:.6f}); card's "
+          f"best: {[(int(ids[p]), round(float(got[p]), 6)) for p in g_pos[:3]]}",
+          flush=True)
+    return len(bad)
+
+
+def recsys_phase(dev, rec, seed: int):
+    """MIND at its published widths through build_cell: serve_p99,
+    serve_bulk and retrieval_cand on the card, then the same cells on the
+    CPU on the same state (64 sampled users; every retrieval score)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    cfg = get_config("mind")
+    print(f"recsys: mind, {cfg.n_items} items x D {cfg.embed_dim}, "
+          f"{cfg.n_interests} interests, {cfg.capsule_iters} routing "
+          f"rounds, history {cfg.hist_len}", flush=True)
+    names = ("serve_p99", "serve_bulk", "retrieval_cand")
+    cells = {name: api.build_cell(cfg, name, device=dev) for name in names}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state, dt = _timed(lambda: api.materialize_state(
+        cells["serve_p99"], cfg, "serve_p99", gen))
+    table = state["params"]["table"]
+    print(f"  state: table {tuple(table.shape)} "
+          f"{table.numel() * 4 / 1e9:.2f} GB on the card in {dt:.2f} s",
+          flush=True)
+    rng = np.random.default_rng(seed)
+    batches = {}
+    for name, cell in cells.items():
+        batches[name] = {
+            key: ((rng.random(shape) < 0.9).astype(np.float32)
+                  if key == "hist_mask" else
+                  rng.integers(0, cfg.n_items, shape).astype(np.int32))
+            for key, (shape, _) in cell.batch_shapes.items()}
+    on_card = {name: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for name, b in batches.items()}
+    for name, cell in cells.items():              # warm up
+        cell.step(state, on_card[name])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    rec.reset()
+    outs = {}
+    for name, cell in cells.items():
+        (_, outs[name]), dt = _timed(lambda: cell.step(state, on_card[name]))
+        print(f"  {name}: {dict((k, tuple(v[0])) for k, v in cell.batch_shapes.items())}"
+              f" -> {tuple(outs[name].shape)} in {dt * 1e3:.3f} ms",
+              flush=True)
+        check(bool(torch.isfinite(outs[name]).all()),
+              f"recsys {name}: non-finite output")
+    counts, calls = read_counters(), dict(rec.calls)
+    print(f"  counts: {counts}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    check(counts["retrieval_score"] > 0, "recsys: kernel 10 not launched")
+
+    cpu_state = _tree_to(state, "cpu")
+    for name in ("serve_p99", "serve_bulk"):
+        shape = cells[name].shape
+        idx = np.sort(rng.choice(shape.batch, 64, replace=False))
+        cpu = api.build_cell(cfg, name, device="cpu",
+                             shape_override=dataclasses.replace(shape,
+                                                                batch=64))
+        _, want = cpu.step(cpu_state, {k: torch.from_numpy(v[idx])
+                                       for k, v in batches[name].items()})
+        _hold(f"{name} interests of 64 sampled users",
+              outs[name][torch.from_numpy(idx).to(dev)].cpu(), want)
+    cpu = api.build_cell(cfg, "retrieval_cand", device="cpu")
+    (_, want), dt = _timed(lambda: cpu.step(
+        cpu_state, {k: torch.from_numpy(v)
+                    for k, v in batches["retrieval_cand"].items()}))
+    print(f"  retrieval_cand on the CPU: {dt:.2f} s", flush=True)
+    got = outs["retrieval_cand"].cpu()
+    _hold("retrieval_cand scores", got, want)
+    bad = _top_items_agree(batches["retrieval_cand"]["cand_ids"], got, want)
+    check(bad == 0, "recsys: the top 100 differ beyond ties")
+    del cpu_state, want
+    profile_window(lambda: cells["retrieval_cand"].step(
+        state, on_card["retrieval_cand"]),
+        "recsys retrieval_cand (1 user x 1,000,448 candidates)")
+    return counts, calls
+
+
+def gnn_phase(dev, rec, seed: int):
+    """forward_dense at full config width on the molecule shape for the
+    four GNN archs, and gin-tu on a bulk batch, held against the CPU."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import shapes_for_family
+    from repro_torch.models import gnn
+    shp = shapes_for_family("gnn")["molecule"]
+    b_mol, n = shp.batch_graphs, shp.nodes_per_graph
+    print(f"gnn: forward_dense on the molecule shape ({b_mol} graphs x {n} "
+          f"nodes, d_feat {shp.d_feat}, {shp.n_classes} classes, ~20% "
+          f"dense) for {', '.join(GNN_ARCHS)}; gin-tu on "
+          f"{GNN_BULK_GRAPHS} graphs", flush=True)
+    rng = np.random.default_rng(seed + 1)
+    inputs = {}
+    for b in (b_mol, GNN_BULK_GRAPHS):
+        inputs[b] = ((rng.random((b, n, n)) < 0.2).astype(np.float32),
+                     rng.standard_normal((b, n, shp.d_feat)).astype(
+                         np.float32))
+    on_card = {b: tuple(torch.from_numpy(a).to(dev) for a in inp)
+               for b, inp in inputs.items()}
+    models = {}
+    for i, arch in enumerate(GNN_ARCHS):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + i)
+        cfg = get_config(arch)
+        models[arch] = (cfg, gnn.init_params(cfg, gen, shp.d_feat,
+                                             shp.n_classes, dev))
+    runs = [(arch, b_mol) for arch in GNN_ARCHS] + [("gin-tu",
+                                                     GNN_BULK_GRAPHS)]
+    for arch, b in runs:                          # warm up
+        gnn.forward_dense(*models[arch], *on_card[b])
+    reset_counters()
+    rec.reset()
+    logits = {}
+    for arch, b in runs:
+        cfg, params = models[arch]
+        logits[(arch, b)], dt = _timed(
+            lambda: gnn.forward_dense(cfg, params, *on_card[b]))
+        print(f"  {arch} ({cfg.conv}, {cfg.n_layers} layers, d_hidden "
+              f"{cfg.d_hidden}): {b} graphs in {dt * 1e3:.3f} ms", flush=True)
+        check(bool(torch.isfinite(logits[(arch, b)]).all()),
+              f"gnn {arch}: non-finite logits")
+    counts = read_counters()
+    calls = {"largest": dict(rec.calls), "smallest": dict(rec.small)}
+    want_launches = sum(models[a][0].n_layers for a, _ in runs
+                        if models[a][0].conv != "gatedgcn")
+    print(f"  counts: {counts} (layers through kernel 9: {want_launches})",
+          flush=True)
+    check(counts["batched_mp"] == want_launches,
+          "gnn: kernel 9 launches differ from the gin/gcn/sage layers")
+
+    for (arch, b), out in logits.items():
+        cfg, params = models[arch]
+        idx = (np.arange(b) if b == b_mol else
+               np.sort(rng.choice(b, 4096, replace=False)))
+        adj, feats = inputs[b]
+        want = gnn.forward_dense(cfg, _tree_to(params, "cpu"),
+                                 torch.from_numpy(adj[idx]),
+                                 torch.from_numpy(feats[idx]))
+        _hold(f"{arch} logits, {idx.size} of {b} graphs",
+              out[torch.from_numpy(idx).to(dev)].cpu(), want)
+    profile_window(lambda: gnn.forward_dense(*models["gin-tu"],
+                                             *on_card[GNN_BULK_GRAPHS]),
+                   f"gnn gin-tu forward on {GNN_BULK_GRAPHS} graphs")
+    return counts, calls
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the recsys and gnn phases' data")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -803,6 +1160,10 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} CUDA "
           f"{torch.version.cuda} | {name}", flush=True)
+    # the plain versions and the models' einsums in true float32: no TF32
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls must run at 'highest' precision (no TF32)")
 
     print("build:", flush=True)
     t0 = time.perf_counter()
@@ -813,7 +1174,8 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    print("parity (kernel vs plain, bit for bit):", flush=True)
+    print("parity (kernel vs plain; integer kernels bit for bit):",
+          flush=True)
     err = kernel_parity(dev)
 
     rec = Recorder()
@@ -824,11 +1186,14 @@ def main() -> int:
         p2_counts, p2_calls = phase2_phase(dev, rec)
         s64_counts, s64_calls = seeds64_phase(dev, rec)
         dense_counts = dense_phase(dev, rec)
+        rs_counts, rs_calls = recsys_phase(dev, rec, args.seed)
+        gnn_counts, gnn_calls = gnn_phase(dev, rec, args.seed)
     finally:
         rec.close()
     phase_counts = {"main": main_counts, "wavefront": wf_counts,
                     "phase2": p2_counts, "seeds64": s64_counts,
-                    "dense": dense_counts}
+                    "dense": dense_counts, "recsys": rs_counts,
+                    "gnn": gnn_counts}
     for kname, meta in KERNELS.items():
         n = phase_counts[meta["phase"]][kname]
         print(f"  launches {kname} on its phase ({meta['phase']}): {n}",
@@ -847,8 +1212,13 @@ def main() -> int:
                 "stab_naive": s64_calls["stab_naive"],
                 "probe": p2_calls["probe"],
                 "classify_emit": p2_calls["classify_emit"],
-                "merge_cover": wf_call}
-    times = time_kernels(recorded)
+                "merge_cover": wf_call,
+                "retrieval_score": rs_calls["retrieval_score"],
+                "batched_mp": gnn_calls["largest"]["batched_mp"]}
+    # kernel 9 also at its smallest call: a molecule-batch layer
+    times = time_kernels(recorded, extra=(
+        ("batched_mp", "batched_mp (smallest call)",
+         gnn_calls["smallest"]["batched_mp"]),))
     rows = []
     for kname, meta in KERNELS.items():
         t = times[kname]
@@ -857,9 +1227,10 @@ def main() -> int:
             "replaces": meta["replaces"],
             "launches": phase_counts[meta["phase"]][kname],
             "max_abs_err": max(err[kname][0], t["err"][0]),
+            "max_rel_err": max(err[kname][2], t["err"][2]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": t["library_ms"], "library": t["library"]})
     bad = {k: err[k][1] + times[k]["err"][1] for k in KERNELS}
     print("kernels: " + ", ".join(f"{r['name']} {bad[r['name']]} "
                                   f"mismatches, {r['launches']} launches"

@@ -1,0 +1,32 @@
+"""Architecture registry: ``--arch <id>`` resolution for the archs the
+port can run. The reference's other archs (the LM family, ferrari-web as
+a model cell) are not ported yet; asking for one raises ``KeyError``."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+_MODULES: Dict[str, str] = {
+    "gcn-cora": "gcn_cora",
+    "graphsage-reddit": "graphsage_reddit",
+    "gatedgcn": "gatedgcn",
+    "gin-tu": "gin_tu",
+    "mind": "mind",
+}
+
+ARCHS = tuple(_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"arch {arch!r} is not ported to repro_torch (see "
+                       f"ROADMAP.md, Queue 1 item 8); available: {ARCHS}")
+    return importlib.import_module(f"{__package__}.{_MODULES[arch]}")
+
+
+def get_config(arch: str):
+    return _module(arch).CONFIG
+
+
+def get_smoke(arch: str):
+    return _module(arch).SMOKE

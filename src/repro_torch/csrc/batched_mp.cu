@@ -1,0 +1,126 @@
+// Batched dense message passing (kernel 9).
+//
+// Replaces the Pallas kernel
+//   src/repro/kernels/batched_mp.py::batched_mp
+//   (body _mp_kernel): out[b] = (adj[b] @ x[b]) @ w for adj [B, N, N],
+//   x [B, N, F], w [F, H], float32, out [B, N, H] float32. The GNN's
+//   dense-batch (molecule) forward calls it once per layer.
+//
+// Bound on an H100: each graph does 2·N·N·F + 2·N·F·H flops on
+// 4·(N·N + N·F + N·H) bytes (w is shared by all graphs). At the molecule
+// shape (N = 30, F = H = 64) that is 361 kflop per 19.0 kB, 19 flops per
+// byte against the card's 20 (67 TFLOP/s float32 over 3.35 TB/s): the two
+// bounds are about equal. A bulk batch of 65,536 molecules must move
+// 1.25 GB (0.37 ms) and do 23.7 GFLOP (0.35 ms).
+//
+// Design: one block per graph (times a tile of H columns when H does not
+// fit, see below). The block stages adj[b] in shared memory once, then
+// walks F in tiles of FT columns: it stages x[b][:, tile] and the matching
+// rows of w, computes agg = adj @ x[:, tile] into shared memory, and adds
+// agg @ w[tile, :] into an [N, HT] accumulator in shared memory; the
+// accumulator is written out at the end. Threads walk the outputs in row
+// order, so a warp reads one row of adj (or agg) as a broadcast and
+// neighbouring columns of x (or w) without bank conflicts. The TPU kernel
+// holds the whole graph in VMEM; a block has at most 227 KB of shared
+// memory, so the wrapper picks the largest FT and HT that fit: at N = 128,
+// F = H = 128 the whole block would need 320 KB and FT = 64 fits in
+// 224 KB. When HT < H each H tile recomputes agg (grid.y = H / HT); a
+// shape that does not fit even with FT = HT = 1 is refused. Sums are true
+// float32 FMAs in order of the reduced index (no tensor cores, no TF32).
+// Each FMA reads two shared-memory words, so the kernel is bound by
+// shared-memory bandwidth well before the FP32 peak; register tiles or
+// tensor cores are later work.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void __launch_bounds__(kThreads)
+    batched_mp_kernel(const float* __restrict__ adj,
+                      const float* __restrict__ x,
+                      const float* __restrict__ w, float* __restrict__ out,
+                      int n, int f, int h, int ft, int ht) {
+  extern __shared__ float sm[];
+  float* a_s = sm;               // [n, n]
+  float* x_s = a_s + n * n;      // [n, ft]
+  float* g_s = x_s + n * ft;     // [n, ft]  agg tile
+  float* w_s = g_s + n * ft;     // [ft, ht]
+  float* o_s = w_s + ft * ht;    // [n, ht]  accumulator
+  const int64_t b = blockIdx.x;
+  const int h0 = blockIdx.y * ht;
+  const int hw = min(ht, h - h0);
+  const float* adj_b = adj + b * n * n;
+  const float* x_b = x + b * n * f;
+  float* out_b = out + b * n * h;
+
+  for (int i = threadIdx.x; i < n * n; i += kThreads) a_s[i] = adj_b[i];
+  for (int i = threadIdx.x; i < n * hw; i += kThreads) o_s[i] = 0.f;
+  for (int f0 = 0; f0 < f; f0 += ft) {
+    const int fw = min(ft, f - f0);
+    for (int i = threadIdx.x; i < n * fw; i += kThreads)
+      x_s[i] = x_b[(i / fw) * f + f0 + i % fw];
+    for (int i = threadIdx.x; i < fw * hw; i += kThreads)
+      w_s[i] = w[(f0 + i / hw) * h + h0 + i % hw];
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * fw; i += kThreads) {
+      const float* a_row = a_s + (i / fw) * n;
+      const float* x_col = x_s + i % fw;
+      float acc = 0.f;
+      for (int m = 0; m < n; ++m) acc = fmaf(a_row[m], x_col[m * fw], acc);
+      g_s[i] = acc;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < n * hw; i += kThreads) {
+      const float* g_row = g_s + (i / hw) * fw;
+      const float* w_col = w_s + i % hw;
+      float acc = o_s[i];
+      for (int k = 0; k < fw; ++k) acc = fmaf(g_row[k], w_col[k * hw], acc);
+      o_s[i] = acc;
+    }
+    __syncthreads();
+  }
+  // each thread writes the accumulator entries it alone updated
+  for (int i = threadIdx.x; i < n * hw; i += kThreads)
+    out_b[(i / hw) * h + h0 + i % hw] = o_s[i];
+}
+
+}  // namespace
+
+// The shared memory a block may opt in to on `device`, in bytes (0 on
+// error): the wrapper sizes the F and H tiles to fit it.
+extern "C" int reach_max_smem(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  return v;
+}
+
+extern "C" int reach_batched_mp(const float* adj, const float* x,
+                                const float* w, float* out, int64_t graphs,
+                                int n, int f, int h, int ft, int ht,
+                                cudaStream_t stream) {
+  if (graphs <= 0) return 0;
+  if (n < 1 || f < 1 || h < 1 || ft < 1 || ft > f || ht < 1 || ht > h ||
+      graphs > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t smem =
+      4 * (static_cast<int64_t>(n) * n + 2LL * n * ft +
+           static_cast<int64_t>(ft) * ht + static_cast<int64_t>(n) * ht);
+  const unsigned tiles = static_cast<unsigned>((h + ht - 1) / ht);
+  if (tiles > 65535 || smem > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        batched_mp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(graphs), tiles);
+  batched_mp_kernel<<<grid, kThreads, static_cast<size_t>(smem), stream>>>(
+      adj, x, w, out, n, f, h, ft, ht);
+  return static_cast<int>(cudaGetLastError());
+}

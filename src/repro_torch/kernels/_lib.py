@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("interval_stab.cu", "frontier.cu", "merge_cover.cu")
+SOURCES = ("interval_stab.cu", "frontier.cu", "merge_cover.cu",
+           "retrieval_score.cu", "batched_mp.cu")
 HEADERS = ("verdict.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,6 +39,10 @@ SIGNATURES = {
     "reach_probe": [_P] * 6 + [_I64, _I64, _I32, _P],
     "reach_classify_emit": [_P] * 7 + [_I64, _I32, _P],
     "reach_merge_cover": [_P] * 7 + [_I64, _I32, _I32, _I32, _P],
+    "reach_retrieval_score": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
+    "reach_batched_mp": [_P] * 4 + [_I64] + [_I32] * 5 + [_P],
+    # not a launch: the shared memory a block may opt in to on a device
+    "reach_max_smem": [_I32],
 }
 
 
@@ -50,7 +55,7 @@ class Counters(dict):
 
 
 LAUNCHES = Counters(stab_packed=0, stab_naive=0, probe=0, classify_emit=0,
-                    merge_cover=0)
+                    merge_cover=0, retrieval_score=0, batched_mp=0)
 
 
 class _Library:
@@ -140,11 +145,30 @@ def launch(counter: str, fn_name: str, device, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-def check(t, name: str, shape=None, device=None, align: int = 4):
-    """Validate one int32 CUDA operand; returns its data pointer."""
+_MAX_SMEM: dict = {}
+
+
+def max_smem(device) -> int:
+    """The shared memory, in bytes, that one block may opt in to on
+    ``device`` (232,448 on an H100)."""
     import torch
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+    index = torch.device(device).index
+    if index not in _MAX_SMEM:
+        _MAX_SMEM[index] = LIBRARY.get().reach_max_smem(
+            torch.cuda.current_device() if index is None else index)
+        if _MAX_SMEM[index] <= 0:
+            raise RuntimeError(f"cannot read the shared-memory limit of "
+                               f"{device}")
+    return _MAX_SMEM[index]
+
+
+def check(t, name: str, shape=None, device=None, align: int = 4,
+          dtype: str = "int32"):
+    """Validate one CUDA operand of ``dtype`` (int32 unless named);
+    returns its data pointer."""
+    import torch
+    if t.dtype != getattr(torch, dtype):
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:

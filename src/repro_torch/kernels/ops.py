@@ -1,4 +1,6 @@
-"""The entry points the engine uses, over a ``PackedIndex.to_torch`` dict.
+"""The entry points the engine and the models use: the reachability ops
+over a ``PackedIndex.to_torch`` dict, and the two float substrate ops of
+the GNN and recsys models.
 
 Each op dispatches by the tensors' device only: on the CPU the kernels'
 plain PyTorch versions run; on a CUDA device the hand-written kernels
@@ -10,9 +12,11 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .batched_mp import batched_mp  # noqa: F401  (kernel 9)
 from .frontier_fused import (classify_emit, emit_plain,
                              expand_frontier_loop_fused)
 from .interval_stab import stab_naive, stab_packed
+from .retrieval_score import retrieval_score  # noqa: F401  (kernel 10)
 
 NEG, POS, UNKNOWN = ref.NEG, ref.POS, ref.UNKNOWN
 

@@ -1,9 +1,10 @@
-"""Plain PyTorch oracles of the phase-1 verdict rules.
+"""Plain PyTorch oracles of the kernels: the phase-1 verdict rules and
+the two float substrate kernels (dense message passing, retrieval scores).
 
 Each function mirrors ``repro/kernels/ref.py`` on the natural [Q, ...]
-layout. Every value is an int32 (uint32 seed words ride as int32 views:
-``&``, ``|``, ``~`` and ``!= 0`` give the same bits), so the port is held
-to them by exact equality.
+layout. The verdict rules are all int32 (uint32 seed words ride as int32
+views: ``&``, ``|``, ``~`` and ``!= 0`` give the same bits), so the port is
+held to them by exact equality; the float oracles by a stated tolerance.
 """
 from __future__ import annotations
 
@@ -91,3 +92,25 @@ def classify_packed_dev_ref(dev: dict, cs, ct):
             dev["begins"][s], dev["ends"][s], dev["exact"][s],
             sp[s], sm[s], sp[t], sm[t])
     return torch.where(cs == ct, POS, v).to(torch.int32)
+
+
+def batched_mp_ref(adj, x, w):
+    """Oracle for kernels.batched_mp: per-graph dense message passing.
+
+    adj: [B, N, N] float (adj[b, i, j] = edge j->i weight or 0)
+    x:   [B, N, F] node features
+    w:   [F, H] projection applied after aggregation
+    Returns [B, N, H] = (adj @ x) @ w.
+    """
+    agg = torch.einsum("bnm,bmf->bnf", adj, x)
+    return torch.einsum("bnf,fh->bnh", agg, w)
+
+
+def retrieval_score_ref(cands, interests):
+    """Oracle for kernels.retrieval_score: MIND multi-interest retrieval.
+
+    cands: [C, D] candidate item embeddings
+    interests: [I, D] user interest capsules
+    Returns [C] = max_i <cand, interest_i>  (MIND serving argmax-interest).
+    """
+    return (cands @ interests.T).amax(dim=1)

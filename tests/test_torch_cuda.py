@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-engine on the card against the engine on the CPU. Needs a CUDA device:
+engine, the recsys cells and the GNN forward on the card against the same
+on the CPU. Needs a CUDA device:
 every test here carries the ``cuda`` marker and skips without one. The
 file imports neither JAX nor the reference package, so it runs on a
 machine with only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 from dataclasses import asdict
 
 import numpy as np
@@ -22,11 +24,27 @@ from repro_torch.kernels import frontier_fused as ff
 from repro_torch.kernels.interval_stab import (stab_naive, stab_naive_plain,
                                                stab_packed,
                                                stab_packed_plain)
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs.base import shapes_for_family
+from repro_torch.kernels.batched_mp import batched_mp, batched_mp_plain
 from repro_torch.kernels.merge_cover import merge_cover, merge_cover_plain
+from repro_torch.kernels.retrieval_score import (retrieval_score,
+                                                 retrieval_score_plain)
+from repro_torch.models import api, gnn
 from repro_torch.reach import IndexSpec, QuerySession, build
 
 pytestmark = pytest.mark.cuda
 SENTINEL = 2**31 - 1
+# float kernels: true float32 FMAs summed in another order than the plain
+# version. Model outputs on the card against the CPU: rtol 1e-4, and atol
+# 1e-5 times the output's scale (its largest magnitude, at least 1): the
+# readout sums terms as large as the largest logit, so a logit near zero
+# keeps the rounding of those terms (untrained gin-tu's logits reach ~100).
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def forward_tol(want):
+    return dict(rtol=1e-4, atol=1e-5 * max(1.0, float(want.abs().max())))
 
 
 @pytest.fixture
@@ -260,3 +278,126 @@ def test_device_build_save_load_on_card(dev, tmp_path):
     sess = QuerySession.load(tmp_path)               # on the card
     assert sess.engine.device.type == "cuda"
     np.testing.assert_array_equal(sess.query(qs, qt), want)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("c,d,i", [(1, 64, 4), (5000, 64, 4), (100, 16, 4),
+                                   (2048, 32, 8), (777, 30, 5),
+                                   (3001, 64, 12), (70_000, 64, 4)])
+def test_retrieval_score_matches_plain(dev, c, d, i):
+    rng = np.random.default_rng(c + d + i)
+    cands = torch.from_numpy(rng.standard_normal((c, d)).astype(np.float32))
+    ints = torch.from_numpy(rng.standard_normal((i, d)).astype(np.float32))
+    before = _lib.LAUNCHES["retrieval_score"]
+    _close(retrieval_score(cands.to(dev), ints.to(dev)),
+           retrieval_score_plain(cands, ints), KERNEL_TOL)
+    assert _lib.LAUNCHES["retrieval_score"] == before + 1
+
+
+def test_retrieval_score_edges(dev):
+    rng = np.random.default_rng(9)
+    ints = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    # rows 4 bytes off a 16-byte boundary take the scalar loads
+    flat = torch.from_numpy(rng.standard_normal(999 * 64 + 1).astype(
+        np.float32))
+    cands = flat[1:].view(999, 64)
+    _close(retrieval_score(cands.to(dev), ints.to(dev)),
+           retrieval_score_plain(cands, ints), KERNEL_TOL)
+    cands_dev = flat.to(dev)[1:].view(999, 64)
+    assert cands_dev.data_ptr() % 16 != 0
+    _close(retrieval_score(cands_dev, ints.to(dev)),
+           retrieval_score_plain(cands, ints), KERNEL_TOL)
+    before = _lib.LAUNCHES["retrieval_score"]
+    assert retrieval_score(cands_dev[:0], ints.to(dev)).shape == (0,)
+    assert _lib.LAUNCHES["retrieval_score"] == before
+    nan_row = cands[:3].clone()
+    nan_row[1, 5] = float("nan")
+    assert torch.isnan(retrieval_score(nan_row.to(dev), ints.to(dev))[1])
+    with pytest.raises(TypeError):
+        retrieval_score(cands_dev.double(), ints.to(dev))
+    with pytest.raises(ValueError):
+        retrieval_score(cands_dev, ints[:0].to(dev))
+
+
+@pytest.mark.parametrize("b,n,f,h", [
+    (1, 8, 8, 8), (4, 16, 8, 12), (2, 32, 64, 16), (8, 30, 16, 2),
+    (128, 30, 16, 16), (128, 30, 64, 64), (128, 30, 16, 128),
+    (64, 30, 128, 128), (128, 30, 70, 70), (3, 128, 128, 128),
+    (2, 200, 128, 128)])
+def test_batched_mp_matches_plain(dev, b, n, f, h):
+    rng = np.random.default_rng(b + n + f + h)
+    adj = (rng.random((b, n, n)) < 0.2).astype(np.float32)
+    x = rng.standard_normal((b, n, f)).astype(np.float32)
+    w = (rng.standard_normal((f, h)) * np.sqrt(2 / (f + h))).astype(
+        np.float32)
+    args = [torch.from_numpy(a) for a in (adj, x, w)]
+    before = _lib.LAUNCHES["batched_mp"]
+    _close(batched_mp(*(a.to(dev) for a in args)), batched_mp_plain(*args),
+           KERNEL_TOL)
+    assert _lib.LAUNCHES["batched_mp"] == before + 1
+    eye = torch.eye(f)
+    _close(batched_mp(args[0].to(dev), args[1].to(dev), eye.to(dev)),
+           batched_mp_plain(args[0], args[1], eye), KERNEL_TOL)
+
+
+def test_batched_mp_refuses_a_graph_too_large(dev):
+    adj = torch.zeros((1, 256, 256), device=dev)
+    x = torch.zeros((1, 256, 8), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        batched_mp(adj, x, torch.zeros((8, 8), device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        batched_mp(adj[:, :8, :8], x[:, :8], torch.zeros((8, 8), device=dev))
+
+
+@pytest.mark.parametrize("shape_name", ["serve_p99", "retrieval_cand"])
+def test_recsys_cell_on_card_matches_cpu(dev, shape_name):
+    cfg = get_smoke("mind")
+    shp = dataclasses.replace(shapes_for_family("recsys")[shape_name],
+                              batch=64, n_candidates=5000)
+    cpu = api.build_cell(cfg, shape_name, device="cpu", shape_override=shp)
+    card = api.build_cell(cfg, shape_name, shape_override=shp)  # "cuda"
+    assert card.device.type == "cuda"
+    state = api.materialize_state(cpu, cfg, shape_name,
+                                  torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    batch = {}
+    for name, (shape, _) in cpu.batch_shapes.items():
+        batch[name] = torch.from_numpy(
+            (rng.random(shape) < 0.9).astype(np.float32)
+            if name == "hist_mask" else
+            rng.integers(0, cfg.n_items, shape).astype(np.int32))
+    _, want = cpu.step(state, batch)
+    _lib.LAUNCHES.reset()
+    _, got = card.step(
+        {"params": {k: v.to(dev) for k, v in state["params"].items()}},
+        {k: v.to(dev) for k, v in batch.items()})
+    _close(got, want, forward_tol(want))
+    if shape_name == "retrieval_cand":
+        assert _lib.LAUNCHES["retrieval_score"] == 1
+
+
+@pytest.mark.parametrize("arch", ["gin-tu", "gcn-cora", "graphsage-reddit",
+                                  "gatedgcn"])
+def test_forward_dense_on_card_matches_cpu(dev, arch):
+    cfg = get_config(arch)
+    shp = shapes_for_family("gnn")["molecule"]
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(2),
+                             shp.d_feat, shp.n_classes, "cpu")
+    rng = np.random.default_rng(3)
+    b, n = shp.batch_graphs, shp.nodes_per_graph
+    adj = torch.from_numpy((rng.random((b, n, n)) < 0.2).astype(np.float32))
+    feats = torch.from_numpy(rng.standard_normal(
+        (b, n, shp.d_feat)).astype(np.float32))
+    want = gnn.forward_dense(cfg, params, adj, feats)
+    _lib.LAUNCHES.reset()
+    card_params = {"layers": [{k: v.to(dev) for k, v in lp.items()}
+                              for lp in params["layers"]],
+                   "readout": params["readout"].to(dev),
+                   "readout_b": params["readout_b"].to(dev)}
+    got = gnn.forward_dense(cfg, card_params, adj.to(dev), feats.to(dev))
+    _close(got, want, forward_tol(want))
+    want_launches = 0 if cfg.conv == "gatedgcn" else cfg.n_layers
+    assert _lib.LAUNCHES["batched_mp"] == want_launches

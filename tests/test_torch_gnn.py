@@ -1,0 +1,152 @@
+"""The port's GNN dense-batch forward on the CPU against the JAX package:
+kernel 9's plain version against the reference's Pallas ``batched_mp``
+(interpret mode) at the reference tests' sweep shapes and at the molecule
+shape of every GNN config's width, then ``forward_dense`` for the four
+convs (gin, gcn, sage through kernel 9's contract; gatedgcn's einsums)
+against the reference's with ``use_pallas=True``. Params come from the
+reference's ``init_params`` through ``models.convert.params_from_arrays``;
+the inputs are numpy, from a seed.
+
+Tolerances: rtol 1e-5, atol 1e-5 for the kernel (float32 sums of at most
+128 terms in another order); rtol 1e-4, atol 1e-5 for the multi-layer
+forwards (up to 16 layers, each rounding in its own order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import shapes_for_family
+from repro.configs.registry import get_config as ref_get_config
+from repro.configs.registry import get_smoke as ref_get_smoke
+from repro.kernels.batched_mp import batched_mp as ref_kernel
+from repro.models import gnn as ref_gnn
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.kernels import _lib, ops
+from repro_torch.kernels.batched_mp import (batched_mp, batched_mp_plain,
+                                            smem_bytes, tiles)
+from repro_torch.models import gnn
+from repro_torch.models.convert import params_from_arrays
+
+pytestmark = pytest.mark.arch
+
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+FORWARD_TOL = dict(rtol=1e-4, atol=1e-5)
+GNN_ARCHS = ("gin-tu", "gcn-cora", "graphsage-reddit", "gatedgcn")
+H100_SMEM = 232_448
+
+
+def _mp_inputs(rng, b, n, f, h):
+    adj = (rng.random((b, n, n)) < 0.3).astype(np.float32)
+    x = rng.standard_normal((b, n, f)).astype(np.float32)
+    w = (rng.standard_normal((f, h)) * np.sqrt(2 / (f + h))).astype(
+        np.float32)
+    return adj, x, w
+
+
+@pytest.mark.parametrize("b,n,f,h", [
+    # the reference's kernel sweep
+    (1, 8, 8, 8), (4, 16, 8, 12), (2, 32, 64, 16), (8, 30, 16, 2),
+    # the molecule shape at each GNN config's widths (gin: w = eye(F))
+    (16, 30, 16, 16), (16, 30, 16, 64), (16, 30, 64, 64),
+    (16, 30, 16, 128), (16, 30, 128, 128), (16, 30, 16, 70),
+    (16, 30, 70, 70),
+])
+def test_plain_matches_reference_kernel(b, n, f, h):
+    adj, x, w = _mp_inputs(np.random.default_rng(b + n + f + h), b, n, f, h)
+    want = ref_kernel(jnp.asarray(adj), jnp.asarray(x), jnp.asarray(w),
+                      interpret=True)
+    got = batched_mp_plain(*(torch.from_numpy(a) for a in (adj, x, w)))
+    assert got.shape == (b, n, h) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+def test_wrapper_on_cpu_runs_plain_and_launches_nothing():
+    adj, x, w = (torch.from_numpy(a) for a in _mp_inputs(
+        np.random.default_rng(0), 4, 30, 16, 16))
+    before = dict(_lib.LAUNCHES)
+    np.testing.assert_array_equal(batched_mp(adj, x, w).numpy(),
+                                  batched_mp_plain(adj, x, w).numpy())
+    assert ops.batched_mp is batched_mp
+    assert dict(_lib.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("n,f,h,want", [
+    (30, 64, 64, (64, 64)),          # the molecule shape: one tile
+    (30, 128, 128, (128, 128)),
+    (128, 128, 128, (64, 128)),      # 320 KB whole: F cut in two
+    (200, 128, 128, (8, 64)),        # F down to 8, then H
+])
+def test_tiles_fit_the_cards_shared_memory(n, f, h, want):
+    ft, ht = tiles(n, f, h, H100_SMEM)
+    assert (ft, ht) == want
+    assert smem_bytes(n, ft, ht) <= H100_SMEM
+    if (ft, ht) != (f, h):
+        assert smem_bytes(n, f, h) > H100_SMEM
+
+
+def test_tiles_refuse_a_graph_too_large():
+    with pytest.raises(ValueError, match="232448"):
+        tiles(256, 16, 16, H100_SMEM)
+
+
+def _dense_batch(rng, shp, b):
+    n = shp.nodes_per_graph
+    adj = (rng.random((b, n, n)) < 0.2).astype(np.float32)
+    feats = rng.standard_normal((b, n, shp.d_feat)).astype(np.float32)
+    return adj, feats
+
+
+@pytest.mark.parametrize("arch", GNN_ARCHS)
+@pytest.mark.parametrize("smoke", [True, False])
+def test_forward_dense_matches_reference(arch, smoke):
+    cfg = (ref_get_smoke if smoke else ref_get_config)(arch)
+    tcfg = (get_smoke if smoke else get_config)(arch)
+    shp = shapes_for_family("gnn")["molecule"]
+    p = ref_gnn.init_params(cfg, jax.random.PRNGKey(3), shp.d_feat,
+                            shp.n_classes)
+    tp = params_from_arrays("gnn", jax.tree.map(np.asarray, p), "cpu")
+    rng = np.random.default_rng(4)
+    adj, feats = _dense_batch(rng, shp, 8 if smoke else 4)
+    # a graph with no edges and a node with none
+    adj[0] = 0.0
+    adj[1, 3, :] = 0.0
+    adj[1, :, 3] = 0.0
+    want = ref_gnn.forward_dense(cfg, p, jnp.asarray(adj),
+                                 jnp.asarray(feats), use_pallas=True)
+    got = gnn.forward_dense(tcfg, tp, torch.from_numpy(adj),
+                            torch.from_numpy(feats))
+    assert got.shape == (adj.shape[0], shp.n_classes)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FORWARD_TOL)
+
+
+@pytest.mark.parametrize("arch", GNN_ARCHS)
+def test_init_params_tree_matches_reference(arch):
+    cfg = ref_get_config(arch)
+    shp = shapes_for_family("gnn")["molecule"]
+    want = ref_gnn.init_params(cfg, jax.random.PRNGKey(0), shp.d_feat,
+                               shp.n_classes)
+    got = gnn.init_params(get_config(arch), torch.Generator().manual_seed(0),
+                          shp.d_feat, shp.n_classes, "cpu")
+    flat_want = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_got = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: np.asarray(t), got))[0]
+    assert [(jax.tree_util.keystr(k), v.shape, str(v.dtype))
+            for k, v in flat_got] == [
+        (jax.tree_util.keystr(k), v.shape, str(v.dtype))
+        for k, v in flat_want]
+    # glorot scale: std sqrt(2 / (fan_in + fan_out)) on the widest weight
+    w = got["layers"][-1]["w_self"]
+    assert abs(float(w.std()) / (2 / sum(w.shape)) ** 0.5 - 1) < 0.1
+
+
+def test_convert_refuses_unknown_leaves():
+    cfg = ref_get_smoke("gin-tu")
+    p = jax.tree.map(np.asarray, ref_gnn.init_params(
+        cfg, jax.random.PRNGKey(0), 16, 2))
+    p["layers"][0] = {**p["layers"][0], "extra": np.zeros(2, np.float32)}
+    with pytest.raises(KeyError):
+        params_from_arrays("gnn", p, "cpu")
+    with pytest.raises(KeyError):
+        params_from_arrays("recsys", {"table": np.zeros((2, 2))}, "cpu")

@@ -1,0 +1,192 @@
+"""The port's MIND recsys serving path on the CPU against the JAX package:
+kernel 10's plain version against the reference's Pallas
+``retrieval_score`` (interpret mode) at the reference tests' sweep
+shapes, the capsule routing (``interests``), ``retrieval_scores`` with the
+reference's Pallas kernel, and the ``serve`` and ``retrieval`` cells
+through both packages' ``build_cell`` at the SMOKE config. The params
+come from the reference's ``init_params`` and cross over through
+``models.convert.params_from_arrays``; the inputs are numpy, from a seed.
+
+Tolerances: rtol 1e-5, atol 1e-5 for the kernel (float32 dot products of
+at most 64 terms, summed in another order); rtol 1e-4, atol 1e-5 for
+capsule routing and the cells (three routing rounds of softmax, einsums
+and squash, each rounding in its own order).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import shapes_for_family
+from repro.configs.registry import get_config as ref_get_config
+from repro.configs.registry import get_smoke as ref_get_smoke
+from repro.kernels.retrieval_score import retrieval_score as ref_kernel
+from repro.models import api as ref_api
+from repro.models import recsys as ref_rec
+from repro_torch.configs import ARCHS, get_config, get_smoke
+from repro_torch.configs.base import \
+    shapes_for_family as port_shapes_for_family
+from repro_torch.kernels import _lib, ops
+from repro_torch.kernels.retrieval_score import (retrieval_score,
+                                                 retrieval_score_plain)
+from repro_torch.models import api, recsys
+from repro_torch.models.convert import params_from_arrays
+
+pytestmark = pytest.mark.arch
+
+KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+FORWARD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _params(cfg, seed=0):
+    p = ref_rec.init_params(cfg, jax.random.PRNGKey(seed))
+    return p, params_from_arrays("recsys", jax.tree.map(np.asarray, p),
+                                 "cpu")
+
+
+def _history(rng, cfg, b):
+    ids = rng.integers(0, cfg.n_items, (b, cfg.hist_len)).astype(np.int32)
+    mask = (rng.random((b, cfg.hist_len)) < 0.9).astype(np.float32)
+    mask[0] = 0.0                     # a user with no history at all
+    mask[1, 1:] = 0.0                 # and one with a single item
+    return ids, mask
+
+
+@pytest.mark.parametrize("c,d,i,block_c", [
+    (100, 16, 4, 64), (5000, 64, 4, 2048), (2048, 32, 8, 512),
+    (1, 64, 4, 128),
+])
+def test_plain_matches_reference_kernel(c, d, i, block_c):
+    rng = np.random.default_rng(c + d + i)
+    cands = rng.standard_normal((c, d)).astype(np.float32)
+    ints = rng.standard_normal((i, d)).astype(np.float32)
+    want = ref_kernel(jnp.asarray(cands), jnp.asarray(ints),
+                      block_c=block_c, interpret=True)
+    got = retrieval_score_plain(torch.from_numpy(cands),
+                                torch.from_numpy(ints))
+    assert got.shape == (c,) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+def test_wrapper_on_cpu_runs_plain_and_launches_nothing():
+    rng = np.random.default_rng(3)
+    cands = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
+    ints = torch.from_numpy(rng.standard_normal((4, 64)).astype(np.float32))
+    before = dict(_lib.LAUNCHES)
+    np.testing.assert_array_equal(retrieval_score(cands, ints).numpy(),
+                                  retrieval_score_plain(cands, ints).numpy())
+    assert ops.retrieval_score is retrieval_score
+    assert retrieval_score(cands[:0], ints).shape == (0,)
+    assert dict(_lib.LAUNCHES) == before
+
+
+def test_interests_match_reference():
+    cfg = ref_get_smoke("mind")
+    p, tp = _params(cfg)
+    ids, mask = _history(np.random.default_rng(0), cfg, 32)
+    want = ref_rec.interests(cfg, p, jnp.asarray(ids), jnp.asarray(mask))
+    got = recsys.interests(get_smoke("mind"), tp, torch.from_numpy(ids),
+                           torch.from_numpy(mask))
+    assert got.shape == (32, cfg.n_interests, cfg.embed_dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FORWARD_TOL)
+
+
+def test_retrieval_scores_match_reference_pallas():
+    cfg = ref_get_smoke("mind")
+    p, tp = _params(cfg, seed=1)
+    rng = np.random.default_rng(1)
+    ids, mask = _history(rng, cfg, 4)
+    caps = np.array(ref_rec.interests(cfg, p, jnp.asarray(ids),
+                                      jnp.asarray(mask)))[2]
+    cand = rng.integers(0, cfg.n_items, 3000).astype(np.int32)
+    want = ref_rec.retrieval_scores(cfg, p, jnp.asarray(caps),
+                                    jnp.asarray(cand), use_pallas=True)
+    got = recsys.retrieval_scores(get_smoke("mind"), tp,
+                                  torch.from_numpy(caps),
+                                  torch.from_numpy(cand))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
+
+
+def _tiny(shape_name):
+    shp = shapes_for_family("recsys")[shape_name]
+    return dataclasses.replace(shp, batch=16, n_candidates=512)
+
+
+@pytest.mark.parametrize("shape_name", ["serve_p99", "serve_bulk",
+                                        "retrieval_cand"])
+def test_cell_matches_reference(shape_name):
+    cfg = ref_get_smoke("mind")
+    shp = _tiny(shape_name)
+    ref_cell = ref_api.build_cell(cfg, shape_name, shape_override=shp)
+    state = ref_api.materialize_state(ref_cell, cfg, shape_name,
+                                      jax.random.PRNGKey(2))
+    cell = api.build_cell(get_smoke("mind"), shape_name, device="cpu",
+                          shape_override=shp)
+    assert cell.kind == ref_cell.kind and cell.device.type == "cpu"
+    rng = np.random.default_rng(5)
+    batch = {}
+    for name, (shape, dtype) in cell.batch_shapes.items():
+        ref_sds = ref_cell.batch_sds[name]
+        assert tuple(shape) == tuple(ref_sds.shape)
+        assert str(dtype).split(".")[-1] == str(ref_sds.dtype)
+        if name == "hist_mask":
+            batch[name] = (rng.random(shape) < 0.9).astype(np.float32)
+        else:
+            batch[name] = rng.integers(0, cfg.n_items, shape).astype(np.int32)
+    if shape_name == "retrieval_cand":
+        assert cell.batch_shapes["cand_ids"][0] == (api._pad(512),)
+    tstate = {"params": params_from_arrays(
+        "recsys", jax.tree.map(np.asarray, state["params"]), "cpu")}
+    _, want = jax.jit(ref_cell.step)(
+        state, {k: jnp.asarray(v) for k, v in batch.items()})
+    _, got = cell.step(tstate, {k: torch.from_numpy(v)
+                                for k, v in batch.items()})
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FORWARD_TOL)
+
+
+def test_materialize_state_shapes_match_reference():
+    cfg = ref_get_smoke("mind")
+    cell = api.build_cell(get_smoke("mind"), "serve_p99", device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    state = api.materialize_state(cell, get_smoke("mind"), "serve_p99", gen)
+    want = ref_rec.init_params(cfg, jax.random.PRNGKey(0))
+    assert set(state["params"]) == set(want)
+    for k, v in state["params"].items():
+        assert tuple(v.shape) == want[k].shape
+        assert str(v.dtype).split(".")[-1] == str(want[k].dtype)
+    # the table is D^-1/2 · N(0, 1), as in the reference
+    assert abs(float(state["params"]["table"].std())
+               - cfg.embed_dim ** -0.5) < 0.01
+
+
+def test_unported_cells_and_archs_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.build_cell(get_smoke("mind"), "train_batch", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.build_cell(get_smoke("gin-tu"), "molecule", device="cpu")
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_config("llama3-8b")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_configs_are_copies_of_the_reference(arch):
+    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+        ref_get_config(arch))
+    assert dataclasses.asdict(get_smoke(arch)) == dataclasses.asdict(
+        ref_get_smoke(arch))
+    fam = get_config(arch).family
+    assert ({k: dataclasses.asdict(v) for k, v in
+             port_shapes_for_family(fam).items()}
+            == {k: dataclasses.asdict(v) for k, v in
+                shapes_for_family(fam).items()})
+
+
+def test_cell_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.build_cell(get_smoke("mind"), "serve_p99")
