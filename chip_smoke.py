@@ -5,9 +5,10 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version (the integer kernels bit for bit,
-the float kernels 9 and 10 within rtol 1e-5, atol 1e-5), then drives the
+the float kernels 9 and 10 within rtol 1e-5, atol 1e-5, kernel 6 within
+2e-5 in float32 and 3e-2 in bfloat16, lse included), then drives the
 port's reachability serving path through ``repro_torch.reach.
-QuerySession`` and its two model paths on the card:
+QuerySession`` and its three model paths on the card:
 
   main     the default IndexSpec (k=2, FERRARI-G, c=4, 32 seeds: k_max ≤ 8,
            one seed word, ELL width ≤ 32 — the ferrari-web widths) over
@@ -37,6 +38,14 @@ QuerySession`` and its two model paths on the card:
            graphsage-reddit and gatedgcn at full width on the molecule
            shape (128 graphs × 30 nodes), and gin-tu on a bulk batch of
            65,536 molecules (kernel 9), held against the CPU run.
+  lm       llama3-8b at its published widths and full depth (32 layers,
+           bf16, random weights) through ``launch.serve.generate``: the
+           prefill_32k prompt of 32,768 tokens (batch cut 32 -> 1; kernel
+           6 once per layer) and 32 greedy decode steps from its cache;
+           layer 0's attention call held against the plain version on its
+           last 256 query rows and timed whole beside SDPA; then the same
+           widths cut to 2 layers in float32, a 512-token prompt and 8
+           decode steps, card against CPU.
 
 Every phase sets the launch counters to 0 just before it is driven and
 reads them just after; the reachability phases hold their answers against
@@ -65,6 +74,7 @@ SRC = ROOT / "src"
 BUILD_DIR = ROOT / "build"     # gitignored: kernels, temporary index
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 ALU_OPS_PER_S = 67e12          # 32-bit non-tensor peak (H100 SXM)
+BF16_TENSOR_OPS_PER_S = 989e12  # dense bf16 tensor-core peak (H100 SXM)
 PARITY_ROWS = 1 << 20
 MAIN_NODES = 4_000_000
 SIDE_NODES = 1_000_000
@@ -75,6 +85,32 @@ KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)    # float kernels vs plain
 FORWARD_RTOL, FORWARD_ATOL = 1e-4, 1e-5
 GNN_ARCHS = ("gin-tu", "gcn-cora", "graphsage-reddit", "gatedgcn")
 GNN_BULK_GRAPHS = 65_536
+# kernel 6 vs plain: the reference tests' tolerances (the kernel rounds
+# the softmax numerators to bfloat16 before the product with v, as the
+# TPU kernel does; the plain version does not)
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+FLASH_SHAPES = (
+    # (b, sq, sk, h, hd, causal, q_offset): the reference tests' sweep
+    # (ragged S, cross shapes, q_offset 192, hd 64 and 128, GQA already
+    # expanded), S = 70 with its short causal rows, a ragged
+    # continuation, and llama3-8b's 32 heads at hd 128
+    (1, 128, 128, 2, 64, True, 0), (2, 256, 256, 1, 128, True, 0),
+    (1, 130, 190, 2, 64, True, 0), (1, 64, 512, 1, 64, False, 0),
+    (2, 64, 256, 2, 64, True, 192), (1, 96, 96, 3, 128, False, 0),
+    (1, 70, 70, 1, 64, True, 0), (1, 37, 300, 2, 128, True, 100),
+    (1, 2048, 2048, 32, 128, True, 0))
+LM_ARCH = "llama3-8b"
+LM_DECODE = 32                 # greedy decode steps after the prefill
+LM_PARITY_ROWS = 256           # last query rows of layer 0 vs plain
+# kernel 6 on the path's own call: over 32,768 keys a typical |out| is
+# ~0.01, so out is held at 3e-2 relative to the output's largest
+# magnitude (lse keeps FLASH_TOL: its values are ~10)
+LM_OUT_TOL = 3e-2
+# bfloat16 decode attention vs the same inputs in float32: both take
+# float32 scores; p and out are rounded to bfloat16 (2^-9 each)
+DECODE_TOL = dict(rtol=1e-2, atol=1e-2)     # atol times max|want|
+LM_CHECK = dict(layers=2, prompt=512, steps=8)   # card vs CPU, float32
 
 KERNELS = {
     "stab_packed": dict(
@@ -98,6 +134,9 @@ KERNELS = {
     "batched_mp": dict(
         source="src/repro_torch/csrc/batched_mp.cu",
         replaces="src/repro/kernels/batched_mp.py:31", phase="gnn"),
+    "flash_fwd": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:101", phase="lm"),
 }
 
 
@@ -221,29 +260,28 @@ def close_stats(got, want, rtol: float, atol: float):
     return float(diff.nan_to_num(0.0).max()), bad, rel
 
 
-def _compare(name, got, want):
+def _compare(name, got, want, tol=KERNEL_TOL):
     """Parity of a kernel's outputs with its plain version's: exact for
-    integers, within KERNEL_TOL for floats. Returns (max_abs_err,
+    integers, within ``tol`` for floats. Returns (max_abs_err,
     mismatches, max_rel_err)."""
     import torch
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     torch.cuda.synchronize()
     if got[0].is_floating_point():
-        stats = [close_stats(a, b, **KERNEL_TOL) for a, b in zip(got, want)]
+        stats = [close_stats(a, b, **tol) for a, b in zip(got, want)]
         err = max(s[0] for s in stats)
         bad = sum(s[1] for s in stats)
         rel = max(s[2] for s in stats)
         what = (f"max abs err {err:.3e}, max rel err {rel:.3e} (rtol "
-                f"{KERNEL_TOL['rtol']}, atol {KERNEL_TOL['atol']})")
+                f"{tol['rtol']}, atol {tol['atol']})")
     else:
         bad = sum(int((a != b).sum()) for a, b in zip(got, want))
         err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
                   for a, b in zip(got, want))
         rel, what = 0.0, "bit for bit"
-    rows = got[0].shape[0]
-    print(f"  parity {name}: {rows} rows, {bad} mismatches, {what}",
-          flush=True)
+    print(f"  parity {name}: {tuple(got[0].shape)}, {bad} mismatches, "
+          f"{what}", flush=True)
     check(bad == 0, f"{name} disagrees with its plain version")
     return err, bad, rel
 
@@ -344,6 +382,17 @@ def kernel_parity(dev) -> dict:
         _tally(err, "batched_mp", _compare(
             f"batched_mp B={b} N={n} F={f} w=eye", bm.batched_mp(adj, x, eye),
             bm.batched_mp_plain(adj, x, eye)))
+    # kernel 6: out and lse, float32 and bfloat16
+    from repro_torch.kernels import flash_attention as fa
+    for dtype in ("float32", "bfloat16"):
+        for b, sq, sk, h, hd, causal, qo in FLASH_SHAPES:
+            q, k, v = (torch.randn((b, s, h, hd), generator=g, device=dev)
+                       .to(getattr(torch, dtype)) for s in (sq, sk, sk))
+            kw = dict(causal=causal, q_offset=qo)
+            _tally(err, "flash_fwd", _compare(
+                f"flash_fwd {dtype} B={b} Sq={sq} Sk={sk} H={h} hd={hd} "
+                f"causal={causal} q_offset={qo}", fa.flash_fwd(q, k, v, **kw),
+                fa.flash_attention_plain(q, k, v, **kw), FLASH_TOL[dtype]))
     return err
 
 
@@ -509,6 +558,16 @@ def work_of(name, args):
         (b, n, f), h = x.shape, w.shape[1]
         return (4 * (b * n * n + b * n * f + f * h + b * n * h),
                 2 * b * n * n * f + 2 * b * n * f * h)
+    if name == "flash_fwd":
+        # 4·hd flops for each unmasked (q, k) pair: q·k and p·v
+        q, k, v, causal, q_offset = args
+        b, sq, h, hd = q.shape
+        sk = k.shape[1]
+        seen = (np.minimum(q_offset + np.arange(sq, dtype=np.int64) + 1, sk)
+                if causal else np.full(sq, sk, dtype=np.int64))
+        nbytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+                  + 4 * b * h * sq)
+        return nbytes, 4 * hd * b * h * int(seen.sum())
     if name == "merge_cover":
         cb, ce, cx, k, w_out = args
         rows, m = cb.shape
@@ -566,8 +625,8 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
               "retrieval_score": rs.retrieval_score,
               "batched_mp": bm.batched_mp}
     out = {}
-    for name, label, (rows, args) in ([(n, n, recorded[n]) for n in KERNELS]
-                                      + list(extra)):
+    for name, label, (rows, args) in ([(n, n, recorded[n]) for n in KERNELS
+                                       if n in recorded] + list(extra)):
         err = _compare(f"{label} on the path's inputs", kernel[name](*args),
                        plain[name](*args))
         ms = device_ms(lambda: kernel[name](*args))
@@ -661,19 +720,22 @@ def serve(sess, qs, qt, label):
     return ans, st
 
 
-def profile_window(fn, label, top: int = 6):
+def profile_window(fn, label, top: int = 6, wall=None):
     """Where the time goes: device time by kernel and copy (torch.profiler,
     device-side events only) over one call of ``fn``, against the wall
-    time of the same call without the profiler; their ratio is the
-    device's busy share (one stream, so events do not overlap)."""
+    time of the same call without the profiler (``wall`` seconds if the
+    caller timed one already); their ratio is the device's busy share (one
+    stream, so events do not overlap). Returns the (device us, count,
+    name) rows."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    if wall is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -687,6 +749,7 @@ def profile_window(fn, label, top: int = 6):
           flush=True)
     for us, count, key in rows[:top]:
         print(f"    {us / 1e3:9.3f} ms  x{count:<5} {key[:70]}", flush=True)
+    return rows
 
 
 def hold_to_host(ix, sess, qs, qt, ans, n_sample, label):
@@ -1136,10 +1199,221 @@ def gnn_phase(dev, rec, seed: int):
     return counts, calls
 
 
+
+def _split(rows, label) -> dict:
+    """Device ms of a profile's rows in three parts: kernel 6, the cuBLAS
+    GEMMs and everything else."""
+    parts = {"kernel 6": 0.0, "GEMMs": 0.0, "rest": 0.0}
+    for us, _, key in rows:
+        low = key.lower()
+        part = ("kernel 6" if "flash_fwd" in low else "GEMMs"
+                if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
+                else "rest")
+        parts[part] += us / 1e3
+    total = sum(parts.values())
+    print(f"  split {label}: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items()),
+        flush=True)
+    return parts
+
+
+def time_flash(args, plain_args) -> dict:
+    """Kernel 6 on the path's call ``args`` = (q, k, v, causal, q_offset):
+    its time beside its bound and SDPA's on the same tensors; the plain
+    version cannot hold the call's S² scores, so it is timed (with the
+    kernel again) on ``plain_args``, the call's last query rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, causal, q_offset = args
+
+    def kernel(a=args):
+        return fa.flash_fwd(*a[:3], causal=a[3], q_offset=a[4])
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal)
+
+    _, one = _timed(kernel)
+    reps = 30 if one < 0.1 else 3
+    ms = device_ms(kernel, reps=reps)
+    library_ms = device_ms(sdpa)
+    slice_ms = device_ms(lambda: kernel(plain_args))
+    plain_ms = device_ms(lambda: fa.flash_attention_plain(
+        *plain_args[:3], causal=plain_args[3], q_offset=plain_args[4]))
+    nbytes, ops = work_of("flash_fwd", args)
+    peak = (BF16_TENSOR_OPS_PER_S if q.dtype == torch.bfloat16
+            else ALU_OPS_PER_S)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    rows = plain_args[0].shape[1]
+    print(f"  time flash_fwd: the path's call {tuple(q.shape)} x "
+          f"{tuple(k.shape)} {str(q.dtype).split('.')[-1]}: kernel {ms:.4f} "
+          f"ms (median of {reps}{'; one call > 100 ms' if reps < 30 else ''})"
+          f", {ops / ms / 1e9:.2f} TFLOP/s; library (SDPA, is_causal) "
+          f"{library_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms "
+          f"({nbytes} B, {ops} flops at {peak / 1e12:.0f} TFLOP/s; "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}); its last "
+          f"{rows} query rows: kernel {slice_ms:.4f} ms, plain {plain_ms:.4f}"
+          f" ms", flush=True)
+    return dict(rows=q.shape[1], ms=ms, plain_ms=plain_ms,
+                library="torch.nn.functional.scaled_dot_product_attention"
+                        "(is_causal=True)", library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                plain_at=f"the last {rows} query rows (q_offset "
+                         f"{plain_args[4]}) against all {k.shape[1]} keys",
+                ms_at_plain_shape=slice_ms)
+
+
+def decode_parity(q, k_cache, v_cache, pos: int) -> None:
+    """The path's bfloat16 decode attention at ``pos`` against the same
+    inputs widened to float32."""
+    from repro_torch.models.attention import decode_attention
+    got = decode_attention(q, k_cache, v_cache, pos)
+    want = decode_attention(q.float(), k_cache.float(), v_cache.float(), pos)
+    top = float(want.abs().max())
+    atol = DECODE_TOL["atol"] * top
+    err, bad, rel = close_stats(got.float(), want, DECODE_TOL["rtol"], atol)
+    print(f"  parity decode attention {str(q.dtype).split('.')[-1]} vs "
+          f"float32 at position {pos}, layer 0's cache: {bad} mismatches, "
+          f"max abs err {err:.3e}, max|want| {top:.3e}, max rel err "
+          f"{rel:.3e} (rtol {DECODE_TOL['rtol']}, atol {atol:.3e})",
+          flush=True)
+    check(bad == 0, "lm: bfloat16 decode attention disagrees with float32")
+
+
+def lm_phase(dev, seed: int):
+    """llama3-8b at full width and depth: the prefill_32k prompt at batch 1
+    and greedy decode from its cache through ``launch.serve.generate``;
+    kernel 6 on layer 0's call; then 2 layers in float32, card vs CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import shapes_for_family
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    cfg = get_config(LM_ARCH)
+    shp = shapes_for_family("lm")["prefill_32k"]
+    S = shp.seq_len
+    print(f"lm: {cfg.arch_id} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.hd}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}); prefill_32k: one "
+          f"prompt of {S} tokens (batch cut {shp.batch} -> 1), then "
+          f"{LM_DECODE} greedy decode steps from its cache", flush=True)
+    cell = api.build_cell(cfg, "prefill_32k", device=dev,
+                          shape_override=dataclasses.replace(shp, batch=1))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state, dt = _timed(lambda: api.materialize_state(cell, cfg,
+                                                     "prefill_32k", gen))
+    params = state["params"]
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  [params["embed"], params["final_norm"], params["lm_head"],
+                   *params["layers"].values()])
+    print(f"  weights: {n_bytes / 1e9:.2f} GB on the card in {dt:.2f} s",
+          flush=True)
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+    serve.generate(cfg, params, toks[:, :256], 2)          # warm up
+
+    captured = []
+    attention = ops.attention
+
+    def capture(q, k, v, **kw):
+        if not captured:          # layer 0's call, by reference
+            captured.append((q, k, v, kw["causal"], kw["q_offset"]))
+        return attention(q, k, v, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    ops.attention = capture
+    try:
+        res = serve.generate(cfg, params, toks, LM_DECODE + 1)
+    finally:
+        ops.attention = attention
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms_tok = res["decode_s"] / res["decode_steps"] * 1e3
+    print(f"  prefill {res['prefill_s']:.3f} s ({S / res['prefill_s']:.0f} "
+          f"tokens/s), time to first token {res['ttft_s']:.3f} s; "
+          f"{res['decode_steps']} decode steps in {res['decode_s']:.3f} s, "
+          f"{ms_tok:.2f} ms per decoded token; peak device memory "
+          f"{peak / 1e9:.2f} GB; tokens {res['tokens'][0, :8].tolist()}...",
+          flush=True)
+    print(f"  counts: {counts} (flash_fwd per prefill: {cfg.n_layers} "
+          f"layers)", flush=True)
+    check(counts["flash_fwd"] == cfg.n_layers,
+          "lm: kernel 6 launches differ from the layers of one prefill")
+    check(int(res["tokens"].min()) >= 0
+          and int(res["tokens"].max()) < cfg.vocab, "lm: token out of range")
+
+    max_seq = S + LM_DECODE + 1
+    rows = profile_window(lambda: tf.prefill(cfg, params, toks, max_seq),
+                          f"lm prefill of {S} tokens", top=8,
+                          wall=res["prefill_s"])
+    split = _split(rows, "prefill")
+    logits, cache = tf.prefill(cfg, params, toks, max_seq)
+    check(bool(torch.isfinite(logits).all()), "lm: non-finite logits")
+    nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+    profile_window(lambda: tf.decode_step(cfg, params, cache, nxt, S),
+                   f"lm decode step at position {S}", top=8)
+    q, k, v, causal, q_offset = captured[0]
+    decode_parity(q[:, -1:], cache["k"][0], cache["v"][0], S - 1)
+    del cache, logits
+
+    n = LM_PARITY_ROWS
+    tail = (q[:, -n:].contiguous(), k, v, causal, q_offset + S - n)
+    got = fa.flash_fwd(*tail[:3], causal=causal, q_offset=tail[4])
+    want = fa.flash_attention_plain(*tail[:3], causal=causal,
+                                    q_offset=tail[4])
+    top = float(want[0].abs().max())
+    label = (f"flash_fwd on layer 0's last {n} query rows (q_offset "
+             f"{tail[4]}, all {S} keys)")
+    parts = (_compare(f"{label}: out, max|want| {top:.3e}", got[0], want[0],
+                      dict(rtol=LM_OUT_TOL, atol=LM_OUT_TOL * top)),
+             _compare(f"{label}: lse", got[1], want[1],
+                      FLASH_TOL[str(q.dtype).split(".")[-1]]))
+    err = (max(p[0] for p in parts), sum(p[1] for p in parts),
+           max(p[2] for p in parts))
+    del got, want
+    timing = time_flash(captured[0], tail)
+    timing.update(err=err, prefill_split=split)
+    del captured, tail, q, k, v, state, params, cell
+
+    # card vs CPU: the same widths cut to 2 layers, float32
+    small = dataclasses.replace(cfg, n_layers=LM_CHECK["layers"],
+                                dtype="float32")
+    gen.manual_seed(seed + 1)
+    card = tf.init_params(small, gen, dev)
+    host = _tree_to(card, "cpu")
+    prompt = toks[:, :LM_CHECK["prompt"]]
+    steps, p_len = LM_CHECK["steps"], LM_CHECK["prompt"]
+    (want, cache_h), dt = _timed(lambda: tf.prefill(
+        small, host, prompt.cpu(), p_len + steps))
+    got, cache_d = tf.prefill(small, card, prompt, p_len + steps)
+    print(f"  card vs CPU: {small.n_layers} layers, float32, a {p_len}-token "
+          f"prompt and {steps} decode steps (CPU prefill {dt:.2f} s)",
+          flush=True)
+    _hold("prefill last-token logits", got.cpu(), want)
+    for i in range(steps):
+        tok = want.argmax(-1, keepdim=True).to(torch.int32)   # the CPU's
+        want, cache_h = tf.decode_step(small, host, cache_h, tok, p_len + i)
+        got, cache_d = tf.decode_step(small, card, cache_d, tok.to(dev),
+                                      p_len + i)
+        _hold(f"decode step {i} logits", got.cpu(), want)
+    return counts, timing
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the recsys and gnn phases' data")
+                        help="seed of the model phases' data and weights")
     args = parser.parse_args()
     try:
         import torch
@@ -1188,12 +1462,13 @@ def main() -> int:
         dense_counts = dense_phase(dev, rec)
         rs_counts, rs_calls = recsys_phase(dev, rec, args.seed)
         gnn_counts, gnn_calls = gnn_phase(dev, rec, args.seed)
+        lm_counts, lm_time = lm_phase(dev, args.seed)
     finally:
         rec.close()
     phase_counts = {"main": main_counts, "wavefront": wf_counts,
                     "phase2": p2_counts, "seeds64": s64_counts,
                     "dense": dense_counts, "recsys": rs_counts,
-                    "gnn": gnn_counts}
+                    "gnn": gnn_counts, "lm": lm_counts}
     for kname, meta in KERNELS.items():
         n = phase_counts[meta["phase"]][kname]
         print(f"  launches {kname} on its phase ({meta['phase']}): {n}",
@@ -1219,6 +1494,7 @@ def main() -> int:
     times = time_kernels(recorded, extra=(
         ("batched_mp", "batched_mp (smallest call)",
          gnn_calls["smallest"]["batched_mp"]),))
+    times["flash_fwd"] = lm_time          # timed in the lm phase
     rows = []
     for kname, meta in KERNELS.items():
         t = times[kname]
@@ -1230,7 +1506,9 @@ def main() -> int:
             "max_rel_err": max(err[kname][2], t["err"][2]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "library": t["library"]})
+            "library_ms": t["library_ms"], "library": t["library"],
+            **{key: t[key] for key in ("plain_at", "ms_at_plain_shape")
+               if key in t}})
     bad = {k: err[k][1] + times[k]["err"][1] for k in KERNELS}
     print("kernels: " + ", ".join(f"{r['name']} {bad[r['name']]} "
                                   f"mismatches, {r['launches']} launches"

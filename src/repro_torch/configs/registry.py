@@ -1,5 +1,5 @@
 """Architecture registry: ``--arch <id>`` resolution for the archs the
-port can run. The reference's other archs (the LM family, ferrari-web as
+port can run. The reference's other archs (the two MoE LMs, ferrari-web as
 a model cell) are not ported yet; asking for one raises ``KeyError``."""
 from __future__ import annotations
 
@@ -7,6 +7,9 @@ import importlib
 from typing import Dict
 
 _MODULES: Dict[str, str] = {
+    "llama3-8b": "llama3_8b",
+    "smollm-360m": "smollm_360m",
+    "tinyllama-1.1b": "tinyllama_1_1b",
     "gcn-cora": "gcn_cora",
     "graphsage-reddit": "graphsage_reddit",
     "gatedgcn": "gatedgcn",

@@ -1,6 +1,6 @@
 """The entry points the engine and the models use: the reachability ops
-over a ``PackedIndex.to_torch`` dict, and the two float substrate ops of
-the GNN and recsys models.
+over a ``PackedIndex.to_torch`` dict, and the float substrate ops of the
+GNN, recsys and LM models.
 
 Each op dispatches by the tensors' device only: on the CPU the kernels'
 plain PyTorch versions run; on a CUDA device the hand-written kernels
@@ -13,12 +13,20 @@ import torch
 
 from . import ref
 from .batched_mp import batched_mp  # noqa: F401  (kernel 9)
+from .flash_attention import flash_attention
 from .frontier_fused import (classify_emit, emit_plain,
                              expand_frontier_loop_fused)
 from .interval_stab import stab_naive, stab_packed
 from .retrieval_score import retrieval_score  # noqa: F401  (kernel 10)
 
 NEG, POS, UNKNOWN = ref.NEG, ref.POS, ref.UNKNOWN
+
+
+def attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """Flash attention. q: [B, Sq, H, hd]; k, v: [B, Sk, H, hd] (GQA
+    expanded) → [B, Sq, H, hd] in q's dtype. Kernel 6 on a card, its plain
+    float32 softmax on the CPU."""
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def classify_queries(dev: dict, cs, ct):

@@ -1,4 +1,5 @@
-"""Reachability serving driver of the PyTorch/CUDA port.
+"""Serving command line of the PyTorch/CUDA port: reachability, and
+greedy LM generation.
 
 Builds a FERRARI index over a synthetic scale-free graph — on the host
 (``--builder host``) or on the device (``--builder wavefront
@@ -12,6 +13,14 @@ device: phase 1 and the sparse phase 2 run the CUDA kernels on a card.
 ``--index-dir DIR`` loads the artifact committed there, or builds and
 saves one (first run builds, reruns load). ``--device cpu`` runs the
 kernels' plain PyTorch versions instead.
+
+``--mode lm`` prefills random prompts, then decodes greedily, with random
+weights from ``--seed``: on a card at the arch's published widths, on the
+CPU at its SMOKE config (as the reference's ``serve_lm``; the SMOKE head
+dims 16 and 32 are below the flash kernel's 64):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+        --arch tinyllama-1.1b --batch 2 --prompt-len 512 --gen-len 16
 """
 from __future__ import annotations
 
@@ -20,9 +29,14 @@ import time
 from dataclasses import replace
 from pathlib import Path
 
+import torch
+
+from ..configs import get_config, get_smoke
 from ..core.packed import pack_index
+from ..core.query_torch import resolve_device
 from ..core.workload import positive_queries, random_queries
 from ..graphs.generators import scale_free_digraph
+from ..models import transformer as tf
 from ..reach import (IndexSpec, QuerySession, build, load_manifest,
                      save_index)
 from ..reach.spec import BUILD_FIELDS
@@ -145,9 +159,66 @@ def _build_session(g, spec: IndexSpec, device, index_dir, graph_meta):
     return sess, time.perf_counter() - t0
 
 
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(cfg, params, tokens, gen_len: int) -> dict:
+    """Greedy generation: prefill ``tokens [B, S]`` into a cache of S +
+    gen_len positions, take the first token from the prefill's logits,
+    then run ``gen_len - 1`` decode steps. Returns the tokens [B, gen_len]
+    and the wall times: ``prefill_s`` (ends in a device sync), ``ttft_s``
+    (the first tokens on the host) and ``decode_s`` (every decode step,
+    each ending with its tokens on the host)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(cfg, params, tokens, S + gen_len)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    cur = logits.argmax(-1, keepdim=True).to(torch.int32)
+    out = [cur.cpu()]
+    t_first = time.perf_counter() - t0
+    for i in range(gen_len - 1):
+        logits, cache = tf.decode_step(cfg, params, cache, cur, S + i)
+        cur = logits.argmax(-1, keepdim=True).to(torch.int32)
+        out.append(cur.cpu())
+    t_decode = time.perf_counter() - t0 - t_first
+    return {"tokens": torch.cat(out, dim=1), "prefill_s": t_prefill,
+            "ttft_s": t_first, "decode_s": t_decode,
+            "decode_steps": gen_len - 1}
+
+
+def serve_lm(arch: str, batch: int, prompt_len: int, gen_len: int, *,
+             seed: int = 0, device="cuda") -> dict:
+    """Random weights and prompts from ``seed`` on ``device`` (the
+    published config on a card, SMOKE on the CPU), then ``generate``;
+    prints and returns its result."""
+    dev = resolve_device(device)
+    config = "full" if dev.type == "cuda" else "smoke"
+    cfg = (get_config if dev.type == "cuda" else get_smoke)(arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = tf.init_params(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                         device=dev, dtype=torch.int32)
+    res = generate(cfg, params, toks, gen_len)
+    steps = res["decode_steps"]
+    total = res["ttft_s"] + res["decode_s"]
+    print(f"{cfg.arch_id} ({config}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}) on {dev}: served {batch} requests x "
+          f"{gen_len} tokens in {total:.2f}s ({batch * gen_len / total:.0f} "
+          f"tok/s); prefill of {prompt_len} tokens {res['prefill_s']:.3f}s, "
+          f"first token {res['ttft_s']:.3f}s, "
+          f"{res['decode_s'] / max(steps, 1) * 1e3:.2f} ms per decode step")
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["reachability"],
+    ap.add_argument("--mode", choices=["reachability", "lm"],
                     default="reachability")
     ap.add_argument("--nodes", type=int, default=20_000)
     ap.add_argument("--avg-deg", type=float, default=4.0)
@@ -162,7 +233,15 @@ def main(argv=None):
                     help="load the index artifact committed here, or "
                          "build and save one")
     IndexSpec.add_cli_args(ap)       # --k --variant --phase2 --max-batch ...
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="lm mode: decode batch size")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=16)
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        return serve_lm(args.arch, args.batch, args.prompt_len, args.gen_len,
+                        seed=args.seed, device=args.device)
     # clamp before construction: IndexSpec validates max_batch >= min_bucket
     args.min_bucket = min(args.min_bucket, args.max_batch)
     return serve_reachability(args.nodes, args.avg_deg, args.queries,

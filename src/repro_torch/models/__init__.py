@@ -1,2 +1,3 @@
 """Model families the port serves: MIND recsys (interests and retrieval
-scores, kernel 10) and the GNN dense-batch forward (kernel 9)."""
+scores, kernel 10), the GNN dense-batch forward (kernel 9) and the dense
+LMs' prefill and decode (kernel 6)."""

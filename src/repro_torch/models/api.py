@@ -6,10 +6,11 @@ serves.
     step(state, batch) -> (state, out)
 
 over tensors on the cell's device, plus the batch's shapes and dtypes.
-Kinds: serve and retrieval (recsys). The kinds that train (recsys
-``train``, the GNN's cells, every LM kind) wait for the training slice
-(ROADMAP.md, Queue 1 item 8) and raise ``NotImplementedError``; the GNN
-dense-batch forward is reached through ``models.gnn.forward_dense``.
+Kinds: serve and retrieval (recsys), prefill and decode (the dense LMs).
+The kinds that train (recsys ``train``, the GNN's cells, LM ``train``)
+wait for the training slice (ROADMAP.md, Queue 1 item 8) and raise
+``NotImplementedError``; the GNN dense-batch forward is reached through
+``models.gnn.forward_dense``.
 Unlike the reference there is no mesh and no sharding: a cell runs on one
 device.
 """
@@ -20,9 +21,10 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
-from ..configs.base import RecsysConfig, shapes_for_family
+from ..configs.base import LMConfig, RecsysConfig, shapes_for_family
 from ..core.query_torch import resolve_device
 from . import recsys as rec_mod
+from . import transformer as tf_mod
 
 PAD_UNIT = 512  # the reference's padding unit for data-parallel dims
 
@@ -83,14 +85,46 @@ def _recsys_cell(cfg: RecsysConfig, shape):
         _NOT_PORTED.format(what=f"the recsys {shape.kind!r} cell"))
 
 
+def _lm_cell(cfg: LMConfig, shape):
+    B, S = shape.batch, shape.seq_len
+    i32 = torch.int32
+
+    if shape.kind == "prefill":
+        batch_shapes = {"tokens": ((B, S), i32)}
+
+        def step(state, batch):
+            logits, cache = tf_mod.prefill(cfg, state["params"],
+                                           batch["tokens"], S)
+            return state, {"logits": logits, "cache": cache}
+
+        return step, batch_shapes
+
+    if shape.kind == "decode":
+        batch_shapes = {"token": ((B, 1), i32), "pos": ((), i32)}
+
+        def step(state, batch):
+            # the cache is updated in place (transformer.decode_step)
+            logits, cache = tf_mod.decode_step(
+                cfg, state["params"], state["cache"], batch["token"],
+                batch["pos"])
+            return {"params": state["params"], "cache": cache}, logits
+
+        return step, batch_shapes
+    raise NotImplementedError(
+        _NOT_PORTED.format(what=f"the LM {shape.kind!r} cell"))
+
+
+_CELLS = {"recsys": _recsys_cell, "lm": _lm_cell}
+
+
 def build_cell(cfg, shape_name: str, device="cuda",
                shape_override=None) -> CellSpec:
     shape = shape_override or shapes_for_family(cfg.family)[shape_name]
-    if cfg.family != "recsys":
+    if cfg.family not in _CELLS:
         raise NotImplementedError(_NOT_PORTED.format(
             what=f"the {cfg.family} {shape.kind!r} cell"))
     dev = resolve_device(device)
-    step, batch_shapes = _recsys_cell(cfg, shape)
+    step, batch_shapes = _CELLS[cfg.family](cfg, shape)
     return CellSpec(arch=cfg.arch_id, shape_name=shape_name, kind=shape.kind,
                     step=step, batch_shapes=batch_shapes, device=dev,
                     shape=shape)
@@ -102,5 +136,12 @@ def materialize_state(cell: CellSpec, cfg, shape_name: str,
     generator on that device)."""
     if cfg.family == "recsys":
         return {"params": rec_mod.init_params(cfg, gen, cell.device)}
+    if cfg.family == "lm":
+        state = {"params": tf_mod.init_params(cfg, gen, cell.device)}
+        if cell.kind == "decode":
+            state["cache"] = tf_mod.init_cache(cfg, cell.shape.batch,
+                                               cell.shape.seq_len,
+                                               cell.device)
+        return state
     raise NotImplementedError(_NOT_PORTED.format(
         what=f"state for the {cfg.family} family"))

@@ -1,0 +1,100 @@
+"""Attention: flash attention for prefill (kernel 6 on a card), direct
+masked attention for decode.
+
+The reference's ``chunked_attention`` is a ``lax.scan`` form of the
+online-softmax recurrence, which it calls the portable stand-in for a
+flash-attention kernel; in PyTorch a scan would be a Python loop of small
+launches, so the port's keeps the signature and calls ``ops.attention``
+(kernel 6) instead: the same function within float32 rounding (the
+reference's ``test_flash_matches_chunked_attention_path``). In bfloat16
+the kernel rounds the softmax numerators to v's dtype before the product
+with v, as the reference's TPU kernel does and its scan does not.
+
+GQA: q's H heads are grouped as [KV, G] (head h reads kv head h // G),
+as in the reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import ops
+
+NEG_INF = -1e30
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      q_chunk: int = 512, kv_chunk: int = 1024,
+                      q_offset: int = 0, remat_blocks: bool = True):
+    """q: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd]; H = KV * G → [B, Sq, H, hd]
+    in v's dtype.
+
+    k and v are expanded to H heads (each kv head repeated G times in
+    place, the reference's [KV, G] grouping) and handed to
+    ``ops.attention``. ``q_offset``: the absolute position of q[0].
+    ``q_chunk``, ``kv_chunk`` and ``remat_blocks`` are accepted for the
+    reference's signature and unused: the kernel picks its own tiles, and
+    its backward recomputes from the saved row statistics."""
+    h, kv = q.shape[2], k.shape[2]
+    if h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} kv heads")
+    g = h // kv
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    out = ops.attention(q, k, v, causal=causal, q_offset=q_offset)
+    return out.to(v.dtype)
+
+
+def _scores(a, b):
+    """float32 ``a @ b`` of two batched matrices in one dtype. A reduced-
+    precision pair goes to cuBLAS with a float32 output on a card (it sums
+    in float32 and rounds nothing); the CPU has no such product, so there
+    the operands are widened."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def decode_attention(q, k_cache, v_cache, cur_pos,
+                     k_scale=None, v_scale=None):
+    """Single-token decode. q: [B, 1, H, hd]; caches: [B, S, KV, hd];
+    cur_pos: int — the position being decoded (q attends to positions
+    <= cur_pos). Returns [B, 1, H, hd] in the cache's dtype.
+
+    Plain masked softmax over the whole cache, as in the reference (no
+    Pallas kernel there). Both products read the cache as one contiguous
+    [S, KV·hd] matrix: q is spread block-diagonally over the KV·hd
+    columns (head (kv, g) is zero outside kv's hd columns), and of the
+    [H, KV·hd] output of p·v only each head's own kv block is kept. The
+    zeros add nothing, so the sums are the per-head ones; on a card this
+    is one dense GEMM over the cache in place of the strided per-head
+    batch that the reference's einsum becomes in PyTorch, which cuBLAS
+    runs on a slower path. The scores are float32, as the reference's
+    (``preferred_element_type``), with no float32 copy of the cache (see
+    ``_scores``); the softmax with its additive position bias runs in
+    float32, and p is rounded to v's dtype for the product with v (float32
+    accumulation). The int8 cache (``k_scale``/``v_scale``) is only used
+    by the MoE configs, which are not ported (ROADMAP.md, Queue 1 item 8).
+    """
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "the int8 KV cache is not ported to repro_torch yet (ROADMAP.md, "
+            "Queue 1 item 8)")
+    b, _, h, hd = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    eye = torch.eye(kv, dtype=k_cache.dtype, device=q.device)
+    q_spread = torch.einsum("bkgd,kj->bkgjd",
+                            q.reshape(b, kv, g, hd).to(k_cache.dtype), eye)
+    scores = _scores(q_spread.reshape(b, h, kv * hd),
+                     k_cache.reshape(b, s, kv * hd).transpose(1, 2))
+    scores = scores * (1.0 / hd ** 0.5)                          # [B, H, S]
+    pos = torch.arange(s, device=q.device)
+    bias = torch.where(pos <= cur_pos, 0.0, NEG_INF)
+    p = torch.softmax(scores + bias, dim=-1)
+    full = torch.matmul(p.to(v_cache.dtype),
+                        v_cache.reshape(b, s, kv * hd))      # [B, H, KV·hd]
+    out = torch.diagonal(full.view(b, kv, g, kv, hd), dim1=1, dim2=3)
+    return out.permute(0, 3, 1, 2).reshape(b, 1, h, hd)

@@ -13,8 +13,10 @@ import numpy as np
 import torch
 
 from ..core.query_torch import resolve_device
+from .transformer import LAYER_LEAVES
 
 RECSYS_LEAVES = frozenset({"table", "bilinear", "cap_bias"})
+LM_LEAVES = frozenset({"embed", "final_norm"})     # and lm_head, untied
 GNN_LAYER_LEAVES = {                   # by conv; each layer also has w_self, b
     "gcn": frozenset(),
     "sage": frozenset({"w_neigh"}),
@@ -32,11 +34,17 @@ def _tensors(tree: dict, want, device, where: str) -> dict:
 
 
 def params_from_arrays(family: str, tree: dict, device="cuda") -> dict:
-    """The params tree of ``family`` ("recsys" or "gnn") as tensors on
-    ``device``."""
+    """The params tree of ``family`` ("recsys", "gnn" or "lm") as tensors
+    on ``device``."""
     dev = resolve_device(device)
     if family == "recsys":
         return _tensors(tree, RECSYS_LEAVES, dev, "recsys params")
+    if family == "lm":
+        head = {k: v for k, v in tree.items() if k != "layers"}
+        want = LM_LEAVES | ({"lm_head"} & set(head))
+        return {**_tensors(head, want, dev, "lm params"),
+                "layers": _tensors(tree["layers"], LAYER_LEAVES, dev,
+                                   "lm layers")}
     if family == "gnn":
         layers = []
         for i, lp in enumerate(tree["layers"]):

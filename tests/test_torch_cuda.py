@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-engine, the recsys cells and the GNN forward on the card against the same
-on the CPU. Needs a CUDA device:
+engine, the recsys cells, the GNN forward and the LM's prefill and decode
+on the card against the same on the CPU. Needs a CUDA device:
 every test here carries the ``cuda`` marker and skips without one. The
 file imports neither JAX nor the reference package, so it runs on a
 machine with only PyTorch and the CUDA toolkit:
@@ -27,10 +27,14 @@ from repro_torch.kernels.interval_stab import (stab_naive, stab_naive_plain,
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import shapes_for_family
 from repro_torch.kernels.batched_mp import batched_mp, batched_mp_plain
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain,
+                                                 flash_fwd)
 from repro_torch.kernels.merge_cover import merge_cover, merge_cover_plain
 from repro_torch.kernels.retrieval_score import (retrieval_score,
                                                  retrieval_score_plain)
-from repro_torch.models import api, gnn
+from repro_torch.launch import serve
+from repro_torch.models import api, gnn, transformer
 from repro_torch.reach import IndexSpec, QuerySession, build
 
 pytestmark = pytest.mark.cuda
@@ -41,6 +45,12 @@ SENTINEL = 2**31 - 1
 # readout sums terms as large as the largest logit, so a logit near zero
 # keeps the rounding of those terms (untrained gin-tu's logits reach ~100).
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)
+# kernel 6 against its plain version: the reference tests' tolerances,
+# 2e-5 in float32 and 3e-2 in bfloat16 (the kernel rounds the softmax
+# numerators to bfloat16 before the product with v; the plain version
+# does not)
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
 
 
 def forward_tol(want):
@@ -401,3 +411,115 @@ def test_forward_dense_on_card_matches_cpu(dev, arch):
     _close(got, want, forward_tol(want))
     want_launches = 0 if cfg.conv == "gatedgcn" else cfg.n_layers
     assert _lib.LAUNCHES["batched_mp"] == want_launches
+
+
+FLASH_SHAPES = [
+    # (b, sq, sk, h, hd, causal, q_offset): the reference tests' sweep, the
+    # short causal rows of S = 70, and a ragged continuation
+    (1, 128, 128, 2, 64, True, 0), (2, 256, 256, 1, 128, True, 0),
+    (1, 130, 190, 2, 64, True, 0), (1, 64, 512, 1, 64, False, 0),
+    (2, 64, 256, 2, 64, True, 192), (1, 96, 96, 3, 128, False, 0),
+    (1, 70, 70, 1, 64, True, 0), (1, 37, 300, 2, 128, True, 100)]
+
+
+def _qkv(shape, dtype, seed=0):
+    b, sq, sk, h, hd = shape[:5]
+    rng = np.random.default_rng(seed + sq + sk)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dtype) for s in ((b, sq, h, hd), (b, sk, h, hd), (b, sk, h, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_fwd_matches_plain(dev, dtype, shape):
+    causal, qo = shape[5:]
+    q, k, v = _qkv(shape, dtype)
+    before = _lib.LAUNCHES["flash_fwd"]
+    out, lse = flash_fwd(q.to(dev), k.to(dev), v.to(dev), causal=causal,
+                         q_offset=qo)
+    assert _lib.LAUNCHES["flash_fwd"] == before + 1
+    assert out.dtype == dtype and lse.shape == (shape[0], shape[3], shape[1])
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                           q_offset=qo)
+    _close(out.float(), want.float(), FLASH_TOL[dtype])
+    _close(lse, want_lse, FLASH_TOL[dtype])
+
+
+def test_flash_backward_on_card_raises(dev):
+    q, k, v = (t.to(dev).requires_grad_() for t in _qkv(FLASH_SHAPES[0],
+                                                       torch.float32))
+    out = flash_attention(q, k, v)
+    with pytest.raises(NotImplementedError, match="Queue 2 items 2-3"):
+        out.sum().backward()
+
+
+def test_flash_refuses_bad_operands(dev):
+    q, k, v = (t.to(dev) for t in _qkv(FLASH_SHAPES[0], torch.float32))
+    with pytest.raises(ValueError, match="hd in"):
+        flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                  v[..., :32].contiguous())
+    with pytest.raises(TypeError):
+        flash_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="GQA"):
+        flash_fwd(q, k[:, :, :1], v[:, :, :1])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+
+
+def test_decode_attention_bf16_on_card_matches_cpu(dev):
+    """The card's bfloat16 decode takes its scores in float32, as the CPU
+    path (and the reference) do: at scores of ~±100 a bfloat16 rounding
+    of them would miss this tolerance by far."""
+    from repro_torch.models.attention import decode_attention
+    g = torch.Generator().manual_seed(8)
+    q = (8 * torch.randn(2, 1, 32, 128, generator=g)).bfloat16()
+    k, v = (torch.randn(2, 1000, 8, 128, generator=g).bfloat16()
+            for _ in range(2))
+    want = decode_attention(q, k, v, 900).float()
+    got = decode_attention(q.to(dev), k.to(dev), v.to(dev), 900)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float().cpu(), want, rtol=1e-2,
+                               atol=1e-2 * float(want.abs().max()))
+
+
+def _lm_smoke_hd64():
+    """llama3-8b's SMOKE config at head dim 64: SMOKE's own hd of 32 is
+    below the kernel's."""
+    return dataclasses.replace(get_smoke("llama3-8b"), head_dim=64)
+
+
+def test_lm_prefill_and_decode_on_card_match_cpu(dev):
+    cfg = _lm_smoke_hd64()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(5),
+                                     "cpu")
+    card = {"embed": params["embed"].to(dev),
+            "final_norm": params["final_norm"].to(dev),
+            "lm_head": params["lm_head"].to(dev),
+            "layers": {k: v.to(dev) for k, v in params["layers"].items()}}
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 100)).astype(np.int32))
+    want, cache = transformer.prefill(cfg, params, toks, 104)
+    _lib.LAUNCHES.reset()
+    got, card_cache = transformer.prefill(cfg, card, toks.to(dev), 104)
+    assert _lib.LAUNCHES["flash_fwd"] == cfg.n_layers
+    _close(got, want, forward_tol(want))
+    _close(card_cache["k"], cache["k"], forward_tol(cache["k"]))
+    for i in range(3):
+        nxt = want.argmax(-1, keepdim=True).to(torch.int32)
+        want, cache = transformer.decode_step(cfg, params, cache, nxt,
+                                              100 + i)
+        got, card_cache = transformer.decode_step(cfg, card, card_cache,
+                                                  nxt.to(dev), 100 + i)
+        _close(got, want, forward_tol(want))
+    _close(card_cache["v"], cache["v"], forward_tol(cache["v"]))
+    assert _lib.LAUNCHES["flash_fwd"] == cfg.n_layers   # none in decode
+
+
+def test_serve_lm_full_config_on_card(dev):
+    _lib.LAUNCHES.reset()
+    res = serve.serve_lm("tinyllama-1.1b", 2, 256, 4)
+    cfg = get_config("tinyllama-1.1b")
+    assert res["tokens"].shape == (2, 4)
+    assert _lib.LAUNCHES["flash_fwd"] == cfg.n_layers

@@ -169,7 +169,7 @@ def test_unported_cells_and_archs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.build_cell(get_smoke("gin-tu"), "molecule", device="cpu")
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("llama3-8b")
+        get_config("phi3.5-moe-42b-a6.6b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
