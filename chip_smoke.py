@@ -6,9 +6,11 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version (the integer kernels bit for bit,
 the float kernels 9 and 10 within rtol 1e-5, atol 1e-5, kernel 6 within
-2e-5 in float32 and 3e-2 in bfloat16, lse included), then drives the
-port's reachability serving path through ``repro_torch.reach.
-QuerySession`` and its three model paths on the card:
+2e-5 in float32 and 3e-2 in bfloat16, lse included, kernels 7 and 8
+within 2e-4 in float32 and 3e-2 of the largest gradient in bfloat16, and
+bit for bit from one run to the next), then drives the port's
+reachability serving path through ``repro_torch.reach.QuerySession``, its
+three model serving paths and LM training on the card:
 
   main     the default IndexSpec (k=2, FERRARI-G, c=4, 32 seeds: k_max ≤ 8,
            one seed word, ELL width ≤ 32 — the ferrari-web widths) over
@@ -46,6 +48,16 @@ QuerySession`` and its three model paths on the card:
            last 256 query rows and timed whole beside SDPA; then the same
            widths cut to 2 layers in float32, a 512-token prompt and 8
            decode steps, card against CPU.
+  train    tinyllama-1.1b at its published widths and full depth (22
+           layers, bf16, remat, 4 microbatches) through
+           ``launch.train.Trainer`` on train_4k (seq 4096; batch cut 256
+           -> 16): one warm-up step, then 3 timed steps, each with
+           exactly 176 launches of kernel 6 (remat runs each layer's
+           forward twice) and 88 of kernels 7 and 8; layer 0's backward
+           call held against the plain version on its sequence 0 and
+           timed whole beside SDPA's backward; a profiled step; then the
+           same widths cut to 2 layers in float32 (batch 2 x seq 512, 2
+           microbatches), two steps, card against CPU.
 
 Every phase sets the launch counters to 0 just before it is driven and
 reads them just after; the reachability phases hold their answers against
@@ -111,6 +123,14 @@ LM_OUT_TOL = 3e-2
 # float32 scores; p and out are rounded to bfloat16 (2^-9 each)
 DECODE_TOL = dict(rtol=1e-2, atol=1e-2)     # atol times max|want|
 LM_CHECK = dict(layers=2, prompt=512, steps=8)   # card vs CPU, float32
+# kernels 7 and 8 vs plain: float32 at the reference's tolerance against
+# its oracle; bfloat16 relative to the gradient's largest magnitude (both
+# round P and dS to bfloat16 before the products)
+FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH = 16               # train_4k's batch 256 cut to 4 x 4 sequences
+TRAIN_STEPS = 3                # timed, after one warm-up step
+TRAIN_CHECK = dict(layers=2, batch=2, seq=512, microbatches=2)  # card vs CPU
 
 KERNELS = {
     "stab_packed": dict(
@@ -137,6 +157,14 @@ KERNELS = {
     "flash_fwd": dict(
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:101", phase="lm"),
+    "flash_bwd_dq": dict(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:172",
+        call="src/repro/kernels/flash_attention.py:207", phase="train"),
+    "flash_bwd_dkv": dict(
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:172",
+        call="src/repro/kernels/flash_attention.py:224", phase="train"),
 }
 
 
@@ -393,7 +421,52 @@ def kernel_parity(dev) -> dict:
                 f"flash_fwd {dtype} B={b} Sq={sq} Sk={sk} H={h} hd={hd} "
                 f"causal={causal} q_offset={qo}", fa.flash_fwd(q, k, v, **kw),
                 fa.flash_attention_plain(q, k, v, **kw), FLASH_TOL[dtype]))
+            # kernels 7 and 8 on the forward's own out and lse
+            dout = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+            out, lse = fa.flash_fwd(q, k, v, **kw)
+            label = (f"{dtype} B={b} Sq={sq} Sk={sk} H={h} hd={hd} "
+                     f"causal={causal} q_offset={qo}")
+            for name, res in flash_bwd_parity(label, (q, k, v, out, lse, dout,
+                                                      causal, qo)).items():
+                _tally(err, name, res)
     return err
+
+
+def flash_bwd_parity(label, args) -> dict:
+    """Kernels 7 and 8 on ``args`` = (q, k, v, out, lse, dout, causal,
+    q_offset) against ``flash_bwd_plain`` (FLASH_BWD_TOL, each gradient
+    relative to its largest magnitude in bfloat16), and a second run that
+    must give the same bits. {name: (max_abs_err, mismatches,
+    max_rel_err)}."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, dout, causal, qo = args
+    kw = dict(causal=causal, q_offset=qo)
+    delta = fa.row_delta(out, dout)
+    got = {"flash_bwd_dq": (fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw),),
+           "flash_bwd_dkv": fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)}
+    want = fa.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
+    want = {"flash_bwd_dq": want[:1], "flash_bwd_dkv": want[1:]}
+    rel = FLASH_BWD_TOL[str(q.dtype).split(".")[-1]]
+    res = {}
+    for name in got:
+        parts = []
+        for what, a, w in zip(("dq",) if name == "flash_bwd_dq" else
+                              ("dk", "dv"), got[name], want[name]):
+            top = float(w.abs().max())
+            atol = rel * top if q.dtype == torch.bfloat16 else rel
+            parts.append(_compare(f"{name} {label}: {what}, max|want| "
+                                  f"{top:.3e}", a.float(), w.float(),
+                                  dict(rtol=rel, atol=atol)))
+        res[name] = (max(p[0] for p in parts), sum(p[1] for p in parts),
+                     max(p[2] for p in parts))
+    again = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw),
+             *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw))
+    first = (*got["flash_bwd_dq"], *got["flash_bwd_dkv"])
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"flash backward {label}: a repeat run gave other bits")
+    return res
 
 
 # ------------------------------------------------------------ timing ----
@@ -568,6 +641,20 @@ def work_of(name, args):
         nbytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
                   + 4 * b * h * sq)
         return nbytes, 4 * hd * b * h * int(seen.sum())
+    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        # 6·hd flops per unmasked pair for dq (q·k, do·v, dS·k), 8·hd for
+        # dk, dv (q·k, do·v, Pᵀ·do, dSᵀ·q); q, k, v, do, lse and delta read
+        # once, dq or dk and dv written once
+        q, k, v, dout, lse, delta, causal, q_offset = args
+        b, sq, h, hd = q.shape
+        sk = k.shape[1]
+        seen = (np.minimum(q_offset + np.arange(sq, dtype=np.int64) + 1, sk)
+                if causal else np.full(sq, sk, dtype=np.int64))
+        outs = q.numel() if name == "flash_bwd_dq" else 2 * k.numel()
+        nbytes = ((2 * q.numel() + 2 * k.numel() + outs) * q.element_size()
+                  + 8 * b * h * sq)
+        per = 6 if name == "flash_bwd_dq" else 8
+        return nbytes, per * hd * b * h * int(seen.sum())
     if name == "merge_cover":
         cb, ce, cx, k, w_out = args
         rows, m = cb.shape
@@ -1410,6 +1497,281 @@ def lm_phase(dev, seed: int):
     return counts, timing
 
 
+def _train_split(rows, optimizer_ms: float, label) -> dict:
+    """Device ms of a train step's profile in five parts: kernel 6,
+    kernels 7-8, the cuBLAS GEMMs, the optimizer (``optimizer_ms``, from
+    CUDA events around ``adamw_update``: its kernels are PyTorch's
+    elementwise ones, not named apart) and the rest."""
+    parts = {"kernel 6": 0.0, "kernels 7-8": 0.0, "GEMMs": 0.0,
+             "optimizer": 0.0, "rest": 0.0}
+    for us, _, key in rows:
+        low = key.lower()
+        part = ("kernel 6" if "flash_fwd" in low else "kernels 7-8"
+                if "flash_bwd" in low else "GEMMs"
+                if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
+                else "rest")
+        parts[part] += us / 1e3
+    parts["optimizer"] = min(optimizer_ms, parts["rest"])
+    parts["rest"] -= parts["optimizer"]
+    total = sum(parts.values())
+    print(f"  split {label}: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items()),
+        flush=True)
+    return parts
+
+
+def time_flash_bwd(args, plain_args) -> dict:
+    """Kernels 7 and 8 at the path's call ``args`` = (q, k, v, out, lse,
+    dout, causal, q_offset): each one's time beside its bound and beside
+    SDPA's backward on the same tensors (which computes dq, dk and dv
+    together: one time for both rows); the plain version (which also
+    computes all three) and the kernels again on ``plain_args``, the
+    call's sequence 0."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, out, lse, dout, causal, qo = args
+    delta = fa.row_delta(out, dout)
+
+    def kernels(a):
+        d = fa.row_delta(a[3], a[5])
+        kw = dict(causal=a[6], q_offset=a[7])
+        return {"flash_bwd_dq": lambda: fa.flash_bwd_dq(
+                    a[0], a[1], a[2], a[5], a[4], d, **kw),
+                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(
+                    a[0], a[1], a[2], a[5], a[4], d, **kw)}
+
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    sdpa_do = dout.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, leaves, sdpa_do,
+                                   retain_graph=True)
+
+    library_ms = device_ms(sdpa_bwd, reps=10)
+    plain_ms = device_ms(lambda: fa.flash_bwd_plain(
+        *plain_args[:6], causal=plain_args[6], q_offset=plain_args[7]),
+        reps=10)
+    out_rows = {}
+    whole, part = kernels(args), kernels(plain_args)
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        _, one = _timed(whole[name])
+        reps = 30 if one < 0.1 else 3
+        ms = device_ms(whole[name], reps=reps)
+        slice_ms = device_ms(part[name])
+        nbytes, ops = work_of(name, (q, k, v, dout, lse, delta, causal, qo))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / BF16_TENSOR_OPS_PER_S * 1e3
+        print(f"  time {name}: the path's call {tuple(q.shape)} "
+              f"{str(q.dtype).split('.')[-1]}: kernel {ms:.4f} ms (median of "
+              f"{reps}), {ops / ms / 1e9:.2f} TFLOP/s; library (SDPA "
+              f"backward, dq dk dv together) {library_ms:.4f} ms; bound "
+              f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {ops} flops at "
+              f"{BF16_TENSOR_OPS_PER_S / 1e12:.0f} TFLOP/s; "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}); sequence "
+              f"0: kernel {slice_ms:.4f} ms, plain (dq dk dv) {plain_ms:.4f} "
+              f"ms", flush=True)
+        out_rows[name] = dict(
+            rows=q.shape[1], ms=ms, plain_ms=plain_ms,
+            library="torch.autograd.grad of scaled_dot_product_attention"
+                    "(is_causal=True): dq, dk and dv together",
+            library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            plain_at=f"sequence 0 of the call ({plain_args[0].shape[0]} of "
+                     f"{q.shape[0]}); the plain version computes dq, dk and "
+                     f"dv together", ms_at_plain_shape=slice_ms)
+    return out_rows
+
+
+def _leaves(tree):
+    """The leaves of a nested dict, keys sorted."""
+    for key in sorted(tree):
+        if isinstance(tree[key], dict):
+            yield from _leaves(tree[key])
+        else:
+            yield tree[key]
+
+
+def _train_state_close(label, got, want, metrics, want_metrics) -> None:
+    """The card's train state and metrics against the CPU's at the CPU
+    tests' tolerances: loss, grad_norm, lr at rtol 1e-4; m and v at rtol
+    1e-4, atol 1e-5 x max|want|; params at atol 2 lr."""
+    for key in ("loss", "grad_norm", "lr"):
+        a, b = float(metrics[key]), float(want_metrics[key])
+        print(f"  card vs CPU {label} {key}: {a:.6f} vs {b:.6f}", flush=True)
+        check(abs(a - b) <= FORWARD_RTOL * abs(b),
+              f"train {label}: {key} differs between card and CPU")
+    two_lr = 2 * float(want_metrics["lr"])
+    bad, worst = 0, 0.0
+    for part in ("params", "m", "v"):
+        g = got["params"] if part == "params" else got["opt"][part]
+        w = want["params"] if part == "params" else want["opt"][part]
+        for a, b in zip(_leaves(g), _leaves(w)):
+            tol = ((0.0, two_lr) if part == "params" else
+                   (FORWARD_RTOL, FORWARD_ATOL * float(b.abs().max())))
+            err, n_bad, _ = close_stats(a.cpu(), b, *tol)
+            bad, worst = bad + n_bad, max(worst, err)
+    print(f"  card vs CPU {label} params, m, v: {bad} mismatches, max abs err "
+          f"{worst:.3e} (params at atol 2 lr = {two_lr:.3e}; m, v at rtol "
+          f"{FORWARD_RTOL}, atol {FORWARD_ATOL} x max|want|)", flush=True)
+    check(bad == 0, f"train {label}: the card's state differs from the CPU's")
+
+
+def train_phase(dev, seed: int):
+    """tinyllama-1.1b at full width and depth through the Trainer on
+    train_4k (batch cut to 16): a warm-up step, 3 timed steps with their
+    launch counts, kernels 7 and 8 on layer 0's backward call, a profiled
+    step; then 2 layers in float32, card vs CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import shapes_for_family
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import api
+    torch.cuda.empty_cache()
+    shp = shapes_for_family("lm")["train_4k"]
+    tr = Trainer(TRAIN_ARCH, smoke=False, batch_override=TRAIN_BATCH,
+                 seed=seed, device=dev)
+    cfg, S, opt_cfg = tr.cfg, tr.shape.seq_len, tr.opt_cfg
+    mb = cfg.microbatches
+    print(f"train: {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}, remat "
+          f"{cfg.remat}); train_4k: seq {S}, batch cut {shp.batch} -> "
+          f"{TRAIN_BATCH} ({mb} microbatches of {TRAIN_BATCH // mb}); "
+          f"AdamW, warm-up {tr.opt_cfg.warmup_steps} steps", flush=True)
+    _, dt = _timed(tr.init_state)
+    state = tr.state
+    n_params = sum(t.numel() for t in [
+        state["params"]["embed"], state["params"]["final_norm"],
+        state["params"]["lm_head"], *state["params"]["layers"].values()])
+    print(f"  state: {n_params} params ({n_params * 2 / 1e9:.2f} GB bf16), "
+          f"m and v {n_params * 8 / 1e9:.2f} GB float32, on the card in "
+          f"{dt:.2f} s", flush=True)
+
+    # warm-up step; layer 0's backward call kept (the last of the first
+    # microbatch's: the backward runs the layers in reverse)
+    captured = []
+    flash_bwd = fa.flash_bwd
+
+    def capture(*args, **kw):
+        captured.append((*(t.detach() for t in args), kw["causal"],
+                         kw["q_offset"]))
+        return flash_bwd(*args, **kw)
+    fa.flash_bwd = capture
+    try:
+        tr.run(1)
+    finally:
+        fa.flash_bwd = flash_bwd
+    layer0 = captured[cfg.n_layers - 1]
+    del captured
+    print(f"  warm-up step: {tr.history[-1]['seconds']:.2f} s, loss "
+          f"{tr.metrics['loss']:.4f}", flush=True)
+
+    layers = state["params"]["layers"]
+    sample = {k: v[:, :2].clone() for k, v in layers.items()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    want = {"flash_fwd": 2 * cfg.n_layers * mb if cfg.remat
+            else cfg.n_layers * mb,
+            "flash_bwd_dq": cfg.n_layers * mb,
+            "flash_bwd_dkv": cfg.n_layers * mb}
+    for _ in range(TRAIN_STEPS):
+        before = dict(_lib.LAUNCHES)
+        tr.run(tr.step_idx + 1)
+        step = {k: _lib.LAUNCHES[k] - before[k] for k in want}
+        h, m = tr.history[-1], tr.metrics
+        print(f"  step {h['step']}: {h['seconds']:.3f} s, "
+              f"{TRAIN_BATCH * S / h['seconds']:.0f} tokens/s, loss "
+              f"{m['loss']:.4f}, grad_norm {m['grad_norm']:.4f}, lr "
+              f"{m['lr']:.3e}, peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+              f"launches {step}", flush=True)
+        check(step == want, f"train: launches per step {step}, expected "
+              f"{want}")
+        check(all(np.isfinite([m["loss"], m["grad_norm"]])),
+              "train: non-finite loss or gradient")
+    counts = read_counters()
+    # every projection must move; the norms, all 1.0 at init, may not in
+    # bfloat16 while lr is below its spacing there (2^-8)
+    changed = sorted(k for k, v in layers.items()
+                     if not torch.equal(v[:, :2], sample[k]))
+    moved = all(k in changed for k, v in layers.items() if v.dim() >= 3)
+    finite = all(bool(torch.isfinite(t).all()) for t in layers.values())
+    print(f"  counts over {TRAIN_STEPS} steps: {counts}; layer leaves "
+          f"changed: {changed}, all finite: {finite}", flush=True)
+    check(moved and finite,
+          "train: a projection did not change, or the params are not finite")
+    del sample
+    seconds = [h["seconds"] for h in tr.history[-TRAIN_STEPS:]]
+
+    # kernels 7 and 8 on layer 0's call: sequence 0 against the plain
+    # version, the whole call timed
+    seq0 = tuple(t[:1].contiguous() for t in layer0[:6]) + layer0[6:]
+    res = flash_bwd_parity(f"on layer 0's call, sequence 0 ({S} tokens, "
+                           f"{cfg.n_heads} heads)", seq0)
+    timing = time_flash_bwd(layer0, seq0)
+    for name in timing:
+        timing[name]["err"] = res[name]
+
+    # one step profiled, with the optimizer's device time from CUDA events
+    events = []
+    update = api.adamw_update
+
+    def timed_update(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = update(*args)
+        end.record()
+        events.append((start, end))
+        return out
+    api.adamw_update = timed_update
+    try:
+        rows = profile_window(lambda: tr.run(tr.step_idx + 1),
+                              f"train step of {TRAIN_BATCH} x {S} tokens",
+                              top=8, wall=float(np.median(seconds)))
+    finally:
+        api.adamw_update = update
+    torch.cuda.synchronize()
+    opt_ms = events[-1][0].elapsed_time(events[-1][1])
+    _train_split(rows, opt_ms, "train step")
+    del layer0, seq0, tr, state, layers
+    torch.cuda.empty_cache()
+
+    # card vs CPU: the same widths cut to 2 layers, float32
+    c = TRAIN_CHECK
+    small = dataclasses.replace(cfg, n_layers=c["layers"], dtype="float32",
+                                microbatches=c["microbatches"])
+    check_shape = dataclasses.replace(shp, batch=c["batch"],
+                                      seq_len=c["seq"])
+    cells = {d: api.build_cell(small, "train_4k", device=d,
+                               shape_override=check_shape, opt_cfg=opt_cfg)
+             for d in (dev, "cpu")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    card = api.materialize_state(cells[dev], small, "train_4k", gen)
+    host = _tree_to(card, "cpu")
+    pipe = TokenPipeline(small.vocab, c["batch"], c["seq"], seed=seed + 1)
+    print(f"  card vs CPU: {small.n_layers} layers, float32, batch "
+          f"{c['batch']} x seq {c['seq']}, {small.microbatches} "
+          f"microbatches, two steps", flush=True)
+    for i in range(2):
+        toks, labs = (torch.from_numpy(a) for a in pipe.batch_at(i))
+        (host, want_m), dt = _timed(lambda: cells["cpu"].step(
+            host, {"tokens": toks, "labels": labs}))
+        card, got_m = cells[dev].step(card, {"tokens": toks.to(dev),
+                                             "labels": labs.to(dev)})
+        print(f"  step {i}: CPU {dt:.2f} s", flush=True)
+        _train_state_close(f"step {i}", card, host, got_m, want_m)
+    return counts, timing
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1463,12 +1825,14 @@ def main() -> int:
         rs_counts, rs_calls = recsys_phase(dev, rec, args.seed)
         gnn_counts, gnn_calls = gnn_phase(dev, rec, args.seed)
         lm_counts, lm_time = lm_phase(dev, args.seed)
+        train_counts, train_time = train_phase(dev, args.seed)
     finally:
         rec.close()
     phase_counts = {"main": main_counts, "wavefront": wf_counts,
                     "phase2": p2_counts, "seeds64": s64_counts,
                     "dense": dense_counts, "recsys": rs_counts,
-                    "gnn": gnn_counts, "lm": lm_counts}
+                    "gnn": gnn_counts, "lm": lm_counts,
+                    "train": train_counts}
     for kname, meta in KERNELS.items():
         n = phase_counts[meta["phase"]][kname]
         print(f"  launches {kname} on its phase ({meta['phase']}): {n}",
@@ -1495,12 +1859,14 @@ def main() -> int:
         ("batched_mp", "batched_mp (smallest call)",
          gnn_calls["smallest"]["batched_mp"]),))
     times["flash_fwd"] = lm_time          # timed in the lm phase
+    times.update(train_time)              # kernels 7 and 8: the train phase
     rows = []
     for kname, meta in KERNELS.items():
         t = times[kname]
         rows.append({
             "name": kname, "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
+            **({"call": meta["call"]} if "call" in meta else {}),
             "launches": phase_counts[meta["phase"]][kname],
             "max_abs_err": max(err[kname][0], t["err"][0]),
             "max_rel_err": max(err[kname][2], t["err"][2]),

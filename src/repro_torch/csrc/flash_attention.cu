@@ -41,74 +41,14 @@
 #include <cmath>
 #include <cstdint>
 
+#include "flash_tiles.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;                 // query rows per block
-constexpr int kBK = 64;                 // keys per tile
-constexpr int kPadP = kBK + 4;          // row stride of the P tile (floats)
-constexpr float kNegInf = -1e30f;
-static_assert(kBQ == kBK, "load_tile stages kBQ rows for Q, K and V");
-
-__host__ __device__ constexpr int ld_of(int hd) { return hd + 4; }
+using namespace flash;
 
 __host__ __device__ constexpr int smem_floats(int hd) {
   return 2 * kBQ * ld_of(hd) + kBQ * kPadP;   // Q, K/V, P
-}
-
-__device__ __forceinline__ float4 to_f32x4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// One tile of `rows` rows (row stride `stride` elements) into shared memory
-// as float32 [kBQ][LD]; rows at or past `valid` are zero-filled.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t stride, int valid) {
-  constexpr int kVec = 16 / sizeof(T);            // elements per 16 B load
-  constexpr int kPerRow = HD / kVec;
-  for (int i = threadIdx.x; i < kBQ * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    float* out = dst + r * ld_of(HD) + c;
-    if (r >= valid) {
-#pragma unroll
-      for (int e = 0; e < kVec; e += 4)
-        *reinterpret_cast<float4*>(out + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-      continue;
-    }
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(&raw);
-    } else {
-      const __nv_bfloat162* h =
-          reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-      const float2 c2 = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-      *reinterpret_cast<float4*>(out) = make_float4(a.x, a.y, b.x, b.y);
-      *reinterpret_cast<float4*>(out + 4) = make_float4(c2.x, c2.y, d.x, d.y);
-    }
-  }
-}
-
-// P as the P·V product sees it: rounded to v's type
-template <typename T>
-__device__ __forceinline__ float round_to(float p) {
-  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16(p));
-  return p;
-}
-
-__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
 }
 
 // max / sum over the 16 lanes of a row group (lanes 0-15 or 16-31); the
@@ -173,30 +113,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
     float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float4 qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = to_f32x4(q_s + (4 * tr + i) * LD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ka[j] = to_f32x4(kv_s + (tc + 16 * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = fmaf(qa[i].x, ka[j].x, a);
-          a = fmaf(qa[i].y, ka[j].y, a);
-          a = fmaf(qa[i].z, ka[j].z, a);
-          s[i][j] = fmaf(qa[i].w, ka[j].w, a);
-        }
-    }
+    tile_dot<HD>(s, q_s, kv_s, tr, tc);
     __syncthreads();                    // every read of K is done
 
     // online softmax over this tile; P goes to shared memory
@@ -232,29 +149,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
 
     // acc += P · V over the tile's keys
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = to_f32x4(p_s + (4 * tr + i) * kPadP + kk);
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-#pragma unroll
-        for (int f = 0; f < kCols / 4; ++f) {
-          const float4 vb = to_f32x4(kv_s + (kk + t) * LD + 64 * f + 4 * tc);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = t == 0 ? pa[i].x : t == 1 ? pa[i].y
-                          : t == 2 ? pa[i].z : pa[i].w;
-            acc[i][4 * f + 0] = fmaf(p, vb.x, acc[i][4 * f + 0]);
-            acc[i][4 * f + 1] = fmaf(p, vb.y, acc[i][4 * f + 1]);
-            acc[i][4 * f + 2] = fmaf(p, vb.z, acc[i][4 * f + 2]);
-            acc[i][4 * f + 3] = fmaf(p, vb.w, acc[i][4 * f + 3]);
-          }
-        }
-      }
-    }
+    tile_acc<HD>(acc, p_s, kv_s, tr, tc);
     __syncthreads();                    // every read of V and P is done
   }
 

@@ -1,30 +1,41 @@
-"""Flash attention forward: kernel 6 and its plain version.
+"""Flash attention: kernel 6 (forward), kernels 7 and 8 (backward) and
+their plain versions.
 
 ``softmax(q·kᵀ / √hd + mask) · v`` for ``q [B, Sq, H, hd]`` and ``k, v
 [B, Sk, H, hd]`` (GQA heads already expanded), causal from ``q_offset``
 (the absolute position of q[0]) or not, float32 or bfloat16 → ``out [B,
 Sq, H, hd]`` in q's dtype and the log-sum-exp ``lse [B, H, Sq]`` float32
-of each softmax row (the backward's row statistics). The LM's prefill
-runs it once per layer, through ``models.attention.chunked_attention``.
+of each softmax row (the backward's row statistics). The LM runs it once
+per layer, through ``models.attention.chunked_attention``; training runs
+its backward once per layer.
 
   flash_fwd — kernel 6 (``csrc/flash_attention.cu``): one block per (b·h,
               64-row q tile), a loop over 64-key tiles up to the diagonal,
               float32 FMAs on tiles in shared memory; hd 64 or 128.
               Replaces the reference's ``_flash_fwd``.
+  flash_bwd_dq — kernel 7 (``csrc/flash_attention_bwd.cu``): dq, one block
+              per (b·h, 64-row q tile) looping over key tiles up to the
+              diagonal. Replaces the reference's dq ``pallas_call`` in
+              ``_flash_vjp_bwd``.
+  flash_bwd_dkv — kernel 8 (the same file): dk and dv, one block per (b·h,
+              64-key tile) looping over q tiles from the diagonal to Sq.
+              Replaces the reference's dk/dv ``pallas_call``.
   flash_attention_plain — the full masked softmax in float32 (the
               counterpart of ``ref.flash_attention_ref``), with lse as the
               TPU kernel's ``_finish`` writes it.
+  flash_bwd_plain — the backward's explicit recomputation from the saved
+              out and lse, in float32, with the TPU kernels' roundings.
   flash_attention — the ``[B, S, H, hd]`` entry point: a
-              ``torch.autograd.Function`` whose forward is ``flash_fwd``.
-              Its backward on a card waits for kernels 7 and 8 (ROADMAP.md,
-              Queue 2 items 2–3) and raises; on the CPU it differentiates
-              the plain version.
+              ``torch.autograd.Function`` whose forward is ``flash_fwd``
+              and whose backward is ``flash_bwd`` (kernels 7 and 8).
 
-On a CPU tensor the wrapper runs the plain version (any head dim); on a
-CUDA tensor it launches the kernel or raises. Like the TPU kernel, the
-kernel rounds the softmax numerators to v's dtype before the product with
-v and the plain version does not: they agree within 2e-5 in float32 and
-3e-2 in bfloat16.
+On a CPU tensor each wrapper runs its plain version (any head dim); on a
+CUDA tensor it launches its kernel or raises. Like the TPU kernel, the
+forward kernel rounds the softmax numerators to v's dtype before the
+product with v and the plain version does not: they agree within 2e-5 in
+float32 and 3e-2 in bfloat16. The backward's plain version makes the TPU
+kernels' roundings (P to do's dtype, dS to q's and k's), so the two agree
+within float32 summation order.
 """
 from __future__ import annotations
 
@@ -106,9 +117,140 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     return out, lse
 
 
+def _bwd_plain(q, k, v, dout, lse, delta, causal: bool, q_offset: int):
+    """(dq, dk, dv) float32 from the row statistics lse and delta =
+    Σ_hd do·out [B, H, Sq]: the reference's ``_flash_vjp_bwd`` over the
+    whole score matrix at once."""
+    _, sq, _, hd = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / (hd ** 0.5)
+    qf, kf, dof = q.float(), k.float(), dout.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)
+        mask = qpos[:, None] >= torch.arange(sk, device=q.device)[None, :]
+        p = torch.where(mask, p, 0.0)             # a select, as the TPU's
+    del s
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = p * (dp - delta[..., None])
+    del dp
+    # the products see P in do's dtype and dS in k's and q's, as on the TPU
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dout.dtype).float(), dof)
+    del p
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qf)
+    return dq, dk, dv
+
+
+def row_delta(out, dout):
+    """delta [B, H, Sq] float32 = Σ_hd do·out, over the forward's output as
+    rounded to q's dtype (the TPU backward's D, taken outside its kernels:
+    it is O(S·hd))."""
+    return torch.einsum("bqhd,bqhd->bhq", dout.float(), out.float())
+
+
+def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
+                    q_offset: int = 0):
+    """(dq, dk, dv) in q's, k's and v's dtypes: the gradient of flash
+    attention's out with respect to q, k and v for the cotangent ``dout``,
+    recomputed in float32 from the forward's ``out`` and ``lse``."""
+    dq, dk, dv = _bwd_plain(q, k, v, dout, lse, row_delta(out, dout),
+                            causal, q_offset)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q, k, v, dout, lse, delta, q_offset: int) -> None:
+    _check(q, k, v, q_offset)
+    b, sq, h, _ = q.shape
+    if dout.dtype != q.dtype or dout.shape != q.shape:
+        raise TypeError(f"the flash backward takes dout of q's dtype and "
+                        f"shape {tuple(q.shape)} {q.dtype}; got "
+                        f"{tuple(dout.shape)} {dout.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b, h, sq):
+            raise TypeError(f"the flash backward takes {name} float32 "
+                            f"[{b}, {h}, {sq}]; got {tuple(t.shape)} "
+                            f"{t.dtype}")
+
+
+def _bwd_args(name, q, k, v, dout, lse, delta):
+    """(device, dtype name, operand pointers) after the kernel's checks: hd
+    in HEAD_DIMS and the block's shared memory within the device's."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes hd in {HEAD_DIMS}, "
+                         f"got {hd}")
+    dev = q.device
+    smem = _lib.LIBRARY.get().reach_flash_bwd_smem(hd, int(name == "dkv"))
+    limit = _lib.max_smem(dev)
+    if smem > limit:
+        raise ValueError(f"flash backward {name}: a block needs {smem} B of "
+                         f"shared memory, the device allows {limit} B")
+    dt = str(q.dtype).split(".")[-1]
+    return dev, (_lib.check(q, "q", (b, sq, h, hd), dev, 16, dt),
+                 _lib.check(k, "k", (b, sk, h, hd), dev, 16, dt),
+                 _lib.check(v, "v", (b, sk, h, hd), dev, 16, dt),
+                 _lib.check(dout, "dout", (b, sq, h, hd), dev, 16, dt),
+                 _lib.check(lse, "lse", (b, h, sq), dev, 4, "float32"),
+                 _lib.check(delta, "delta", (b, h, sq), dev, 4, "float32"))
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
+                 q_offset: int = 0):
+    """Kernel 7: dq [B, Sq, H, hd] in q's dtype from q, k, v, dout of one
+    dtype (float32 or bfloat16), the forward's lse and ``row_delta``."""
+    _check_bwd(q, k, v, dout, lse, delta, q_offset)
+    if on_cpu(q):
+        return _bwd_plain(q, k, v, dout, lse, delta, causal,
+                          q_offset)[0].to(q.dtype)
+    dev, args = _bwd_args("dq", q, k, v, dout, lse, delta)
+    b, sq, h, hd = q.shape
+    dq = torch.empty_like(q)
+    if dq.numel():
+        _lib.launch("flash_bwd_dq", "reach_flash_bwd_dq", dev, *args,
+                    dq.data_ptr(), b, h, sq, k.shape[1], hd,
+                    int(q.dtype == torch.bfloat16), int(causal), q_offset)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
+                  q_offset: int = 0):
+    """Kernel 8: (dk, dv) [B, Sk, H, hd] in k's and v's dtype from q, k,
+    v, dout of one dtype, the forward's lse and ``row_delta``."""
+    _check_bwd(q, k, v, dout, lse, delta, q_offset)
+    if on_cpu(q):
+        _, dk, dv = _bwd_plain(q, k, v, dout, lse, delta, causal, q_offset)
+        return dk.to(k.dtype), dv.to(v.dtype)
+    dev, args = _bwd_args("dkv", q, k, v, dout, lse, delta)
+    b, sq, h, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel():
+        _lib.launch("flash_bwd_dkv", "reach_flash_bwd_dkv", dev, *args,
+                    dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1], hd,
+                    int(q.dtype == torch.bfloat16), int(causal), q_offset)
+    return dk, dv
+
+
+def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+              q_offset: int = 0):
+    """(dq, dk, dv) of flash attention for the cotangent ``dout``:
+    ``flash_bwd_plain`` on the CPU; on a card ``row_delta``, then kernels 7
+    and 8."""
+    if on_cpu(q):
+        return flash_bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                               q_offset=q_offset)
+    delta = row_delta(out, dout)
+    kw = dict(causal=causal, q_offset=q_offset)
+    return (flash_bwd_dq(q, k, v, dout, lse, delta, **kw),
+            *flash_bwd_dkv(q, k, v, dout, lse, delta, **kw))
+
+
 class FlashAttention(torch.autograd.Function):
     """out = flash attention of (q, k, v); saves (q, k, v, out, lse) in the
-    ``[B, S, H, hd]`` / ``[B, H, Sq]`` layouts for the backward."""
+    ``[B, S, H, hd]`` / ``[B, H, Sq]`` layouts for the backward
+    (``flash_bwd``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset):
@@ -119,18 +261,10 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, _, _ = ctx.saved_tensors
-        if not on_cpu(q):
-            raise NotImplementedError(
-                "the flash attention backward (kernels 7 and 8, dq and "
-                "dk/dv) is not ported to repro_torch yet (ROADMAP.md, "
-                "Queue 2 items 2-3)")
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            out, _ = flash_attention_plain(*leaves, causal=ctx.causal,
-                                           q_offset=ctx.q_offset)
-            grads = torch.autograd.grad(out, leaves, dout)
-        return (*grads, None, None)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                               causal=ctx.causal, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):

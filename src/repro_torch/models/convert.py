@@ -1,11 +1,14 @@
-"""Carry a model's parameters across from the reference package.
+"""Carry a model's parameters, or a whole train state, across from the
+reference package.
 
 ``params_from_arrays`` takes a params tree as the reference's
 ``init_params`` builds it, with numpy arrays for leaves (the reference's
 arrays through ``np.asarray``), and returns the same tree of tensors on
 ``device``, checking that every leaf this package's forward reads is
-there and no other. The tests use it to run both packages on the same
-weights.
+there and no other. ``state_from_arrays`` does the same for a cell's
+state, ``{"params", "opt": {"m", "v", "step"}}``. The tests use them to
+run both packages on the same weights, or to resume both from one
+optimizer state.
 """
 from __future__ import annotations
 
@@ -60,3 +63,38 @@ def params_from_arrays(family: str, tree: dict, device="cuda") -> dict:
         return {"layers": layers,
                 **_tensors(head, {"readout", "readout_b"}, dev, "gnn head")}
     raise ValueError(f"no params conversion for family {family!r}")
+
+
+def state_from_arrays(family: str, state: dict, device="cuda") -> dict:
+    """A cell's state ``{"params"[, "opt": {"m", "v", "step"}]}`` of
+    numpy arrays as the port's: params and the float32 moments on
+    ``device`` (each moment tree with the params' leaves), the step an
+    int32 0-d tensor on the host (see ``optim.optimizer``)."""
+    extra = set(state) - {"params", "opt"}
+    if extra:
+        raise KeyError(f"state: unexpected entries {sorted(extra)}")
+    out = {"params": params_from_arrays(family, state["params"], device)}
+    if "opt" in state:
+        opt = state["opt"]
+        if set(opt) != {"m", "v", "step"}:
+            raise KeyError(f"opt state: entries {sorted(opt)}, expected "
+                           f"['m', 'step', 'v']")
+        out["opt"] = {"step": torch.tensor(int(np.asarray(opt["step"])),
+                                           dtype=torch.int32)}
+        for name in ("m", "v"):
+            moments = params_from_arrays(family, opt[name], device)
+            bad = [t.dtype for t in _leaves(moments)
+                   if t.dtype != torch.float32]
+            if bad:
+                raise TypeError(f"opt state {name}: moments are float32, "
+                                f"got {bad[0]}")
+            out["opt"][name] = moments
+    return out
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for value in tree.values() for leaf in _leaves(value)]
+    if isinstance(tree, list):
+        return [leaf for value in tree for leaf in _leaves(value)]
+    return [tree]

@@ -2,17 +2,22 @@
 
 Layer parameters are stacked on a leading ``layers`` axis with the
 reference's names and layouts (``wq [L, D, H·hd]``, ``w_gate [L, D, F]``,
-…); the layer loop is a Python loop over ``params["layers"][name][i]``.
-Prefill runs flash attention (kernel 6 on a card) once per layer through
-``chunked_attention``; decode runs the plain masked softmax over the
-cache. Unlike the reference there is no mesh and no sharding: a model
-runs on one device. The MoE FFN and the int8 KV cache (the two MoE
-configs) are not ported (ROADMAP.md, Queue 1 item 8).
+…); the layer loop is a Python loop over ``params["layers"][name][i]``
+(or over a list of per-layer dicts: ``layer_leaves``). Prefill and
+training run flash attention (kernel 6 on a card, kernels 7 and 8 in the
+backward) once per layer through ``chunked_attention``; decode runs the
+plain masked softmax over the cache. ``logits_and_loss`` is the training
+loss, a chunked and checkpointed cross-entropy; with ``cfg.remat`` the
+forward recomputes each layer in the backward. Unlike the reference there
+is no mesh and no sharding: a model runs on one device. The MoE FFN and
+the int8 KV cache (the two MoE configs) are not ported (ROADMAP.md, Queue
+1 item 8).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from .attention import chunked_attention, decode_attention
@@ -22,7 +27,7 @@ LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                 "w_up", "w_down")
 
 
-def _dense_only(cfg: LMConfig) -> None:
+def dense_only(cfg: LMConfig) -> None:
     if cfg.moe is not None or cfg.kv_cache_dtype != "auto":
         raise NotImplementedError(
             f"{cfg.arch_id}: the MoE FFN and the int8 KV cache are not "
@@ -33,7 +38,7 @@ def init_params(cfg: LMConfig, gen: torch.Generator, device):
     """The reference's params tree with its scales, drawn from ``gen`` (a
     generator on ``device``): norms at 1, projections N(0, 1)·fan_in^-1/2,
     the embedding N(0, 1)."""
-    _dense_only(cfg)
+    dense_only(cfg)
     dt = getattr(torch, cfg.dtype)
     D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab
     H, KV, hd, L = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
@@ -62,7 +67,25 @@ def init_params(cfg: LMConfig, gen: torch.Generator, device):
 
 
 def _layer_params(params, i: int) -> dict:
-    return {name: params["layers"][name][i] for name in LAYER_LEAVES}
+    layers = params["layers"]
+    if isinstance(layers, list):                 # per-layer leaves
+        return layers[i]
+    return {name: layers[name][i] for name in LAYER_LEAVES}
+
+
+def layer_leaves(params) -> dict:
+    """``params`` with its stacked layer leaves split into a list of
+    per-layer dicts of views, each view a fresh autograd leaf, as is every
+    other leaf. Differentiating with respect to them gives each layer's
+    gradient by itself: the autograd of ``stacked[i]`` would instead write
+    a zero-filled gradient of the whole stack for every layer and leaf."""
+    def leaf(t):
+        return t.detach().requires_grad_()
+    out = {name: leaf(t) for name, t in params.items() if name != "layers"}
+    n = params["layers"][LAYER_LEAVES[0]].shape[0]
+    out["layers"] = [{name: leaf(params["layers"][name][i])
+                      for name in LAYER_LEAVES} for i in range(n)]
+    return out
 
 
 def _head(cfg: LMConfig, params):
@@ -105,22 +128,69 @@ def _positions(B: int, S: int, device, start: int = 0):
             ).expand(B, S)
 
 
+def _layer_out(cfg: LMConfig, lp, x, cos, sin):
+    return _layer(cfg, lp, x, cos, sin)[0]
+
+
 def forward(cfg: LMConfig, params, tokens):
-    """tokens [B, S] → final hidden states [B, S, D]."""
-    _dense_only(cfg)
+    """tokens [B, S] → final hidden states [B, S, D]. With ``cfg.remat``
+    each layer is checkpointed (the reference's ``jax.checkpoint`` of its
+    scanned body): the backward recomputes it from its input."""
+    dense_only(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     cos, sin = rope_tables(_positions(B, S, tokens.device), cfg.hd,
                            cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x, _, _ = _layer(cfg, _layer_params(params, i), x, cos, sin)
+        lp = _layer_params(params, i)
+        if cfg.remat:
+            x = checkpoint(_layer_out, cfg, lp, x, cos, sin,
+                           use_reentrant=False)
+        else:
+            x = _layer_out(cfg, lp, x, cos, sin)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _chunk_loss(h, head, labels, weight):
+    """Σ weight · (logsumexp − the label's logit) over one chunk of rows;
+    the product rounds to the params' dtype before the float32 softmax,
+    as the reference's einsum does."""
+    logits = (h @ head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, 1, labels[:, None])[:, 0]
+    return torch.sum((lse - ll) * weight)
+
+
+def logits_and_loss(cfg: LMConfig, params, tokens, labels,
+                    loss_chunk=16384):
+    """Mean next-token cross-entropy of ``tokens [B, S]`` against ``labels
+    [B, S]``, float32. The [B·S, V] logits are produced and reduced chunk
+    by chunk (rows padded to a multiple of ``loss_chunk`` with weight 0),
+    each chunk checkpointed so that the backward recomputes its [chunk, V]
+    logits instead of keeping them. ``loss_chunk=None``: one chunk."""
+    hs = forward(cfg, params, tokens)
+    B, S, D = hs.shape
+    G = B * S
+    chunk = min(loss_chunk or G, G)
+    nc = -(-G // chunk)
+    pad = nc * chunk - G
+    hf = F.pad(hs.reshape(G, D), (0, 0, 0, pad))
+    lf = F.pad(labels.reshape(G).long(), (0, pad))
+    wmask = F.pad(torch.ones(G, dtype=torch.float32, device=hs.device),
+                  (0, pad))
+    head = _head(cfg, params)
+    total = torch.zeros((), dtype=torch.float32, device=hs.device)
+    for c in range(nc):
+        rows = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_chunk_loss, hf[rows], head, lf[rows],
+                                   wmask[rows], use_reentrant=False)
+    return total / G
 
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int, device):
     """KV cache ``{"k", "v"}`` of zeros [L, B, max_seq, KV, hd] in the
     model's dtype."""
-    _dense_only(cfg)
+    dense_only(cfg)
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     dt = getattr(torch, cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -136,7 +206,7 @@ def _logits(cfg: LMConfig, params, x):
 def prefill(cfg: LMConfig, params, tokens, max_seq: int):
     """Process a full prompt tokens [B, S]: (last-token logits [B, V]
     float32, cache with the prompt's keys and values in positions < S)."""
-    _dense_only(cfg)
+    dense_only(cfg)
     B, S = tokens.shape
     if S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
@@ -159,7 +229,7 @@ def decode_step(cfg: LMConfig, params, cache, token, pos):
     ``pos`` in every layer) and returned, where the reference returns a
     new one: a copy of a 32k-token cache per token would double the
     decode's memory traffic."""
-    _dense_only(cfg)
+    dense_only(cfg)
     pos = int(pos)
     B = token.shape[0]
     x = params["embed"][token.long()]                       # [B, 1, D]

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-engine, the recsys cells, the GNN forward and the LM's prefill and decode
-on the card against the same on the CPU. Needs a CUDA device:
+engine, the recsys cells, the GNN forward, the LM's prefill and decode and
+the LM train cell on the card against the same on the CPU. Needs a CUDA device:
 every test here carries the ``cuda`` marker and skips without one. The
 file imports neither JAX nor the reference package, so it runs on a
 machine with only PyTorch and the CUDA toolkit:
@@ -29,7 +29,10 @@ from repro_torch.configs.base import shapes_for_family
 from repro_torch.kernels.batched_mp import batched_mp, batched_mp_plain
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain,
-                                                 flash_fwd)
+                                                 flash_bwd, flash_bwd_dkv,
+                                                 flash_bwd_dq,
+                                                 flash_bwd_plain, flash_fwd,
+                                                 row_delta)
 from repro_torch.kernels.merge_cover import merge_cover, merge_cover_plain
 from repro_torch.kernels.retrieval_score import (retrieval_score,
                                                  retrieval_score_plain)
@@ -445,12 +448,156 @@ def test_flash_fwd_matches_plain(dev, dtype, shape):
     _close(lse, want_lse, FLASH_TOL[dtype])
 
 
-def test_flash_backward_on_card_raises(dev):
-    q, k, v = (t.to(dev).requires_grad_() for t in _qkv(FLASH_SHAPES[0],
-                                                       torch.float32))
-    out = flash_attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="Queue 2 items 2-3"):
-        out.sum().backward()
+def _bwd_inputs(shape, dtype, dev):
+    """(q, k, v, out, lse, dout) on ``dev``, out and lse from kernel 6."""
+    causal, qo = shape[5:]
+    q, k, v = (t.to(dev) for t in _qkv(shape, dtype))
+    g = torch.Generator().manual_seed(sum(shape[:5]))
+    dout = torch.randn(q.shape, generator=g).to(dtype).to(dev)
+    out, lse = flash_fwd(q, k, v, causal=causal, q_offset=qo)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_bwd_matches_plain(dev, dtype, shape):
+    """Kernels 7 and 8 against flash_bwd_plain: float32 at 2e-4 (the
+    reference's tolerance against its oracle), bfloat16 at 3e-2 of each
+    gradient's largest magnitude; one launch each."""
+    causal, qo = shape[5:]
+    args = _bwd_inputs(shape, dtype, dev)
+    q, k, v, out, lse, dout = args
+    delta = row_delta(out, dout)
+    before = dict(_lib.LAUNCHES)
+    got = (flash_bwd_dq(q, k, v, dout, lse, delta, causal=causal,
+                        q_offset=qo),
+           *flash_bwd_dkv(q, k, v, dout, lse, delta, causal=causal,
+                          q_offset=qo))
+    assert _lib.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert _lib.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = flash_bwd_plain(*(t.cpu() for t in args), causal=causal,
+                           q_offset=qo)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        rel = 2e-4 if dtype == torch.float32 else 3e-2
+        atol = rel if dtype == torch.float32 else rel * float(
+            w.float().abs().max())
+        _close(g.float(), w.float(), dict(rtol=rel, atol=atol))
+
+
+def test_flash_bwd_is_bit_reproducible(dev):
+    """No atomics: a second run gives the same bits."""
+    shape = (2, 256, 300, 4, 64, True, 44)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, out, lse, dout = _bwd_inputs(shape, dtype, dev)
+        runs = [flash_bwd(q, k, v, out, lse, dout, causal=True, q_offset=44)
+                for _ in range(3)]
+        for again in runs[1:]:
+            for a, b in zip(runs[0], again):
+                assert torch.equal(a, b)
+
+
+def test_flash_backward_on_card_launches_kernels(dev):
+    """The autograd backward of flash_attention on a card is kernels 7 and
+    8, and matches the CPU's backward (flash_bwd_plain)."""
+    shape = FLASH_SHAPES[2]
+    q, k, v = _qkv(shape, torch.float32)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3))
+    card = [t.to(dev).requires_grad_() for t in (q, k, v)]
+    host = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(_lib.LAUNCHES)
+    flash_attention(*card).backward(dout.to(dev))
+    assert _lib.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert _lib.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    flash_attention(*host).backward(dout)
+    for c, h in zip(card, host):
+        _close(c.grad, h.grad, dict(rtol=2e-4, atol=2e-4))
+
+
+def test_flash_bwd_refuses_bad_operands(dev):
+    q, k, v, out, lse, dout = _bwd_inputs(FLASH_SHAPES[0], torch.float32, dev)
+    delta = row_delta(out, dout)
+    small = [t[..., :32].contiguous() for t in (q, k, v, dout)]
+    with pytest.raises(ValueError, match="hd in"):
+        flash_bwd_dq(*small[:3], small[3], lse, delta)
+    with pytest.raises(ValueError, match="hd in"):
+        flash_bwd_dkv(*small[:3], small[3], lse, delta)
+    with pytest.raises(TypeError):
+        flash_bwd_dq(q, k.bfloat16(), v, dout, lse, delta)
+    with pytest.raises(TypeError, match="dout"):
+        flash_bwd_dkv(q, k, v, dout.bfloat16(), lse, delta)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_bwd_dq(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
+                     dout, lse, delta)
+
+
+def _to(tree, dev):
+    """A copy of a nested dict of tensors on ``dev`` (the host step count
+    stays on the host)."""
+    if isinstance(tree, dict):
+        return {k: (v.clone() if k == "step" else _to(v, dev))
+                for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _train_smoke_hd64():
+    """tinyllama-1.1b's SMOKE config at head dim 64 (SMOKE's own is 16),
+    4 microbatches, remat."""
+    return dataclasses.replace(get_smoke("tinyllama-1.1b"), head_dim=64,
+                               remat=True)
+
+
+def test_lm_train_cell_on_card_matches_cpu(dev):
+    """Two steps of the train cell: card vs CPU on the same state, with
+    kernel 6 twice per layer and microbatch (remat) and kernels 7 and 8
+    once."""
+    cfg = _train_smoke_hd64()
+    shp = dataclasses.replace(shapes_for_family("lm")["train_4k"], batch=8,
+                              seq_len=96)
+    cells = {d: api.build_cell(cfg, "train_4k", device=d, shape_override=shp)
+             for d in ("cpu", dev)}
+    host = api.materialize_state(cells["cpu"], cfg, "train_4k",
+                                 torch.Generator().manual_seed(4))
+    card = _to(host, dev)
+    rng = np.random.default_rng(5)
+    L, mb = cfg.n_layers, cfg.microbatches
+    for _ in range(2):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 96)).astype(
+            np.int32))
+        labs = torch.roll(toks, -1, dims=1)
+        _lib.LAUNCHES.reset()
+        card, got = cells[dev].step(card, {"tokens": toks.to(dev),
+                                           "labels": labs.to(dev)})
+        assert _lib.LAUNCHES["flash_fwd"] == 2 * L * mb
+        assert _lib.LAUNCHES["flash_bwd_dq"] == L * mb
+        assert _lib.LAUNCHES["flash_bwd_dkv"] == L * mb
+        host, want = cells["cpu"].step(host, {"tokens": toks,
+                                              "labels": labs})
+        for key in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(got[key].cpu().float(),
+                                       want[key].float(), rtol=1e-4, atol=0)
+        lr = float(want["lr"])
+        for name, t in card["params"]["layers"].items():
+            _close(t, host["params"]["layers"][name],
+                   dict(rtol=0, atol=2 * lr))
+            _close(card["opt"]["v"]["layers"][name],
+                   host["opt"]["v"]["layers"][name],
+                   forward_tol(host["opt"]["v"]["layers"][name]))
+
+
+def test_trainer_full_config_on_card(dev):
+    """tinyllama-1.1b at its published widths and depth, two short steps
+    through the Trainer."""
+    from repro_torch.launch.train import Trainer
+    tr = Trainer("tinyllama-1.1b", batch_override=4, seq_override=256)
+    assert tr.cfg == get_config("tinyllama-1.1b")
+    _lib.LAUNCHES.reset()
+    hist = tr.run(2)
+    L, mb = tr.cfg.n_layers, tr.cfg.microbatches
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    assert _lib.LAUNCHES["flash_fwd"] == 2 * 2 * L * mb
+    assert _lib.LAUNCHES["flash_bwd_dq"] == 2 * L * mb
+    assert _lib.LAUNCHES["flash_bwd_dkv"] == 2 * L * mb
 
 
 def test_flash_refuses_bad_operands(dev):

@@ -4,7 +4,8 @@ the SMOKE configs of llama3-8b, tinyllama-1.1b and smollm-360m (head dims
 32, 16 and 32; GQA groups of 2, 4 and 3), with the
 reference's params carried across by ``params_from_arrays("lm", ...)``;
 the prefill and decode cells of both packages' ``build_cell``; the
-building blocks; and what is not ported (the MoE archs, LM training).
+building blocks; and what is not ported (the MoE archs, the trainer's
+checkpoint manager).
 Tokens are numpy, from a seed.
 
 Tolerance: rtol 1e-4, atol 1e-5 (float32 layers of matmuls, softmax and
@@ -23,8 +24,9 @@ from repro.models import api as ref_api
 from repro.models import common as ref_common
 from repro.models import transformer as ref_tf
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.configs.base import shapes_for_family
+from repro_torch.configs.base import MoESpec, shapes_for_family
 from repro_torch.launch import serve
+from repro_torch.launch.train import Trainer
 from repro_torch.models import api, common, transformer
 from repro_torch.models.convert import params_from_arrays
 
@@ -176,13 +178,17 @@ def test_generate_greedy_on_cpu():
     assert int(res["tokens"].max()) < cfg.vocab
 
 
-def test_unported_lm_parts_raise():
+def test_unported_lm_parts_raise(tmp_path):
     with pytest.raises(KeyError, match="Queue 1 item 8"):
         get_config("phi3.5-moe-42b-a6.6b")
     with pytest.raises(KeyError, match="Queue 1 item 8"):
         get_smoke("moonshot-v1-16b-a3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.build_cell(get_smoke("llama3-8b"), "train_4k", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        Trainer("tinyllama-1.1b", device="cpu", ckpt_dir=str(tmp_path))
+    moe = dataclasses.replace(get_smoke("llama3-8b"),
+                              moe=MoESpec(n_experts=4, top_k=2))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        api.build_cell(moe, "train_4k", device="cpu")
     cfg = dataclasses.replace(get_smoke("llama3-8b"), kv_cache_dtype="int8")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         transformer.init_cache(cfg, 1, 8, "cpu")
