@@ -25,8 +25,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("interval_stab.cu", "frontier.cu", "merge_cover.cu",
            "retrieval_score.cu", "batched_mp.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu")
-HEADERS = ("verdict.cuh", "flash_tiles.cuh")
+           "flash_fwd_wgmma.cu", "flash_attention_bwd.cu")
+HEADERS = ("verdict.cuh", "flash_tiles.cuh", "flash_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,15 +41,15 @@ SIGNATURES = {
     "reach_classify_emit": [_P] * 7 + [_I64, _I32, _P],
     "reach_merge_cover": [_P] * 7 + [_I64, _I32, _I32, _I32, _P],
     "reach_retrieval_score": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
-    "reach_batched_mp": [_P] * 4 + [_I64] + [_I32] * 5 + [_P],
-    "reach_flash_fwd": [_P] * 5 + [_I32] * 7 + [_I64, _P],
+    "reach_batched_mp": [_P] * 4 + [_I64] + [_I32] * 6 + [_P],
+    "reach_flash_fwd": [_P] * 5 + [_I32] * 8 + [_I64, _P],
     "reach_flash_bwd_dq": [_P] * 7 + [_I32] * 7 + [_I64, _P],
     "reach_flash_bwd_dkv": [_P] * 8 + [_I32] * 7 + [_I64, _P],
     # not launches: the shared memory a block may opt in to on a device,
-    # and the shared memory one flash block takes at a head dim (forward;
-    # backward dq or dk/dv)
+    # and the shared memory one flash block takes at a head dim (forward,
+    # float32 or bfloat16; backward dq or dk/dv)
     "reach_max_smem": [_I32],
-    "reach_flash_smem": [_I32],
+    "reach_flash_smem": [_I32, _I32],
     "reach_flash_bwd_smem": [_I32, _I32],
 }
 

@@ -2,16 +2,22 @@
 their plain versions.
 
 ``softmax(q·kᵀ / √hd + mask) · v`` for ``q [B, Sq, H, hd]`` and ``k, v
-[B, Sk, H, hd]`` (GQA heads already expanded), causal from ``q_offset``
-(the absolute position of q[0]) or not, float32 or bfloat16 → ``out [B,
-Sq, H, hd]`` in q's dtype and the log-sum-exp ``lse [B, H, Sq]`` float32
-of each softmax row (the backward's row statistics). The LM runs it once
-per layer, through ``models.attention.chunked_attention``; training runs
-its backward once per layer.
+[B, Sk, KV, hd]`` with KV dividing H (GQA: query head h reads kv head
+h // G, G = H / KV, the reference's [KV, G] grouping; KV = H is plain
+multi-head attention), causal from ``q_offset`` (the absolute position
+of q[0]) or not, float32 or bfloat16 → ``out [B, Sq, H, hd]`` in q's
+dtype and the log-sum-exp ``lse [B, H, Sq]`` float32 of each softmax row
+(the backward's row statistics). The LM runs it once per layer, through
+``models.attention.chunked_attention``; training runs its backward once
+per layer.
 
-  flash_fwd — kernel 6 (``csrc/flash_attention.cu``): one block per (b·h,
-              64-row q tile), a loop over 64-key tiles up to the diagonal,
-              float32 FMAs on tiles in shared memory; hd 64 or 128.
+  flash_fwd — kernel 6, hd 64 or 128, grouped k and v read in place. In
+              bfloat16 (``csrc/flash_fwd_wgmma.cu``): one block of three
+              warpgroups per (128-row q tile, b, h), K and V tiles of 128
+              keys loaded by TMA into a two-stage ring, both products on
+              the tensor cores (wgmma), the softmax in registers. In
+              float32 (``csrc/flash_attention.cu``): one block per (b·h,
+              64-row q tile), float32 FMAs on tiles in shared memory.
               Replaces the reference's ``_flash_fwd``.
   flash_bwd_dq — kernel 7 (``csrc/flash_attention_bwd.cu``): dq, one block
               per (b·h, 64-row q tile) looping over key tiles up to the
@@ -27,7 +33,9 @@ its backward once per layer.
               out and lse, in float32, with the TPU kernels' roundings.
   flash_attention — the ``[B, S, H, hd]`` entry point: a
               ``torch.autograd.Function`` whose forward is ``flash_fwd``
-              and whose backward is ``flash_bwd`` (kernels 7 and 8).
+              and whose backward is ``flash_bwd`` (kernels 7 and 8) on k
+              and v expanded to H heads, dk and dv summed back over each
+              group of G (``expand_kv``, ``_group_sum``).
 
 On a CPU tensor each wrapper runs its plain version (any head dim); on a
 CUDA tensor it launches its kernel or raises. Like the TPU kernel, the
@@ -49,31 +57,43 @@ HEAD_DIMS = (64, 128)           # the kernel's templates
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(q, k, v, q_offset: int) -> None:
+def _check(q, k, v, q_offset: int, grouped: bool = True) -> None:
+    """Operands of one float dtype; k, v [B, Sk, KV, hd] with KV dividing
+    q's H (``grouped``) or equal to it."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention takes q, k, v of one dtype, "
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"flash attention takes q [B, Sq, H, hd] and k, v "
-                         f"[B, Sk, H, hd]; got {tuple(q.shape)}, "
+                         f"[B, Sk, KV, hd]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     (b, _, h, hd), (bk, sk, hk, hdk) = q.shape, k.shape
-    if (bk, hk, hdk) != (b, h, hd):
-        raise ValueError(f"k and v must match q's batch, heads and head "
-                         f"dim (expand GQA heads first); got q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if ((bk, hdk) != (b, hd) or hk < 1 or h % hk
+            or (not grouped and hk != h)):
+        want = "KV dividing H (GQA)" if grouped else "H (GQA expanded)"
+        raise ValueError(f"k and v must match q's batch and head dim, with "
+                         f"{want} heads; got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
     if sk < 1 or q_offset < 0:
         raise ValueError(f"flash attention takes Sk >= 1 and q_offset >= "
                          f"0; got Sk={sk}, q_offset={q_offset}")
 
 
+def expand_kv(t, heads: int):
+    """k or v [B, S, KV, hd] → [B, S, heads, hd]: kv head i repeated G =
+    heads / KV times in place (head h reads kv head h // G)."""
+    g = heads // t.shape[2]
+    return t if g == 1 else t.repeat_interleave(g, dim=2)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           q_offset: int = 0):
     """(out [B, Sq, H, hd] in q's dtype, lse [B, H, Sq] float32): the full
-    masked softmax in float32."""
-    _, sq, _, hd = q.shape
+    masked softmax in float32, k and v expanded to H heads."""
+    _, sq, h, hd = q.shape
     sk = k.shape[1]
+    k, v = expand_kv(k, h), expand_kv(v, h)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (hd ** 0.5)
     if causal:
         qpos = q_offset + torch.arange(sq, device=q.device)
@@ -88,32 +108,34 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
 
 def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Kernel 6: (out [B, Sq, H, hd] in q's dtype, lse [B, H, Sq]
-    float32) for q [B, Sq, H, hd] and k, v [B, Sk, H, hd] of one dtype,
-    float32 or bfloat16."""
+    float32) for q [B, Sq, H, hd] and k, v [B, Sk, KV, hd] (KV dividing
+    H) of one dtype, float32 or bfloat16."""
     _check(q, k, v, q_offset)
     if on_cpu(q):
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset)
     b, sq, h, hd = q.shape
-    sk = k.shape[1]
+    sk, kv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes hd in {HEAD_DIMS}, "
                          f"got {hd}")
     dev = q.device
-    smem, limit = _lib.LIBRARY.get().reach_flash_smem(hd), _lib.max_smem(dev)
+    bf16 = int(q.dtype == torch.bfloat16)
+    smem = _lib.LIBRARY.get().reach_flash_smem(hd, bf16)
+    limit = _lib.max_smem(dev)
     if smem > limit:
         raise ValueError(f"flash attention: a block needs {smem} B of shared "
                          f"memory, the device allows {limit} B")
     name = str(q.dtype).split(".")[-1]
     args = (_lib.check(q, "q", (b, sq, h, hd), dev, 16, name),
-            _lib.check(k, "k", (b, sk, h, hd), dev, 16, name),
-            _lib.check(v, "v", (b, sk, h, hd), dev, 16, name))
+            _lib.check(k, "k", (b, sk, kv, hd), dev, 16, name),
+            _lib.check(v, "v", (b, sk, kv, hd), dev, 16, name))
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     if out.numel():
         _lib.launch("flash_fwd", "reach_flash_fwd", dev, *args,
-                    out.data_ptr(), lse.data_ptr(), b, h, sq, sk, hd,
-                    int(q.dtype == torch.bfloat16), int(causal), q_offset)
+                    out.data_ptr(), lse.data_ptr(), b, h, kv, sq, sk, hd,
+                    bf16, int(causal), q_offset)
     return out, lse
 
 
@@ -153,15 +175,16 @@ def row_delta(out, dout):
 def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
                     q_offset: int = 0):
     """(dq, dk, dv) in q's, k's and v's dtypes: the gradient of flash
-    attention's out with respect to q, k and v for the cotangent ``dout``,
-    recomputed in float32 from the forward's ``out`` and ``lse``."""
+    attention's out with respect to q, k and v [B, Sk, H, hd] for the
+    cotangent ``dout``, recomputed in float32 from the forward's ``out``
+    and ``lse``."""
     dq, dk, dv = _bwd_plain(q, k, v, dout, lse, row_delta(out, dout),
                             causal, q_offset)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_bwd(q, k, v, dout, lse, delta, q_offset: int) -> None:
-    _check(q, k, v, q_offset)
+    _check(q, k, v, q_offset, grouped=False)
     b, sq, h, _ = q.shape
     if dout.dtype != q.dtype or dout.shape != q.shape:
         raise TypeError(f"the flash backward takes dout of q's dtype and "
@@ -235,9 +258,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
 
 def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
               q_offset: int = 0):
-    """(dq, dk, dv) of flash attention for the cotangent ``dout``:
-    ``flash_bwd_plain`` on the CPU; on a card ``row_delta``, then kernels 7
-    and 8."""
+    """(dq, dk, dv) of flash attention for the cotangent ``dout``, k and v
+    with H heads: ``flash_bwd_plain`` on the CPU; on a card
+    ``row_delta``, then kernels 7 and 8."""
     if on_cpu(q):
         return flash_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                q_offset=q_offset)
@@ -247,10 +270,20 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
             *flash_bwd_dkv(q, k, v, dout, lse, delta, **kw))
 
 
+def _group_sum(d, kv: int):
+    """dk or dv [B, Sk, H, hd] over expanded heads → [B, Sk, KV, hd]: the
+    sum over each group of G heads, in float32, rounded once."""
+    b, sk, h, hd = d.shape
+    if h == kv:
+        return d
+    return d.float().view(b, sk, kv, h // kv, hd).sum(3).to(d.dtype)
+
+
 class FlashAttention(torch.autograd.Function):
     """out = flash attention of (q, k, v); saves (q, k, v, out, lse) in the
-    ``[B, S, H, hd]`` / ``[B, H, Sq]`` layouts for the backward
-    (``flash_bwd``)."""
+    ``[B, S, H or KV, hd]`` / ``[B, H, Sq]`` layouts, k and v grouped, for
+    the backward (``flash_bwd`` on k and v expanded to H heads, dk and dv
+    summed back over each group)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset):
@@ -262,13 +295,15 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
-                               causal=ctx.causal, q_offset=ctx.q_offset)
-        return dq, dk, dv, None, None
+        h, kv = q.shape[2], k.shape[2]
+        dq, dk, dv = flash_bwd(q, expand_kv(k, h), expand_kv(v, h), out, lse,
+                               dout.contiguous(), causal=ctx.causal,
+                               q_offset=ctx.q_offset)
+        return dq, _group_sum(dk, kv), _group_sum(dv, kv), None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """q [B, Sq, H, hd]; k, v [B, Sk, H, hd] (GQA heads expanded) →
-    [B, Sq, H, hd] in q's dtype. ``q_offset``: the absolute position of
-    q[0] (prefill continuation)."""
+    """q [B, Sq, H, hd]; k, v [B, Sk, KV, hd] (KV dividing H; GQA read in
+    place) → [B, Sq, H, hd] in q's dtype. ``q_offset``: the absolute
+    position of q[0] (prefill continuation)."""
     return FlashAttention.apply(q, k, v, causal, q_offset)

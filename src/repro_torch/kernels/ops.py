@@ -23,9 +23,10 @@ NEG, POS, UNKNOWN = ref.NEG, ref.POS, ref.UNKNOWN
 
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """Flash attention. q: [B, Sq, H, hd]; k, v: [B, Sk, H, hd] (GQA
-    expanded) → [B, Sq, H, hd] in q's dtype. Kernel 6 on a card, its plain
-    float32 softmax on the CPU."""
+    """Flash attention. q: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd], KV
+    dividing H (GQA: head h reads kv head h // (H / KV), in place) →
+    [B, Sq, H, hd] in q's dtype. Kernel 6 on a card, its plain float32
+    softmax on the CPU; the backward is kernels 7 and 8."""
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
 
 

@@ -11,7 +11,7 @@ the kernel rounds the softmax numerators to v's dtype before the product
 with v, as the reference's TPU kernel does and its scan does not.
 
 GQA: q's H heads are grouped as [KV, G] (head h reads kv head h // G),
-as in the reference.
+as in the reference; kernel 6 reads the grouped k and v in place.
 """
 from __future__ import annotations
 
@@ -28,19 +28,15 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     """q: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd]; H = KV * G → [B, Sq, H, hd]
     in v's dtype.
 
-    k and v are expanded to H heads (each kv head repeated G times in
-    place, the reference's [KV, G] grouping) and handed to
-    ``ops.attention``. ``q_offset``: the absolute position of q[0].
-    ``q_chunk``, ``kv_chunk`` and ``remat_blocks`` are accepted for the
-    reference's signature and unused: the kernel picks its own tiles, and
-    its backward recomputes from the saved row statistics."""
+    The grouped k and v go to ``ops.attention`` as they are: query head h
+    reads kv head h // G (the reference's [KV, G] grouping), with no copy
+    of k or v. ``q_offset``: the absolute position of q[0]. ``q_chunk``,
+    ``kv_chunk`` and ``remat_blocks`` are accepted for the reference's
+    signature and unused: the kernel picks its own tiles, and its backward
+    recomputes from the saved row statistics."""
     h, kv = q.shape[2], k.shape[2]
     if h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} kv heads")
-    g = h // kv
-    if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
     out = ops.attention(q, k, v, causal=causal, q_offset=q_offset)
     return out.to(v.dtype)
 

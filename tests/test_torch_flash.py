@@ -101,6 +101,62 @@ def test_chunked_attention_gqa_matches_reference(h, kv, causal, qo):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
+# (H, KV, causal, q_offset): G = H / KV of 2, 4 and 8
+GQA_CASES = [(4, 2, True, 0), (4, 2, False, 0), (8, 2, True, 40),
+             (8, 2, False, 16), (16, 2, True, 0), (8, 1, False, 40)]
+GQA_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,kv,causal,qo", GQA_CASES)
+def test_flash_fwd_gqa_matches_reference(h, kv, causal, qo):
+    """Grouped k, v [B, Sk, KV, hd] read in place: kernel 6's plain
+    version (out and lse) and ``chunked_attention`` against the
+    reference's scan-based ``chunked_attention`` on the grouped heads and
+    its Pallas kernel (interpret mode) on heads expanded by jnp.repeat."""
+    g = h // kv
+    arrays = _mk(2, 48, 80, h, 64, seed=10 * h + kv + qo, kv=kv)
+    (jq, jk, jv), (q, k, v) = _both(arrays, torch.float32)
+    want = np.asarray(ref_chunked(jq, jk, jv, causal=causal, q_chunk=16,
+                                  kv_chunk=32, q_offset=qo))
+    jk_x, jv_x = jnp.repeat(jk, g, axis=2), jnp.repeat(jv, g, axis=2)
+    want_k = ref_flash(jq, jk_x, jv_x, causal=causal, q_offset=qo,
+                       block_q=64, block_k=64, interpret=True)
+    _, want_lse, _ = _flash_fwd(jq, jk_x, jv_x, causal, qo, 64, 64, True)
+    want_lse = np.asarray(want_lse).reshape(2, h, -1)[:, :, :48]
+    out, lse = flash_fwd(q, k, v, causal=causal, q_offset=qo)
+    got = chunked_attention(q, k, v, causal=causal, q_offset=qo)
+    for a in (out, got):
+        assert a.shape == (2, 48, h, 64)
+        np.testing.assert_allclose(a.numpy(), want, **GQA_TOL)
+        np.testing.assert_allclose(a.numpy(), np.asarray(want_k), **GQA_TOL)
+    np.testing.assert_allclose(lse.numpy(), want_lse, **GQA_TOL)
+
+
+@pytest.mark.parametrize("h,kv,causal,qo", GQA_CASES[::2] + GQA_CASES[5:])
+def test_gqa_backward_matches_reference_grad(h, kv, causal, qo):
+    """The CPU autograd backward through the grouped path (the plain
+    backward on k, v expanded, dk and dv summed over each group) against
+    jax.grad of the reference's ``chunked_attention`` on grouped heads."""
+    arrays = _mk(1, 40, 72, h, 64, seed=20 * h + kv + qo, kv=kv)
+    (jq, jk, jv), (q, k, v) = _both(arrays, torch.float32)
+    dout = np.random.default_rng(h + qo).standard_normal(q.shape).astype(
+        np.float32)
+
+    def loss(a, b_, c):
+        o = ref_chunked(a, b_, c, causal=causal, q_chunk=8, kv_chunk=24,
+                        q_offset=qo)
+        return jnp.sum(o * dout)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    chunked_attention(*leaves, causal=causal, q_offset=qo).backward(
+        torch.from_numpy(dout))
+    for got, w in zip(leaves, want):
+        assert got.grad.shape == w.shape
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w),
+                                   **GQA_TOL)
+
+
 def test_short_causal_rows_and_finite():
     """S = 70 under the causal mask: row 0 sees only k[0], and the ragged
     tail of every tile is masked."""
@@ -147,8 +203,9 @@ def test_cpu_path_launches_nothing_and_checks_operands():
         flash_attention(q.double(), k.double(), v.double())
     with pytest.raises(TypeError):
         flash_attention(q, k.bfloat16(), v)
+    three = torch.cat([k, k[:, :, :1]], dim=2)       # 3 kv heads, H = 2
     with pytest.raises(ValueError, match="GQA"):
-        flash_attention(q, k[:, :, :1], v[:, :, :1])
+        flash_attention(q, three, three)
     with pytest.raises(ValueError):
         flash_attention(q, k, v, q_offset=-1)
     with pytest.raises(ValueError):

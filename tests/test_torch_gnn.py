@@ -73,22 +73,39 @@ def test_wrapper_on_cpu_runs_plain_and_launches_nothing():
 
 
 @pytest.mark.parametrize("n,f,h,want", [
-    (30, 64, 64, (64, 64)),          # the molecule shape: one tile
-    (30, 128, 128, (128, 128)),
-    (128, 128, 128, (64, 128)),      # 320 KB whole: F cut in two
-    (200, 128, 128, (8, 64)),        # F down to 8, then H
+    (30, 64, 64, (30, 64, 64)),      # the molecule shape: one tile
+    (30, 128, 128, (30, 128, 128)),
+    (128, 128, 128, (128, 64, 128)),     # 320 KB whole: F cut in two
+    (200, 128, 128, (200, 8, 64)),   # F down to 8, then H
+    # adj no longer fits whole: F cut to 8, then row tiles of adj
+    (240, 64, 64, (120, 8, 64)),
+    (512, 64, 64, (64, 8, 64)),
+    (1024, 64, 64, (32, 8, 64)),     # 4 MiB of adj, a quarter of VMEM
+    (6448, 64, 64, (1, 8, 8)),       # the largest: 51,584 blocks a graph
 ])
 def test_tiles_fit_the_cards_shared_memory(n, f, h, want):
-    ft, ht = tiles(n, f, h, H100_SMEM)
-    assert (ft, ht) == want
-    assert smem_bytes(n, ft, ht) <= H100_SMEM
-    if (ft, ht) != (f, h):
-        assert smem_bytes(n, f, h) > H100_SMEM
+    rt, ft, ht = tiles(n, f, h, H100_SMEM)
+    assert (rt, ft, ht) == want
+    assert smem_bytes(n, rt, ft, ht) <= H100_SMEM
+    if (rt, ft, ht) != (n, f, h):
+        assert smem_bytes(n, n, f, h) > H100_SMEM
+    if rt < n:       # no F and H tiles fit beside the whole adj
+        assert smem_bytes(n, n, 1, 1) > H100_SMEM
 
 
 def test_tiles_refuse_a_graph_too_large():
+    """At N 30,000 even one row of adj beside one column of x is more
+    than a block's shared memory."""
     with pytest.raises(ValueError, match="232448"):
-        tiles(256, 16, 16, H100_SMEM)
+        tiles(30_000, 16, 16, H100_SMEM)
+
+
+@pytest.mark.parametrize("n", [6449, 8000])
+def test_tiles_refuse_more_blocks_than_the_grid_holds(n):
+    """From N 6,449 at F = H = 64 the only tiles that fit (RT 1) take
+    more blocks a graph than grid.y's 65,535."""
+    with pytest.raises(ValueError, match="65535"):
+        tiles(n, 64, 64, H100_SMEM)
 
 
 def _dense_batch(rng, shp, b):

@@ -6,8 +6,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+IMPORT = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
+                    r"from\s+(jax|repro)\b(?!_))", re.M)
 
 PROBE = r"""
 import importlib, pkgutil, sys
@@ -34,10 +37,24 @@ def test_import_pulls_in_neither_jax_nor_reference():
 
 
 def test_no_source_file_imports_jax_or_reference():
-    pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
-                     r"from\s+(jax|repro)\b(?!_))", re.M)
     files = sorted(PORT.rglob("*.py"))
     assert files
     offenders = [str(f.relative_to(SRC)) for f in files
-                 if pat.search(f.read_text())]
+                 if IMPORT.search(f.read_text())]
     assert offenders == []
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    """The card's smoke run holds to the port's rule: no import of jax or
+    of the reference anywhere in it (its imports of the port sit inside
+    functions), and importing it pulls in neither."""
+    script = ROOT / "chip_smoke.py"
+    assert IMPORT.findall(script.read_text()) == []
+    probe = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+             "import chip_smoke; bad = sorted(k for k in sys.modules if "
+             "k.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+             "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-c", probe], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
