@@ -7,11 +7,13 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version (the integer kernels bit for bit,
 the float kernels 9 and 10 within rtol 1e-5, atol 1e-5, kernel 6 within
 2e-5 in float32 and 3e-2 in bfloat16, lse included, with k and v grouped
-(GQA) or not, kernels 7 and 8 within 2e-4 in float32 and 3e-2 of the
-largest gradient in bfloat16; kernels 6, 7 and 8 also bit for bit from
-one run to the next), then drives the port's reachability serving path
-through ``repro_torch.reach.QuerySession``, its three model serving paths
-and LM training on the card:
+(GQA) or not, kernels 7 and 8 on the same grouped k, v within 2e-4 in
+float32 and, in bfloat16, 3e-2 of the largest magnitude in each row of
+head-dim values (one query row of dq, one key of dk, dv) plus 1e-5 of the
+gradient's largest; kernels 6, 7 and 8 also bit for bit from one run to
+the next), then drives the port's reachability serving path through
+``repro_torch.reach.QuerySession``, its three model serving paths and LM
+training on the card:
 
   main     the default IndexSpec (k=2, FERRARI-G, c=4, 32 seeds: k_max ≤ 8,
            one seed word, ELL width ≤ 32 — the ferrari-web widths) over
@@ -56,12 +58,15 @@ and LM training on the card:
            -> 16): one warm-up step, then 3 timed steps, each with
            exactly 176 launches of kernel 6 (remat runs each layer's
            forward twice) and 88 of kernels 7 and 8; layer 0's backward
-           call held against the plain version on its sequence 0 and
-           timed whole beside SDPA's backward, and layer 0's forward call
-           (kernel 6, k, v grouped: 4 kv heads) timed beside SDPA; a
-           profiled step; then the same widths cut to 2 layers in float32
-           (batch 2 x seq 512, 2 microbatches), two steps, card against
-           CPU.
+           call (k, v grouped: 4 kv heads) held against the plain version
+           on its sequence 0 and timed whole beside SDPA's backward on the
+           same grouped tensors and on k, v expanded to 32 heads; kernels
+           7 and 8 at one llama3-8b layer call (q [1, 4096, 32, 128], k, v
+           [1, 4096, 8, 128] bf16, random) held against the plain version
+           and timed the same way; layer 0's forward call (kernel 6)
+           timed beside SDPA; a profiled step; then the same widths cut to
+           2 layers in float32 (batch 2 x seq 512, 2 microbatches), two
+           steps, card against CPU.
 
 Every phase sets the launch counters to 0 just before it is driven and
 reads them just after; the reachability phases hold their answers against
@@ -111,15 +116,17 @@ FLASH_SHAPES = (
     # (ragged S, cross shapes, q_offset 192, hd 64 and 128, one kv head a
     # query head), S = 70 with its short causal rows, a ragged
     # continuation, llama3-8b's 32 heads at hd 128; then grouped k, v read
-    # in place: llama3-8b's G 4 at hd 128, tinyllama's G 8 at hd 64 and a
-    # ragged non-causal G 2
+    # in place: llama3-8b's G 4 at hd 128, tinyllama's G 8 at hd 64, a
+    # ragged non-causal G 2 and G 2 at hd 128, G 8 at hd 128 and G 4 at hd
+    # 64 (ragged, at an offset)
     (1, 128, 128, 2, 2, 64, True, 0), (2, 256, 256, 1, 1, 128, True, 0),
     (1, 130, 190, 2, 2, 64, True, 0), (1, 64, 512, 1, 1, 64, False, 0),
     (2, 64, 256, 2, 2, 64, True, 192), (1, 96, 96, 3, 3, 128, False, 0),
     (1, 70, 70, 1, 1, 64, True, 0), (1, 37, 300, 2, 2, 128, True, 100),
     (1, 2048, 2048, 32, 32, 128, True, 0),
     (1, 1000, 1000, 32, 8, 128, True, 0), (2, 700, 700, 32, 4, 64, True, 0),
-    (1, 300, 333, 4, 2, 64, False, 0), (1, 300, 333, 4, 2, 128, True, 50))
+    (1, 300, 333, 4, 2, 64, False, 0), (1, 300, 333, 4, 2, 128, True, 50),
+    (1, 200, 260, 8, 1, 128, True, 3), (1, 257, 257, 8, 2, 64, True, 0))
 LM_ARCH = "llama3-8b"
 LM_DECODE = 32                 # greedy decode steps after the prefill
 LM_PARITY_ROWS = 256           # last query rows of layer 0 vs plain
@@ -132,13 +139,22 @@ LM_OUT_TOL = 3e-2
 DECODE_TOL = dict(rtol=1e-2, atol=1e-2)     # atol times max|want|
 LM_CHECK = dict(layers=2, prompt=512, steps=8)   # card vs CPU, float32
 # kernels 7 and 8 vs plain: float32 at the reference's tolerance against
-# its oracle; bfloat16 relative to the gradient's largest magnitude (both
-# round P and dS to bfloat16 before the products)
+# its oracle; bfloat16 relative to the largest magnitude in each row of the
+# gradient (both round P and dS to bfloat16 before the products;
+# bwd_row_atol)
 FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+# ... plus this share of the tensor's largest magnitude: a row that is 0 in
+# exact arithmetic (query row 0 of a causal call at q_offset 0 sees one
+# key, so dS = P·(dP - delta) cancels) holds float32 rounding noise, well
+# under this floor (flash_bwd_parity prints it)
+BWD_NOISE_FLOOR = 1e-5
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_BATCH = 16               # train_4k's batch 256 cut to 4 x 4 sequences
 TRAIN_STEPS = 3                # timed, after one warm-up step
 TRAIN_CHECK = dict(layers=2, batch=2, seq=512, microbatches=2)  # card vs CPU
+# kernels 7 and 8 at hd 128, which no path runs at full width yet: one
+# llama3-8b layer's backward call on train_4k's sequence (b, s, h, kv, hd)
+BWD_HD128_CALL = (1, 4096, 32, 8, 128)
 
 KERNELS = {
     "stab_packed": dict(
@@ -166,11 +182,11 @@ KERNELS = {
         source="src/repro_torch/csrc/flash_fwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:101", phase="lm"),
     "flash_bwd_dq": dict(
-        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:172",
         call="src/repro/kernels/flash_attention.py:207", phase="train"),
     "flash_bwd_dkv": dict(
-        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:172",
         call="src/repro/kernels/flash_attention.py:224", phase="train"),
 }
@@ -309,8 +325,10 @@ def _compare(name, got, want, tol=KERNEL_TOL):
         err = max(s[0] for s in stats)
         bad = sum(s[1] for s in stats)
         rel = max(s[2] for s in stats)
+        atol = tol["atol"]
         what = (f"max abs err {err:.3e}, max rel err {rel:.3e} (rtol "
-                f"{tol['rtol']}, atol {tol['atol']})")
+                f"{tol['rtol']}, atol "
+                f"{atol if isinstance(atol, float) else 'per row'})")
     else:
         bad = sum(int((a != b).sum()) for a, b in zip(got, want))
         err = max(int((a.long() - b.long()).abs().max()) if a.numel() else 0
@@ -437,9 +455,8 @@ def kernel_parity(dev) -> dict:
             check(torch.equal(out, first[0]) and torch.equal(lse, first[1]),
                   f"flash_fwd {label}: a repeat run gave other bits")
             # kernels 7 and 8 on the forward's own out and lse, k and v
-            # expanded to H heads (as the autograd backward hands them)
+            # grouped (as the autograd backward hands them)
             dout = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
-            k, v = fa.expand_kv(k, h), fa.expand_kv(v, h)
             for name, res in flash_bwd_parity(label, (q, k, v, out, lse, dout,
                                                       causal, qo)).items():
                 _tally(err, name, res)
@@ -448,12 +465,30 @@ def kernel_parity(dev) -> dict:
     return err
 
 
+# the largest |kernel - plain| of kernels 7 and 8 in bfloat16 as a share of
+# its element's limit (atol of its row + rtol |want|): 1 is the limit
+BWD_ROW_SHARE = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+
+
+def bwd_row_atol(want, rel: float):
+    """The bfloat16 atol of kernels 7 and 8: ``rel`` times the largest
+    magnitude in each row of head-dim values of ``want`` (dq: one query
+    row of one head; dk, dv: one key of one kv head), plus
+    ``BWD_NOISE_FLOOR`` of the tensor's largest. Under the causal mask
+    the key gradients fall from the first keys to the last, so a limit
+    taken over the whole tensor would let a fault confined to late key or
+    query tiles pass; a row's own magnitude does not."""
+    mag = want.double().abs()
+    return (rel * mag.amax(dim=-1, keepdim=True)
+            + BWD_NOISE_FLOOR * mag.max())
+
+
 def flash_bwd_parity(label, args) -> dict:
     """Kernels 7 and 8 on ``args`` = (q, k, v, out, lse, dout, causal,
-    q_offset) against ``flash_bwd_plain`` (FLASH_BWD_TOL, each gradient
-    relative to its largest magnitude in bfloat16), and a second run that
-    must give the same bits. {name: (max_abs_err, mismatches,
-    max_rel_err)}."""
+    q_offset) against ``flash_bwd_plain`` (FLASH_BWD_TOL: float32 within
+    2e-4, bfloat16 within rtol 3e-2 and atol ``bwd_row_atol``), and a
+    second run that must give the same bits. {name: (max_abs_err,
+    mismatches, max_rel_err)}."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -464,17 +499,33 @@ def flash_bwd_parity(label, args) -> dict:
            "flash_bwd_dkv": fa.flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)}
     want = fa.flash_bwd_plain(q, k, v, out, lse, dout, **kw)
     want = {"flash_bwd_dq": want[:1], "flash_bwd_dkv": want[1:]}
+    bf16 = q.dtype == torch.bfloat16
     rel = FLASH_BWD_TOL[str(q.dtype).split(".")[-1]]
     res = {}
     for name in got:
         parts = []
         for what, a, w in zip(("dq",) if name == "flash_bwd_dq" else
                               ("dk", "dv"), got[name], want[name]):
-            top = float(w.abs().max())
-            atol = rel * top if q.dtype == torch.bfloat16 else rel
-            parts.append(_compare(f"{name} {label}: {what}, max|want| "
-                                  f"{top:.3e}", a.float(), w.float(),
-                                  dict(rtol=rel, atol=atol)))
+            atol = bwd_row_atol(w, rel) if bf16 else rel
+            parts.append(_compare(f"{name} {label}: {what}", a.float(),
+                                  w.float(), dict(rtol=rel, atol=atol)))
+            if bf16:
+                limit = atol + rel * w.double().abs()
+                diff = (a.double() - w.double()).abs()
+                share = float((diff / limit).masked_fill(diff == 0, 0.0)
+                              .max())
+                BWD_ROW_SHARE[name] = max(BWD_ROW_SHARE[name], share)
+                rows = w.double().abs().amax(dim=-1, keepdim=True)
+                top = float(rows.max())
+                zero = (rows == 0).expand_as(diff)
+                noise = float(diff[zero].max()) / top if zero.any() else 0.0
+                print(f"    {what}: largest error {share:.4f} of its "
+                      f"element's limit (rtol {rel}, atol {rel} x its "
+                      f"row's max|want| + {BWD_NOISE_FLOOR} x max|want|); "
+                      f"in rows that are 0 in the plain version, error up "
+                      f"to {noise:.3g} x max|want|; the smallest row's max "
+                      f"{float(rows.min()) / top:.3g} x max|want|",
+                      flush=True)
         res[name] = (max(p[0] for p in parts), sum(p[1] for p in parts),
                      max(p[2] for p in parts))
     again = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, **kw),
@@ -1555,18 +1606,21 @@ def _train_split(rows, optimizer_ms: float, label) -> dict:
     return parts
 
 
-def time_flash_bwd(args, plain_args) -> dict:
-    """Kernels 7 and 8 at the path's call ``args`` = (q, k, v, out, lse,
-    dout, causal, q_offset): each one's time beside its bound and beside
-    SDPA's backward on the same tensors (which computes dq, dk and dv
-    together: one time for both rows); the plain version (which also
-    computes all three) and the kernels again on ``plain_args``, the
-    call's sequence 0."""
+def time_flash_bwd(args, label: str, plain_args=None) -> dict:
+    """Kernels 7 and 8 at the call ``args`` = (q, k, v, out, lse, dout,
+    causal, q_offset), k and v grouped: each one's time beside its bound
+    and beside SDPA's backward on the same grouped tensors
+    (``enable_gqa``) and on k and v expanded to H heads (SDPA computes dq,
+    dk and dv together: one time for both rows); the plain version (which
+    also computes all three) on ``plain_args``, and the kernels again
+    there, or the plain version on ``args`` when ``plain_args`` is
+    None."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     q, k, v, out, lse, dout, causal, qo = args
+    h = q.shape[2]
     delta = fa.row_delta(out, dout)
 
     def kernels(a):
@@ -1577,15 +1631,20 @@ def time_flash_bwd(args, plain_args) -> dict:
                 "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(
                     a[0], a[1], a[2], a[5], a[4], d, **kw)}
 
-    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-    sdpa_do = dout.transpose(1, 2)
+    def sdpa_bwd(kk, vv):
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, kk, vv)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                           enable_gqa=kk.shape[2] != h)
+        g = dout.transpose(1, 2)
+        return lambda: torch.autograd.grad(o, leaves, g, retain_graph=True)
 
-    def sdpa_bwd():
-        return torch.autograd.grad(sdpa_out, leaves, sdpa_do,
-                                   retain_graph=True)
-
-    library_ms = device_ms(sdpa_bwd, reps=10)
+    library_ms = device_ms(sdpa_bwd(k, v), reps=10)
+    k_x, v_x = fa.expand_kv(k, h), fa.expand_kv(v, h)
+    expanded_ms = device_ms(sdpa_bwd(k_x, v_x), reps=10)
+    del k_x, v_x
+    sliced = plain_args is not None
+    plain_args = plain_args if sliced else args
     plain_ms = device_ms(lambda: fa.flash_bwd_plain(
         *plain_args[:6], causal=plain_args[6], q_offset=plain_args[7]),
         reps=10)
@@ -1595,29 +1654,59 @@ def time_flash_bwd(args, plain_args) -> dict:
         _, one = _timed(whole[name])
         reps = 30 if one < 0.1 else 3
         ms = device_ms(whole[name], reps=reps)
-        slice_ms = device_ms(part[name])
+        slice_ms = device_ms(part[name]) if sliced else ms
         nbytes, ops = work_of(name, (q, k, v, dout, lse, delta, causal, qo))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / BF16_TENSOR_OPS_PER_S * 1e3
-        print(f"  time {name}: the path's call {tuple(q.shape)} "
-              f"{str(q.dtype).split('.')[-1]}: kernel {ms:.4f} ms (median of "
-              f"{reps}), {ops / ms / 1e9:.2f} TFLOP/s; library (SDPA "
-              f"backward, dq dk dv together) {library_ms:.4f} ms; bound "
+        print(f"  time {name} at {label} {tuple(q.shape)} x "
+              f"{tuple(k.shape)} {str(q.dtype).split('.')[-1]}: kernel "
+              f"{ms:.4f} ms (median of {reps}), {ops / ms / 1e9:.2f} "
+              f"TFLOP/s; library (SDPA backward, dq dk dv together, "
+              f"enable_gqa, the same tensors) {library_ms:.4f} ms, on k, v "
+              f"expanded to {h} heads {expanded_ms:.4f} ms; bound "
               f"{max(t_bytes, t_ops):.4f} ms ({nbytes} B, {ops} flops at "
               f"{BF16_TENSOR_OPS_PER_S / 1e12:.0f} TFLOP/s; "
-              f"{'bytes' if t_bytes >= t_ops else 'operations'}); sequence "
-              f"0: kernel {slice_ms:.4f} ms, plain (dq dk dv) {plain_ms:.4f} "
-              f"ms", flush=True)
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}); "
+              f"{tuple(plain_args[0].shape)}: kernel {slice_ms:.4f} ms, "
+              f"plain (dq dk dv) {plain_ms:.4f} ms", flush=True)
+        at_slice = dict(
+            plain_at=f"q {tuple(plain_args[0].shape)} of the call's "
+                     f"{tuple(q.shape)}; the plain version computes dq, dk "
+                     f"and dv together", ms_at_plain_shape=slice_ms)
         out_rows[name] = dict(
             rows=q.shape[1], ms=ms, plain_ms=plain_ms,
             library="torch.autograd.grad of scaled_dot_product_attention"
-                    "(is_causal=True): dq, dk and dv together",
-            library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+                    "(is_causal=True, enable_gqa=True): dq, dk and dv "
+                    "together",
+            library_ms=library_ms, library_expanded_ms=expanded_ms,
+            bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
-            plain_at=f"sequence 0 of the call ({plain_args[0].shape[0]} of "
-                     f"{q.shape[0]}); the plain version computes dq, dk and "
-                     f"dv together", ms_at_plain_shape=slice_ms)
+            **(at_slice if sliced else {}))
     return out_rows
+
+
+def bwd_hd128_call(dev, seed: int):
+    """Kernels 7 and 8 at one llama3-8b layer's backward call
+    (``BWD_HD128_CALL``, causal, bf16, random q, k, v and cotangent from
+    ``seed``; out and lse from kernel 6): held against the plain version
+    on the whole call, timed beside their bounds and SDPA's backward.
+    {name: timing row with "err"}."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, kv, hd = BWD_HD128_CALL
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    q, k, v, dout = (torch.randn((b, s, n, hd), generator=g, device=dev)
+                     .to(torch.bfloat16) for n in (h, kv, kv, h))
+    out, lse = fa.flash_fwd(q, k, v, causal=True)
+    args = (q, k, v, out, lse, dout, True, 0)
+    label = f"one llama3-8b layer's call ({s} tokens, {h} heads / {kv} kv)"
+    res = flash_bwd_parity(label, args)
+    timing = time_flash_bwd(args, label)
+    for name in timing:
+        timing[name]["err"] = res[name]
+    return timing
 
 
 def _leaves(tree):
@@ -1758,10 +1847,12 @@ def train_phase(dev, seed: int):
     # version, the whole call timed
     seq0 = tuple(t[:1].contiguous() for t in layer0[:6]) + layer0[6:]
     res = flash_bwd_parity(f"on layer 0's call, sequence 0 ({S} tokens, "
-                           f"{cfg.n_heads} heads)", seq0)
-    timing = time_flash_bwd(layer0, seq0)
+                           f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv)",
+                           seq0)
+    timing = time_flash_bwd(layer0, "the train step's layer-0 call", seq0)
     for name in timing:
         timing[name]["err"] = res[name]
+    timing["hd128"] = bwd_hd128_call(dev, seed)
     # kernel 6 on layer 0's forward call of one microbatch, grouped k, v
     q, k, v, causal, qo = forward.pop()
     n = LM_PARITY_ROWS
@@ -1847,9 +1938,9 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch {torch.__version__} CUDA "
-          f"{torch.version.cuda} | {name}", flush=True)
+          f"{torch.version.cuda} | {kind}", flush=True)
     # the plain versions and the models' einsums in true float32: no TF32
     check(torch.get_float32_matmul_precision() == "highest"
           and not torch.backends.cuda.matmul.allow_tf32,
@@ -1927,6 +2018,11 @@ def main() -> int:
     train_fwd = train_time.pop("flash_fwd")
     a, b = lm_time["err"], train_fwd["err"]   # both held against plain
     lm_time["err"] = (max(a[0], b[0]), a[1] + b[1], max(a[2], b[2]))
+    bwd_hd128 = train_time.pop("hd128")
+    for kname, t in bwd_hd128.items():    # held against plain there too
+        a, b = train_time[kname]["err"], t["err"]
+        train_time[kname]["err"] = (max(a[0], b[0]), a[1] + b[1],
+                                    max(a[2], b[2]))
     times.update(train_time)              # kernels 7 and 8: the train phase
     rows = []
     for kname, meta in KERNELS.items():
@@ -1943,11 +2039,15 @@ def main() -> int:
             "library_ms": t["library_ms"], "library": t["library"],
             **{key: t[key] for key in ("plain_at", "ms_at_plain_shape",
                                        "library_expanded_ms") if key in t}})
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_expanded_ms", "plain_at", "ms_at_plain_shape")
         if kname == "flash_fwd":
-            rows[-1]["at_train_call"] = {
-                key: train_fwd[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "library_expanded_ms", "plain_at", "ms_at_plain_shape")}
+            rows[-1]["at_train_call"] = {key: train_fwd[key] for key in keys}
+        if kname in bwd_hd128:
+            rows[-1]["at_llama3_8b_layer_call"] = {
+                key: bwd_hd128[kname][key] for key in keys
+                if key in bwd_hd128[kname]}
+            rows[-1]["bf16_error_share_of_row_limit"] = BWD_ROW_SHARE[kname]
     bad = {k: err[k][1] + times[k]["err"][1] for k in KERNELS}
     print("kernels: " + ", ".join(f"{r['name']} {bad[r['name']]} "
                                   f"mismatches, {r['launches']} launches"
@@ -1956,7 +2056,7 @@ def main() -> int:
     print(card_line(), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float* k_b = k + static_cast<int64_t>(b) * sk * kv_stride + kvh * HD;
   const float* v_b = v + static_cast<int64_t>(b) * sk * kv_stride + kvh * HD;
 
-  load_tile<float, HD>(q_s, q_b, row_stride, sq - q0);
+  load_tile<HD>(q_s, q_b, row_stride, sq - q0);
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -110,7 +110,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (last < k_end) k_end = last;
   }
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    load_tile<float, HD>(kv_s, k_b + static_cast<int64_t>(k0) * kv_stride,
+    load_tile<HD>(kv_s, k_b + static_cast<int64_t>(k0) * kv_stride,
                      kv_stride, sk - k0);
     __syncthreads();
 
@@ -146,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int col = 0; col < kCols; ++col) acc[i][col] *= c;
     }
-    load_tile<float, HD>(kv_s, v_b + static_cast<int64_t>(k0) * kv_stride,
+    load_tile<HD>(kv_s, v_b + static_cast<int64_t>(k0) * kv_stride,
                      kv_stride, sk - k0);
     __syncthreads();
 

@@ -191,11 +191,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(o);
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint64_t dv = desc_sw128(v_tile + kk * 16 * 128, kPanelK, 1024);
-        if constexpr (HD == 128)
-          wgmma_rs_n128(o, pa[kk], dv);
-        else
-          wgmma_rs_n64(o, pa[kk], dv);
+        wgmma_rs<HD>(o, pa[kk],
+                     desc_sw128(v_tile + kk * 16 * 128, kPanelK, 1024));
       }
       wgmma_commit();
     };
@@ -298,56 +295,6 @@ __global__ void __launch_bounds__(kThreads, 1)
             m[r] * 0.6931471805599453f + logf(lc);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (the
-// library links no libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [B, S, heads, HD] bf16 tensor as a 4-D map (HD, heads, S, B) read in
-// boxes of 64 values × `rows` rows of one head, 128-byte swizzled
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int seq,
-              int n_heads, int hd, int rows) {
-  const EncodeTiled encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
-                              static_cast<cuuint64_t>(n_heads),
-                              static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(hd) * 2,
-      static_cast<cuuint64_t>(hd) * n_heads * 2,
-      static_cast<cuuint64_t>(hd) * n_heads * seq * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int HD>

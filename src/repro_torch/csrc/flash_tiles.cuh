@@ -1,12 +1,11 @@
-// Tiles shared by the flash attention kernels (6, 7 and 8): 64-row tiles
-// of q, k, v or do staged in shared memory as float32, and the two tile
-// products of a 256-thread block, in which thread (tr, tc) = (threadIdx.x
-// / 16, threadIdx.x % 16) owns rows 4·tr .. 4·tr+3 of a 64×64 product and
-// its columns tc + 16·j, or, of a 64×HD accumulator, the columns
-// 64·f + 4·tc .. +3.
+// Tiles shared by the float32 flash attention kernels (6, 7 and 8; their
+// bfloat16 calls run the tensor-core kernels): 64-row tiles of q, k, v or
+// do staged in shared memory, and the two tile products of a 256-thread
+// block, in which thread (tr, tc) = (threadIdx.x / 16, threadIdx.x % 16)
+// owns rows 4·tr .. 4·tr+3 of a 64×64 product and its columns tc + 16·j,
+// or, of a 64×HD accumulator, the columns 64·f + 4·tc .. +3.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -29,55 +28,27 @@ __device__ __forceinline__ float4 to_f32x4(const float* p) {
 }
 
 // One tile of kBQ rows (row stride `stride` elements) into shared memory
-// as float32 [kBQ][LD]; rows at or past `valid` are zero-filled, so that a
-// masked lane (p = 0) never meets a stale value.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// [kBQ][LD]; rows at or past `valid` are zero-filled, so that a masked
+// lane (p = 0) never meets a stale value.
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t stride, int valid) {
-  constexpr int kVec = 16 / sizeof(T);            // elements per 16 B load
-  constexpr int kPerRow = HD / kVec;
+  constexpr int kPerRow = HD / 4;                 // float4 loads a row
   for (int i = threadIdx.x; i < kBQ * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
     float* out = dst + r * ld_of(HD) + c;
     if (r >= valid) {
-#pragma unroll
-      for (int e = 0; e < kVec; e += 4)
-        *reinterpret_cast<float4*>(out + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(out) = make_float4(0.f, 0.f, 0.f, 0.f);
       continue;
     }
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float4*>(out) = *reinterpret_cast<const float4*>(&raw);
-    } else {
-      const __nv_bfloat162* h =
-          reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-      const float2 c2 = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-      *reinterpret_cast<float4*>(out) = make_float4(a.x, a.y, b.x, b.y);
-      *reinterpret_cast<float4*>(out + 4) = make_float4(c2.x, c2.y, d.x, d.y);
-    }
+    *reinterpret_cast<float4*>(out) =
+        *reinterpret_cast<const float4*>(src + r * stride + c);
   }
-}
-
-// A float as a product's operand of type T sees it: rounded to T
-template <typename T>
-__device__ __forceinline__ float round_to(float p) {
-  if constexpr (sizeof(T) == 2) return __bfloat162float(__float2bfloat16(p));
-  return p;
 }
 
 __device__ __forceinline__ void store4(float* dst, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b,
-                                       float c, float d) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = raw;
 }
 
 // s[i][j] = Σ_d a[4·tr + i][d] · b[tc + 16·j][d] over two staged [64][HD]
@@ -143,9 +114,10 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][HD / 16],
 }
 
 // Row `r` (< 64) of a 4-row × HD/16 accumulator patch, times `mul`, to
-// dst[64·f + 4·tc ..] in T
-template <typename T, int HD>
-__device__ __forceinline__ void store_row(T* dst, const float (&row)[HD / 16],
+// dst[64·f + 4·tc ..]
+template <int HD>
+__device__ __forceinline__ void store_row(float* dst,
+                                          const float (&row)[HD / 16],
                                           float mul, int tc) {
 #pragma unroll
   for (int f = 0; f < HD / 64; ++f)

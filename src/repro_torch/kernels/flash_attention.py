@@ -19,23 +19,29 @@ per layer.
               float32 (``csrc/flash_attention.cu``): one block per (b·h,
               64-row q tile), float32 FMAs on tiles in shared memory.
               Replaces the reference's ``_flash_fwd``.
-  flash_bwd_dq — kernel 7 (``csrc/flash_attention_bwd.cu``): dq, one block
-              per (b·h, 64-row q tile) looping over key tiles up to the
-              diagonal. Replaces the reference's dq ``pallas_call`` in
-              ``_flash_vjp_bwd``.
-  flash_bwd_dkv — kernel 8 (the same file): dk and dv, one block per (b·h,
-              64-key tile) looping over q tiles from the diagonal to Sq.
-              Replaces the reference's dk/dv ``pallas_call``.
+  flash_bwd_dq — kernel 7: dq, grouped k and v read in place (query head
+              h reads kv head h // G). In bfloat16
+              (``csrc/flash_bwd_wgmma.cu``): one block of three warpgroups
+              per (128-row q tile, b, h), K and V tiles streamed by TMA up
+              to the diagonal, the three products on the tensor cores. In
+              float32 (``csrc/flash_attention_bwd.cu``): one block per
+              (b·h, 64-row q tile), float32 FMAs. Replaces the reference's
+              dq ``pallas_call`` in ``_flash_vjp_bwd``.
+  flash_bwd_dkv — kernel 8 (the same two files): dk and dv [B, Sk, KV,
+              hd], one block per (key tile, b, kv head) looping over the G
+              query heads of its kv head and their q tiles from the
+              diagonal to Sq, summing the group in float32 and rounding
+              once. Replaces the reference's dk/dv ``pallas_call``.
   flash_attention_plain — the full masked softmax in float32 (the
               counterpart of ``ref.flash_attention_ref``), with lse as the
               TPU kernel's ``_finish`` writes it.
   flash_bwd_plain — the backward's explicit recomputation from the saved
-              out and lse, in float32, with the TPU kernels' roundings.
+              out and lse, in float32, with the TPU kernels' roundings,
+              dk and dv summed over each group in float32, rounded once.
   flash_attention — the ``[B, S, H, hd]`` entry point: a
               ``torch.autograd.Function`` whose forward is ``flash_fwd``
-              and whose backward is ``flash_bwd`` (kernels 7 and 8) on k
-              and v expanded to H heads, dk and dv summed back over each
-              group of G (``expand_kv``, ``_group_sum``).
+              and whose backward is ``flash_bwd`` (kernels 7 and 8), both
+              on grouped k and v: no copy of k or v is made.
 
 On a CPU tensor each wrapper runs its plain version (any head dim); on a
 CUDA tensor it launches its kernel or raises. Like the TPU kernel, the
@@ -57,9 +63,9 @@ HEAD_DIMS = (64, 128)           # the kernel's templates
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(q, k, v, q_offset: int, grouped: bool = True) -> None:
+def _check(q, k, v, q_offset: int) -> None:
     """Operands of one float dtype; k, v [B, Sk, KV, hd] with KV dividing
-    q's H (``grouped``) or equal to it."""
+    q's H."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention takes q, k, v of one dtype, "
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
@@ -69,12 +75,10 @@ def _check(q, k, v, q_offset: int, grouped: bool = True) -> None:
                          f"[B, Sk, KV, hd]; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     (b, _, h, hd), (bk, sk, hk, hdk) = q.shape, k.shape
-    if ((bk, hdk) != (b, hd) or hk < 1 or h % hk
-            or (not grouped and hk != h)):
-        want = "KV dividing H (GQA)" if grouped else "H (GQA expanded)"
+    if (bk, hdk) != (b, hd) or hk < 1 or h % hk:
         raise ValueError(f"k and v must match q's batch and head dim, with "
-                         f"{want} heads; got q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}")
+                         f"KV dividing H (GQA) heads; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
     if sk < 1 or q_offset < 0:
         raise ValueError(f"flash attention takes Sk >= 1 and q_offset >= "
                          f"0; got Sk={sk}, q_offset={q_offset}")
@@ -142,10 +146,12 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
 def _bwd_plain(q, k, v, dout, lse, delta, causal: bool, q_offset: int):
     """(dq, dk, dv) float32 from the row statistics lse and delta =
     Σ_hd do·out [B, H, Sq]: the reference's ``_flash_vjp_bwd`` over the
-    whole score matrix at once."""
-    _, sq, _, hd = q.shape
-    sk = k.shape[1]
+    whole score matrix at once, on k and v expanded to H heads; dk and dv
+    [B, Sk, KV, hd] are the float32 sums over each group of G heads."""
+    _, sq, h, hd = q.shape
+    b, sk, kv, _ = k.shape
     scale = 1.0 / (hd ** 0.5)
+    k, v = expand_kv(k, h), expand_kv(v, h)
     qf, kf, dof = q.float(), k.float(), dout.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     p = torch.exp(s - lse[..., None])
@@ -162,6 +168,8 @@ def _bwd_plain(q, k, v, dout, lse, delta, causal: bool, q_offset: int):
     del p
     dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf)
     dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qf)
+    if kv != h:
+        dk, dv = (d.view(b, sk, kv, h // kv, hd).sum(3) for d in (dk, dv))
     return dq, dk, dv
 
 
@@ -175,16 +183,17 @@ def row_delta(out, dout):
 def flash_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
                     q_offset: int = 0):
     """(dq, dk, dv) in q's, k's and v's dtypes: the gradient of flash
-    attention's out with respect to q, k and v [B, Sk, H, hd] for the
-    cotangent ``dout``, recomputed in float32 from the forward's ``out``
-    and ``lse``."""
+    attention's out with respect to q and grouped k, v [B, Sk, KV, hd]
+    for the cotangent ``dout``, recomputed in float32 from the forward's
+    ``out`` and ``lse``; dk and dv sum each group of G query heads in
+    float32 and are rounded once."""
     dq, dk, dv = _bwd_plain(q, k, v, dout, lse, row_delta(out, dout),
                             causal, q_offset)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_bwd(q, k, v, dout, lse, delta, q_offset: int) -> None:
-    _check(q, k, v, q_offset, grouped=False)
+    _check(q, k, v, q_offset)
     b, sq, h, _ = q.shape
     if dout.dtype != q.dtype or dout.shape != q.shape:
         raise TypeError(f"the flash backward takes dout of q's dtype and "
@@ -198,23 +207,24 @@ def _check_bwd(q, k, v, dout, lse, delta, q_offset: int) -> None:
 
 
 def _bwd_args(name, q, k, v, dout, lse, delta):
-    """(device, dtype name, operand pointers) after the kernel's checks: hd
-    in HEAD_DIMS and the block's shared memory within the device's."""
+    """(device, operand pointers) after the kernel's checks: hd in
+    HEAD_DIMS and the block's shared memory within the device's."""
     b, sq, h, hd = q.shape
-    sk = k.shape[1]
+    sk, kv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel takes hd in {HEAD_DIMS}, "
                          f"got {hd}")
     dev = q.device
-    smem = _lib.LIBRARY.get().reach_flash_bwd_smem(hd, int(name == "dkv"))
+    smem = _lib.LIBRARY.get().reach_flash_bwd_smem(
+        hd, int(name == "dkv"), int(q.dtype == torch.bfloat16))
     limit = _lib.max_smem(dev)
     if smem > limit:
         raise ValueError(f"flash backward {name}: a block needs {smem} B of "
                          f"shared memory, the device allows {limit} B")
     dt = str(q.dtype).split(".")[-1]
     return dev, (_lib.check(q, "q", (b, sq, h, hd), dev, 16, dt),
-                 _lib.check(k, "k", (b, sk, h, hd), dev, 16, dt),
-                 _lib.check(v, "v", (b, sk, h, hd), dev, 16, dt),
+                 _lib.check(k, "k", (b, sk, kv, hd), dev, 16, dt),
+                 _lib.check(v, "v", (b, sk, kv, hd), dev, 16, dt),
                  _lib.check(dout, "dout", (b, sq, h, hd), dev, 16, dt),
                  _lib.check(lse, "lse", (b, h, sq), dev, 4, "float32"),
                  _lib.check(delta, "delta", (b, h, sq), dev, 4, "float32"))
@@ -222,8 +232,9 @@ def _bwd_args(name, q, k, v, dout, lse, delta):
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
                  q_offset: int = 0):
-    """Kernel 7: dq [B, Sq, H, hd] in q's dtype from q, k, v, dout of one
-    dtype (float32 or bfloat16), the forward's lse and ``row_delta``."""
+    """Kernel 7: dq [B, Sq, H, hd] in q's dtype from q, dout [B, Sq, H,
+    hd] and k, v [B, Sk, KV, hd] (KV dividing H) of one dtype (float32 or
+    bfloat16), the forward's lse and ``row_delta``."""
     _check_bwd(q, k, v, dout, lse, delta, q_offset)
     if on_cpu(q):
         return _bwd_plain(q, k, v, dout, lse, delta, causal,
@@ -233,15 +244,17 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
     dq = torch.empty_like(q)
     if dq.numel():
         _lib.launch("flash_bwd_dq", "reach_flash_bwd_dq", dev, *args,
-                    dq.data_ptr(), b, h, sq, k.shape[1], hd,
+                    dq.data_ptr(), b, h, k.shape[2], sq, k.shape[1], hd,
                     int(q.dtype == torch.bfloat16), int(causal), q_offset)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
                   q_offset: int = 0):
-    """Kernel 8: (dk, dv) [B, Sk, H, hd] in k's and v's dtype from q, k,
-    v, dout of one dtype, the forward's lse and ``row_delta``."""
+    """Kernel 8: (dk, dv) [B, Sk, KV, hd] in k's and v's dtype from q,
+    dout [B, Sq, H, hd] and k, v [B, Sk, KV, hd] of one dtype, the
+    forward's lse and ``row_delta``: each the float32 sum over the G query
+    heads of its kv head, rounded once."""
     _check_bwd(q, k, v, dout, lse, delta, q_offset)
     if on_cpu(q):
         _, dk, dv = _bwd_plain(q, k, v, dout, lse, delta, causal, q_offset)
@@ -251,7 +264,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel():
         _lib.launch("flash_bwd_dkv", "reach_flash_bwd_dkv", dev, *args,
-                    dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1], hd,
+                    dk.data_ptr(), dv.data_ptr(), b, h, k.shape[2], sq,
+                    k.shape[1], hd,
                     int(q.dtype == torch.bfloat16), int(causal), q_offset)
     return dk, dv
 
@@ -259,7 +273,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
 def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
               q_offset: int = 0):
     """(dq, dk, dv) of flash attention for the cotangent ``dout``, k and v
-    with H heads: ``flash_bwd_plain`` on the CPU; on a card
+    grouped [B, Sk, KV, hd]: ``flash_bwd_plain`` on the CPU; on a card
     ``row_delta``, then kernels 7 and 8."""
     if on_cpu(q):
         return flash_bwd_plain(q, k, v, out, lse, dout, causal=causal,
@@ -270,20 +284,10 @@ def flash_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
             *flash_bwd_dkv(q, k, v, dout, lse, delta, **kw))
 
 
-def _group_sum(d, kv: int):
-    """dk or dv [B, Sk, H, hd] over expanded heads → [B, Sk, KV, hd]: the
-    sum over each group of G heads, in float32, rounded once."""
-    b, sk, h, hd = d.shape
-    if h == kv:
-        return d
-    return d.float().view(b, sk, kv, h // kv, hd).sum(3).to(d.dtype)
-
-
 class FlashAttention(torch.autograd.Function):
     """out = flash attention of (q, k, v); saves (q, k, v, out, lse) in the
     ``[B, S, H or KV, hd]`` / ``[B, H, Sq]`` layouts, k and v grouped, for
-    the backward (``flash_bwd`` on k and v expanded to H heads, dk and dv
-    summed back over each group)."""
+    the backward (``flash_bwd`` on the grouped k and v)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset):
@@ -295,11 +299,9 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        h, kv = q.shape[2], k.shape[2]
-        dq, dk, dv = flash_bwd(q, expand_kv(k, h), expand_kv(v, h), out, lse,
-                               dout.contiguous(), causal=ctx.causal,
-                               q_offset=ctx.q_offset)
-        return dq, _group_sum(dk, kv), _group_sum(dv, kv), None, None
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, dout.contiguous(),
+                               causal=ctx.causal, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):

@@ -504,12 +504,63 @@ def test_flash_fwd_is_bit_reproducible(dev):
                 assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
 
 
+# (b, sq, sk, h, kv, hd, causal, q_offset) for kernels 7 and 8: G 1 (the
+# forward's sweep, kv = h), then grouped k, v read in place at G 2, 4 and
+# 8, hd 64 and 128, ragged and at an offset
+BWD_SHAPES = ([(b, sq, sk, h, h, hd, c, qo)
+               for b, sq, sk, h, hd, c, qo in FLASH_SHAPES] + GQA_SHAPES
+              + [(1, 200, 260, 8, 1, 128, True, 3),
+                 (1, 257, 257, 8, 2, 64, True, 0),
+                 (2, 96, 160, 8, 2, 128, False, 0),
+                 (1, 64, 300, 16, 2, 64, True, 236)])
+BWD_IDS = ["-".join(map(str, s)) for s in BWD_SHAPES]
+# G 1, 2, 4, 8 at hd 64 and 128 (G 8 at hd 128, G 1 at hd 64 from the
+# sweep)
+BWD_GROUPS = [BWD_SHAPES[i] for i in (0, 1, 8, 9, 10, 11, 13, 14)]
+
+
+def _bwd_close(got, want, dtype, rows=True):
+    """Kernels 7 and 8 against the plain version: float32 at 2e-4 (the
+    reference's tolerance against its oracle); bfloat16 (both round P and
+    dS to bfloat16) at rtol 3e-2 and an atol of 3e-2 times the largest
+    magnitude in each row of head-dim values (one query row of dq, one key
+    of dk or dv) plus 1e-5 of the tensor's largest. Under the causal mask
+    the key gradients fall from the first keys to the last, so a limit
+    taken over the whole tensor would let a fault confined to late key or
+    query tiles pass. The floor covers rows that are 0 in exact arithmetic
+    (query row 0 of a causal call at q_offset 0 sees one key, so dS = P·(dP
+    - delta) cancels): they hold float32 rounding noise, well under the
+    floor (chip_smoke.py prints it). With ``rows`` false, atol is 3e-2 of
+    the tensor's largest magnitude: for gradients whose backward inputs
+    differ (another forward's bf16 out), where a query row of two or
+    three keys turns one bf16 ulp of out into a large share of its dS."""
+    got, want = got.float().cpu(), want.float().cpu()
+    if dtype == torch.float32:
+        _close(got, want, dict(rtol=2e-4, atol=2e-4))
+        return
+    mag = want.abs()
+    if rows:
+        limit = (3e-2 * (mag.amax(dim=-1, keepdim=True) + mag)
+                 + 1e-5 * mag.max())
+    else:
+        limit = 3e-2 * (mag.max() + mag)
+    bad = (got - want).abs() > limit
+    assert not bad.any(), (
+        f"{int(bad.sum())} of {bad.numel()} elements off, the first at "
+        f"{tuple(bad.nonzero()[0].tolist())}")
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_gqa_backward_on_card_matches_cpu(dev, dtype):
-    """The autograd backward with G > 1 (k, v expanded for kernels 7 and
-    8, dk and dv summed over each group) on a card against the CPU's, at
-    the backward's tolerances."""
-    (q, k, v), causal, qo = _gqa(GQA_SHAPES[1], dtype)
+@pytest.mark.parametrize("shape", BWD_GROUPS,
+                         ids=[f"G{s[3] // s[4]}-hd{s[5]}" for s in BWD_GROUPS])
+def test_flash_gqa_backward_on_card_matches_cpu(dev, dtype, shape):
+    """The autograd backward on grouped k, v (kernels 7 and 8 read them in
+    place, kernel 8 sums dk and dv over each group) on a card against the
+    CPU's, at the backward's tolerances; in bf16 relative to each
+    gradient's largest magnitude, since the card's forward rounds out
+    otherwise than the CPU's (test_flash_bwd_matches_plain holds the
+    kernels per row on the same inputs)."""
+    (q, k, v), causal, qo = _gqa(shape, dtype)
     dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3))
     dout = dout.to(dtype)
     card = [t.to(dev).requires_grad_() for t in (q, k, v)]
@@ -521,10 +572,26 @@ def test_flash_gqa_backward_on_card_matches_cpu(dev, dtype):
     flash_attention(*host, causal=causal, q_offset=qo).backward(dout)
     for c, h in zip(card, host):
         assert c.grad.shape == h.grad.shape and c.grad.dtype == dtype
-        rel = 2e-4 if dtype == torch.float32 else 3e-2
-        atol = rel if dtype == torch.float32 else rel * float(
-            h.grad.float().abs().max())
-        _close(c.grad.float(), h.grad.float(), dict(rtol=rel, atol=atol))
+        _bwd_close(c.grad, h.grad, dtype, rows=False)
+
+
+def test_flash_backward_on_card_makes_no_kv_copy(dev, monkeypatch):
+    """On a card the autograd backward hands grouped k, v to kernels 7 and
+    8 as they are: no ``expand_kv`` and no ``repeat_interleave`` copy."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def refuse(*args, **kw):
+        raise AssertionError("the card's backward copied k or v")
+    (q, k, v), causal, qo = _gqa(GQA_SHAPES[1], torch.bfloat16)
+    card = [t.to(dev).requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*card, causal=causal, q_offset=qo)
+    monkeypatch.setattr(fa, "expand_kv", refuse)
+    monkeypatch.setattr(torch.Tensor, "repeat_interleave", refuse)
+    before = dict(_lib.LAUNCHES)
+    out.backward(torch.ones_like(out))
+    assert _lib.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert _lib.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    assert card[1].grad.shape == k.shape and card[2].grad.shape == v.shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -544,22 +611,24 @@ def test_flash_fwd_matches_plain(dev, dtype, shape):
 
 
 def _bwd_inputs(shape, dtype, dev):
-    """(q, k, v, out, lse, dout) on ``dev``, out and lse from kernel 6."""
-    causal, qo = shape[5:]
-    q, k, v = (t.to(dev) for t in _qkv(shape, dtype))
-    g = torch.Generator().manual_seed(sum(shape[:5]))
+    """(q, k, v, out, lse, dout) on ``dev`` for a BWD_SHAPES row, out and
+    lse from kernel 6."""
+    b, sq, sk, h, kv, hd, causal, qo = shape
+    q, k, v = (t.to(dev) for t in _qkv((b, sq, sk, h, hd), dtype, kv=kv))
+    g = torch.Generator().manual_seed(b + sq + sk + h + hd)
     dout = torch.randn(q.shape, generator=g).to(dtype).to(dev)
     out, lse = flash_fwd(q, k, v, causal=causal, q_offset=qo)
     return q, k, v, out, lse, dout
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=BWD_IDS)
 def test_flash_bwd_matches_plain(dev, dtype, shape):
-    """Kernels 7 and 8 against flash_bwd_plain: float32 at 2e-4 (the
-    reference's tolerance against its oracle), bfloat16 at 3e-2 of each
-    gradient's largest magnitude; one launch each."""
-    causal, qo = shape[5:]
+    """Kernels 7 and 8 on k, v [B, Sk, KV, hd] (G 1, 2, 4, 8; hd 64, 128)
+    against flash_bwd_plain: float32 at 2e-4 (the reference's tolerance
+    against its oracle), bfloat16 at 3e-2 of the largest magnitude in each
+    row (``_bwd_close``); one launch each."""
+    causal, qo = shape[6:]
     args = _bwd_inputs(shape, dtype, dev)
     q, k, v, out, lse, dout = args
     delta = row_delta(out, dout)
@@ -574,22 +643,21 @@ def test_flash_bwd_matches_plain(dev, dtype, shape):
                            q_offset=qo)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
-        rel = 2e-4 if dtype == torch.float32 else 3e-2
-        atol = rel if dtype == torch.float32 else rel * float(
-            w.float().abs().max())
-        _close(g.float(), w.float(), dict(rtol=rel, atol=atol))
+        _bwd_close(g, w, dtype)
 
 
 def test_flash_bwd_is_bit_reproducible(dev):
-    """No atomics: a second run gives the same bits."""
-    shape = (2, 256, 300, 4, 64, True, 44)
+    """No atomics and a fixed order of the group's heads: repeat runs give
+    the same bits, at G 1, 2, 4, 8, hd 64 and 128, in both dtypes."""
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, out, lse, dout = _bwd_inputs(shape, dtype, dev)
-        runs = [flash_bwd(q, k, v, out, lse, dout, causal=True, q_offset=44)
-                for _ in range(3)]
-        for again in runs[1:]:
-            for a, b in zip(runs[0], again):
-                assert torch.equal(a, b)
+        for shape in [(2, 256, 300, 4, 4, 64, True, 44)] + BWD_GROUPS:
+            causal, qo = shape[6:]
+            q, k, v, out, lse, dout = _bwd_inputs(shape, dtype, dev)
+            runs = [flash_bwd(q, k, v, out, lse, dout, causal=causal,
+                              q_offset=qo) for _ in range(3)]
+            for again in runs[1:]:
+                for a, b in zip(runs[0], again):
+                    assert torch.equal(a, b)
 
 
 def test_flash_backward_on_card_launches_kernels(dev):
@@ -610,7 +678,7 @@ def test_flash_backward_on_card_launches_kernels(dev):
 
 
 def test_flash_bwd_refuses_bad_operands(dev):
-    q, k, v, out, lse, dout = _bwd_inputs(FLASH_SHAPES[0], torch.float32, dev)
+    q, k, v, out, lse, dout = _bwd_inputs(BWD_SHAPES[0], torch.float32, dev)
     delta = row_delta(out, dout)
     small = [t[..., :32].contiguous() for t in (q, k, v, dout)]
     with pytest.raises(ValueError, match="hd in"):
@@ -624,6 +692,9 @@ def test_flash_bwd_refuses_bad_operands(dev):
     with pytest.raises(ValueError, match="contiguous"):
         flash_bwd_dq(q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
                      dout, lse, delta)
+    three = torch.cat([k, k[:, :, :1]], dim=2)       # 3 kv heads, H = 2
+    with pytest.raises(ValueError, match="GQA"):
+        flash_bwd_dkv(q, three, three, dout, lse, delta)
 
 
 def _to(tree, dev):

@@ -90,9 +90,9 @@ def test_lse_matches_reference_kernel(b, sq, sk, h, hd, causal, qo):
 @pytest.mark.parametrize("h,kv,causal,qo", [(4, 2, True, 0), (6, 2, True, 0),
                                             (6, 3, False, 0), (4, 1, True, 40)])
 def test_chunked_attention_gqa_matches_reference(h, kv, causal, qo):
-    """GQA (G = H / KV of 2 or 3): the port expands k/v with
-    repeat_interleave, the reference's [KV, G] grouping; a plain repeat
-    would pair the wrong heads."""
+    """GQA (G = H / KV of 2 or 3): query head h reads kv head h // G, the
+    reference's [KV, G] grouping; a plain repeat would pair the wrong
+    heads."""
     arrays = _mk(2, 48, 80, h, 64, seed=h + kv, kv=kv)
     (jq, jk, jv), (q, k, v) = _both(arrays, torch.float32)
     want = ref_chunked(jq, jk, jv, causal=causal, q_chunk=16, kv_chunk=32,
@@ -134,9 +134,10 @@ def test_flash_fwd_gqa_matches_reference(h, kv, causal, qo):
 
 @pytest.mark.parametrize("h,kv,causal,qo", GQA_CASES[::2] + GQA_CASES[5:])
 def test_gqa_backward_matches_reference_grad(h, kv, causal, qo):
-    """The CPU autograd backward through the grouped path (the plain
-    backward on k, v expanded, dk and dv summed over each group) against
-    jax.grad of the reference's ``chunked_attention`` on grouped heads."""
+    """The CPU autograd backward through the grouped path
+    (``flash_bwd_plain`` on the grouped k, v, dk and dv summed over each
+    group in float32) against jax.grad of the reference's
+    ``chunked_attention`` on grouped heads."""
     arrays = _mk(1, 40, 72, h, 64, seed=20 * h + kv + qo, kv=kv)
     (jq, jk, jv), (q, k, v) = _both(arrays, torch.float32)
     dout = np.random.default_rng(h + qo).standard_normal(q.shape).astype(
