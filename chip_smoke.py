@@ -42,7 +42,9 @@ training on the card:
   gnn      ``models.gnn.forward_dense`` for gin-tu, gcn-cora,
            graphsage-reddit and gatedgcn at full width on the molecule
            shape (128 graphs × 30 nodes), and gin-tu on a bulk batch of
-           65,536 molecules (kernel 9), held against the CPU run.
+           65,536 molecules (kernel 9, each call's route printed), held
+           against the CPU run; a profile of the bulk forward split into
+           kernel 9, the SGEMMs and the rest.
   lm       llama3-8b at its published widths and full depth (32 layers,
            bf16, random weights) through ``launch.serve.generate``: the
            prefill_32k prompt of 32,768 tokens (batch cut 32 -> 1; kernel
@@ -81,6 +83,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
@@ -175,8 +178,9 @@ KERNELS = {
     "retrieval_score": dict(
         source="src/repro_torch/csrc/retrieval_score.cu",
         replaces="src/repro/kernels/retrieval_score.py:32", phase="recsys"),
+    # the source of kernel 9's route at its largest call (set in main)
     "batched_mp": dict(
-        source="src/repro_torch/csrc/batched_mp.cu",
+        source="src/repro_torch/csrc/batched_mp_mma.cu",
         replaces="src/repro/kernels/batched_mp.py:31", phase="gnn"),
     "flash_fwd": dict(
         source="src/repro_torch/csrc/flash_fwd_wgmma.cu",
@@ -399,14 +403,24 @@ def kernel_parity(dev) -> dict:
     del meta, slab, args
     # kernel 5: the build's working widths, k = w_out as the build calls it
     from repro_torch.kernels import merge_cover as mc
-    for m, w_out, rows in ((9, 2, PARITY_ROWS), (9, 8, PARITY_ROWS),
-                           (513, 8, 1 << 14), (2049, 8, 1 << 12),
-                           (2049, 32, 1 << 12)):
+    # (and rows that are no multiple of a block's 128, begins staged up to
+    # m 32 and not beyond, outputs staged up to w_out 64 and not beyond)
+    for m, k, w_out, rows in ((9, 2, 2, PARITY_ROWS),
+                              (9, 8, 8, PARITY_ROWS), (513, 8, 8, 1 << 14),
+                              (2049, 8, 8, 1 << 12),
+                              (2049, 32, 32, 1 << 12),
+                              (9, 8, 8, PARITY_ROWS + 77),
+                              (32, 8, 8, 100_003), (33, 8, 8, 100_003),
+                              (17, 32, 32, 20_001), (9, 8, 64, 5_000),
+                              (9, 8, 65, 5_000)):
         rows_in = cover_rows(g, rows, m, dev)
+        plan = mc.plan(m, w_out)
         _tally(err, "merge_cover", _compare(
-            f"merge_cover m={m} w_out={w_out}",
-            mc.merge_cover(*rows_in, w_out, w_out),
-            mc.merge_cover_plain(*rows_in, w_out, w_out)))
+            f"merge_cover rows={rows} m={m} k={k} w_out={w_out} (begins "
+            f"{'staged' if plan['stage_cb'] else 'in device memory'}, "
+            f"outputs {'staged' if plan['stage_out'] else 'direct'})",
+            mc.merge_cover(*rows_in, k, w_out),
+            mc.merge_cover_plain(*rows_in, k, w_out)))
     del rows_in
     # kernel 10: the retrieval widths (D 64, I 4, float4 rows), a scalar
     # path (D 30), more interests than one register pass (I 12), one row
@@ -420,22 +434,33 @@ def kernel_parity(dev) -> dict:
             rs.retrieval_score(cands, ints),
             rs.retrieval_score_plain(cands, ints)))
     del cands
-    # kernel 9: the molecule shape at the GNN widths, the bulk-like batch,
-    # F tiles (N 128) and H tiles (N 200); w glorot-scaled as in the models
+    # kernel 9: the molecule shape at the GNN widths, the gnn path's four
+    # (F, H) at the bulk batch, a last group of pipelines short of graphs
+    # (B 1, 3, 127), the tensor-core route's edge (N 64) and the tiled
+    # route beyond it (N 65), F and H no multiple of 8, F tiles (N 128)
+    # and H tiles (N 200); w glorot-scaled as in the models, and eye
     from repro_torch.kernels import batched_mp as bm
     for b, n, f, h in ((4096, 30, 64, 64), (4096, 30, 16, 128),
                        (1024, 30, 128, 128), (4096, 30, 70, 70),
-                       (256, 128, 128, 128), (64, 200, 128, 128)):
+                       (256, 128, 128, 128), (64, 200, 128, 128),
+                       (GNN_BULK_GRAPHS, 30, 16, 16),
+                       (GNN_BULK_GRAPHS, 30, 64, 64),
+                       (GNN_BULK_GRAPHS, 30, 16, 128),
+                       (GNN_BULK_GRAPHS, 30, 128, 128),
+                       (1, 30, 64, 64), (3, 30, 64, 64), (127, 30, 64, 64),
+                       (256, 64, 64, 64), (256, 65, 64, 64)):
         adj = (torch.rand((b, n, n), generator=g, device=dev) < 0.2).float()
         x = torch.randn((b, n, f), generator=g, device=dev)
         w = torch.randn((f, h), generator=g, device=dev) * (2 / (f + h)) ** 0.5
-        _tally(err, "batched_mp", _compare(
-            f"batched_mp B={b} N={n} F={f} H={h}", bm.batched_mp(adj, x, w),
-            bm.batched_mp_plain(adj, x, w)))
+        label = f"batched_mp B={b} N={n} F={f} ({bm.route(n, f, h)} route)"
         eye = torch.eye(f, device=dev)
-        _tally(err, "batched_mp", _compare(
-            f"batched_mp B={b} N={n} F={f} w=eye", bm.batched_mp(adj, x, eye),
-            bm.batched_mp_plain(adj, x, eye)))
+        for what, ww in ((f"H={h}", w), ("w=eye", eye)):
+            first = bm.batched_mp(adj, x, ww)
+            _tally(err, "batched_mp", _compare(
+                f"{label} {what}", first, bm.batched_mp_plain(adj, x, ww)))
+            check(torch.equal(bm.batched_mp(adj, x, ww), first),
+                  f"{label} {what}: a repeat run gave other bits")
+        del adj, x, first
     # kernel 6: out and lse, float32 and bfloat16, k and v grouped; the
     # same bits from a second call
     from repro_torch.kernels import flash_attention as fa
@@ -460,8 +485,8 @@ def kernel_parity(dev) -> dict:
             for name, res in flash_bwd_parity(label, (q, k, v, out, lse, dout,
                                                       causal, qo)).items():
                 _tally(err, name, res)
-    print(f"  flash_fwd: {2 * len(FLASH_SHAPES)} calls gave the same bits on "
-          f"a repeat run", flush=True)
+    print(f"  flash_fwd: {2 * len(FLASH_SHAPES)} calls and batched_mp: 30 "
+          f"calls gave the same bits on a repeat run", flush=True)
     return err
 
 
@@ -595,6 +620,10 @@ class Recorder:
             size = (args[0].numel() + args[1].numel()
                     if name == "batched_mp" else rows)
             if args[0].is_cuda:
+                if name == "batched_mp":
+                    shape = tuple(args[1].shape) + (args[2].shape[1],)
+                    self.mp_shapes[shape] += 1
+                    self.mp_calls.setdefault(shape, (rows, args))
                 if size > self.sizes.get(name, (0, 0))[1]:
                     self.calls[name] = (rows, args)
                 if size < self.sizes.get(name, (size + 1, 0))[0]:
@@ -608,6 +637,9 @@ class Recorder:
         self.calls = {}
         self.small = {}
         self.sizes = {}
+        # kernel 9: calls of each (B, N, F, H), and the first one's inputs
+        self.mp_shapes = collections.Counter()
+        self.mp_calls = {}
 
     def close(self):
         for (mod, name), fn in self._orig.items():
@@ -801,6 +833,10 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
                           "operations", bytes=nbytes, ops=ops, err=err)
         lib = ("" if library is None else
                f", library {library_ms:.4f} ms ({library})")
+        if name == "batched_mp":
+            (_, n, f), h = args[1].shape, args[2].shape[1]
+            out[label]["route"] = bm.route(n, f, h)
+            lib += f"; {out[label]['route']} route"
         shapes = " x ".join(str(tuple(a.shape)) for a in args
                             if hasattr(a, "shape"))
         print(f"  time {label}: {rows} rows ({shapes}), kernel {ms:.4f} ms "
@@ -1330,13 +1366,18 @@ def gnn_phase(dev, rec, seed: int):
         check(bool(torch.isfinite(logits[(arch, b)]).all()),
               f"gnn {arch}: non-finite logits")
     counts = read_counters()
-    calls = {"largest": dict(rec.calls), "smallest": dict(rec.small)}
+    calls = {"largest": dict(rec.calls), "smallest": dict(rec.small),
+             "mp_shapes": dict(rec.mp_calls)}
     want_launches = sum(models[a][0].n_layers for a, _ in runs
                         if models[a][0].conv != "gatedgcn")
     print(f"  counts: {counts} (layers through kernel 9: {want_launches})",
           flush=True)
     check(counts["batched_mp"] == want_launches,
           "gnn: kernel 9 launches differ from the gin/gcn/sage layers")
+    from repro_torch.kernels import batched_mp as bm
+    for (b, n, f, h), times in sorted(rec.mp_shapes.items()):
+        print(f"  kernel-9 call B={b} N={n} F={f} H={h} x{times}: "
+              f"{bm.route(n, f, h)} route", flush=True)
 
     for (arch, b), out in logits.items():
         cfg, params = models[arch]
@@ -1348,9 +1389,19 @@ def gnn_phase(dev, rec, seed: int):
                                  torch.from_numpy(feats[idx]))
         _hold(f"{arch} logits, {idx.size} of {b} graphs",
               out[torch.from_numpy(idx).to(dev)].cpu(), want)
-    profile_window(lambda: gnn.forward_dense(*models["gin-tu"],
-                                             *on_card[GNN_BULK_GRAPHS]),
-                   f"gnn gin-tu forward on {GNN_BULK_GRAPHS} graphs")
+    rows = profile_window(lambda: gnn.forward_dense(
+        *models["gin-tu"], *on_card[GNN_BULK_GRAPHS]),
+        f"gnn gin-tu forward on {GNN_BULK_GRAPHS} graphs")
+    parts = {"kernel 9": 0.0, "SGEMMs": 0.0, "rest": 0.0}
+    for us, _, key in rows:
+        low = key.lower()
+        parts["kernel 9" if "batched_mp" in low else "SGEMMs"
+              if any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass"))
+              else "rest"] += us / 1e3
+    total = sum(parts.values())
+    print("  split gnn gin-tu bulk forward: " + ", ".join(
+        f"{k} {v:.3f} ms ({v / total:.1%})" for k, v in parts.items()),
+        flush=True)
     return counts, calls
 
 
@@ -2010,10 +2061,15 @@ def main() -> int:
                 "merge_cover": wf_call,
                 "retrieval_score": rs_calls["retrieval_score"],
                 "batched_mp": gnn_calls["largest"]["batched_mp"]}
-    # kernel 9 also at its smallest call: a molecule-batch layer
+    # kernel 9 also at its smallest call, and at every other shape the gnn
+    # phase called it with
+    largest = recorded["batched_mp"][1]
+    smallest = gnn_calls["smallest"]["batched_mp"]
     times = time_kernels(recorded, extra=(
-        ("batched_mp", "batched_mp (smallest call)",
-         gnn_calls["smallest"]["batched_mp"]),))
+        ("batched_mp", "batched_mp (smallest call)", smallest),
+        *(("batched_mp", f"batched_mp (B={b} N={n} F={f} H={h})", call)
+          for (b, n, f, h), call in sorted(gnn_calls["mp_shapes"].items())
+          if call[1] is not largest and call[1] is not smallest[1])))
     times["flash_fwd"] = lm_time          # timed in the lm phase
     train_fwd = train_time.pop("flash_fwd")
     a, b = lm_time["err"], train_fwd["err"]   # both held against plain
@@ -2024,6 +2080,8 @@ def main() -> int:
         train_time[kname]["err"] = (max(a[0], b[0]), a[1] + b[1],
                                     max(a[2], b[2]))
     times.update(train_time)              # kernels 7 and 8: the train phase
+    if times["batched_mp"]["route"] == "tiled":
+        KERNELS["batched_mp"]["source"] = "src/repro_torch/csrc/batched_mp.cu"
     rows = []
     for kname, meta in KERNELS.items():
         t = times[kname]

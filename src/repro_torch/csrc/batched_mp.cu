@@ -1,10 +1,13 @@
-// Batched dense message passing (kernel 9).
+// Batched dense message passing (kernel 9, the route for larger graphs).
 //
 // Replaces the Pallas kernel
 //   src/repro/kernels/batched_mp.py::batched_mp
 //   (body _mp_kernel): out[b] = (adj[b] @ x[b]) @ w for adj [B, N, N],
 //   x [B, N, F], w [F, H], float32, out [B, N, H] float32. The GNN's
-//   dense-batch (molecule) forward calls it once per layer.
+//   dense-batch (molecule) forward calls it once per layer; its graphs
+//   (N <= 64, F, H <= 128) take the tensor-core kernel in
+//   batched_mp_mma.cu, and this one takes every other shape
+//   (kernels/batched_mp.py::route).
 //
 // Bound on an H100: each graph does 2·N·N·F + 2·N·F·H flops on
 // 4·(N·N + N·F + N·H) bytes (w is shared by all graphs). At the molecule
@@ -37,8 +40,8 @@
 // covers every graph whose whole adj fits a block; beyond, one running
 // sum over all N would round more than the plain einsum's blocked sums.
 // Each FMA reads two shared-memory words, so the kernel is bound by
-// shared-memory bandwidth well before the FP32 peak; register tiles or
-// tensor cores are later work.
+// shared-memory bandwidth well before the FP32 peak (on an H100, 3.3 ms
+// at the molecule bulk call against 0.61 ms for batched_mp_mma.cu).
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -24,9 +24,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("interval_stab.cu", "frontier.cu", "merge_cover.cu",
-           "retrieval_score.cu", "batched_mp.cu", "flash_attention.cu",
-           "flash_fwd_wgmma.cu", "flash_attention_bwd.cu",
-           "flash_bwd_wgmma.cu")
+           "retrieval_score.cu", "batched_mp.cu", "batched_mp_mma.cu",
+           "flash_attention.cu", "flash_fwd_wgmma.cu",
+           "flash_attention_bwd.cu", "flash_bwd_wgmma.cu")
 HEADERS = ("verdict.cuh", "flash_tiles.cuh", "flash_mma.cuh",
            "flash_bwd_args.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,9 +41,10 @@ SIGNATURES = {
     "reach_stab_naive": [_P] * 11 + [_I64, _I32, _I32, _P],
     "reach_probe": [_P] * 6 + [_I64, _I64, _I32, _P],
     "reach_classify_emit": [_P] * 7 + [_I64, _I32, _P],
-    "reach_merge_cover": [_P] * 7 + [_I64, _I32, _I32, _I32, _P],
+    "reach_merge_cover": [_P] * 7 + [_I64] + [_I32] * 5 + [_P],
     "reach_retrieval_score": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
     "reach_batched_mp": [_P] * 4 + [_I64] + [_I32] * 6 + [_P],
+    "reach_batched_mp_mma": [_P] * 4 + [_I64] + [_I32] * 5 + [_P],
     "reach_flash_fwd": [_P] * 5 + [_I32] * 8 + [_I64, _P],
     "reach_flash_bwd_dq": [_P] * 7 + [_I32] * 8 + [_I64, _P],
     "reach_flash_bwd_dkv": [_P] * 8 + [_I32] * 8 + [_I64, _P],

@@ -4,21 +4,29 @@
 ``w [F, H]`` float32 → ``[B, N, H]`` float32: the aggregation of the GNN's
 dense-batch (molecule) forward, once per layer.
 
-  batched_mp — kernel 9 (``csrc/batched_mp.cu``): one block per (graph,
-               row tile of adj, H tile), its rows of adj, an F tile of x,
-               its agg tile and the matching rows of w in shared memory,
-               true float32 FMAs. Replaces the reference's ``batched_mp``.
+  batched_mp — kernel 9, two routes chosen by shape alone (``route``).
+               Replaces the reference's ``batched_mp``.
+      "mma"    (``csrc/batched_mp_mma.cu``) for N <= 64, F <= 128, H <=
+               128, the molecule regime: a persistent grid whose pairs
+               of warps each walk graphs through a cp.async ring beside
+               w, which stays in shared memory; both products on the
+               tensor cores (mma.sync TF32, each operand split in two:
+               3xTF32, float32 accuracy). ``mma_plan`` sizes it.
+      "tiled"  (``csrc/batched_mp.cu``) for every larger graph: one
+               block per (graph, row tile of adj, H tile), its rows of
+               adj, an F tile of x, its agg tile and the matching rows of
+               w in shared memory, true float32 FMAs.
   batched_mp_plain — ``ref.batched_mp_ref``: two einsums.
 
 A block has at most 227 KB of shared memory (the TPU kernel holds a whole
-graph in its 16 MiB of VMEM), so ``tiles`` picks the row, F and H tile
-widths that fit: the whole adj (RT = N) wherever it fits, as for the
-molecule shape, and row tiles of adj beyond that (N 240 and up). Past
-about N 6,400 the only tiles that fit take more than the grid's 65,535
-blocks per graph (at F = H = 64 the largest N is 6,448), and from N
-29,055 none fit at all: such a graph raises ``ValueError``. On a CPU
-tensor the wrapper runs the plain version; on a CUDA tensor it launches
-the kernel or raises. The kernel sums in another order than the plain
+graph in its 16 MiB of VMEM), so ``tiles`` picks the tiled route's row, F
+and H tile widths that fit: the whole adj (RT = N) wherever it fits, and
+row tiles of adj beyond that (N 240 and up). Past about N 6,400 the only
+tiles that fit take more than the grid's 65,535 blocks per graph (at F =
+H = 64 the largest N is 6,448), and from N 29,055 none fit at all: such a
+graph raises ``ValueError``. On a CPU tensor the wrapper runs the plain
+version; on a CUDA tensor it launches one kernel or raises: no route
+gives way to the other. Both routes sum in another order than the plain
 version: they agree within float32 rounding, not bit for bit.
 """
 from __future__ import annotations
@@ -30,6 +38,10 @@ from .interval_stab import on_cpu
 
 batched_mp_plain = ref.batched_mp_ref
 MAX_TILES = 65535        # blocks per graph: the row × H tiles on grid.y
+H100_SMEM = 232_448      # shared memory a block may opt in to on an H100
+MMA_MAX_N = 64           # the tensor-core route's bounds
+MMA_MAX_FH = 128
+MMA_MAX_PAIRS = 8        # its pipelines (pairs of warps) a block
 
 
 def smem_bytes(n: int, rt: int, ft: int, ht: int) -> int:
@@ -82,6 +94,53 @@ def tiles(n: int, f: int, h: int, limit: int):
     return rt, ft, ht
 
 
+def _up(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def mma_plan(n: int, f: int, h: int, limit: int = H100_SMEM) -> dict:
+    """The tensor-core route's block, as ``csrc/batched_mp_mma.cu`` lays
+    it out: w split into float4s [4·KF, H8·HC + 2] once (F padded to
+    8·KF: KF 2 up to F 16, 8 up to 64, 16 beyond; H to chunks of 8·HC
+    columns: HC 2 up to H 16, else 4), and for each pipeline (a pair of
+    warps) a ring of ``stages`` stages, each adj [N16, N8 + 4] and x
+    [N8, 8·KF + 8] (row strides that keep fragment loads free of bank
+    conflicts). ``pairs``: as many pipelines as one stage each lets fit
+    in ``limit`` bytes, at most 8 (4 at KF 16; 0 where not even one
+    fits); then two stages where those pipelines' fit. On an H100 more
+    pipelines beat a second stage at the bulk call (F = H = 64: 8 of one
+    stage against 7 of two), and a second stage helps where both fit (F
+    = H = 16)."""
+    kf = 2 if f <= 16 else 8 if f <= 64 else 16
+    hc = 2 if h <= 16 else 4
+    kn = _up(n, 8)
+    sa, sx = kn + 4, 8 * kf + 8
+    stage = 4 * (_up(n, 16) * sa + kn * sx)
+    w_bytes = 16 * 4 * kf * (_up(h, 8 * hc) + 2)
+    most = MMA_MAX_PAIRS // 2 if kf > 8 else MMA_MAX_PAIRS
+    pairs = max(0, min(most, (limit - w_bytes) // stage))
+    stages = 2 if w_bytes + 2 * pairs * stage <= limit else 1
+    return dict(pairs=pairs, stages=stages, kf=kf, hc=hc, sa=sa, sx=sx,
+                stage_bytes=stage, w_bytes=w_bytes,
+                smem=w_bytes + pairs * stages * stage)
+
+
+def route(n: int, f: int, h: int, limit: int = H100_SMEM) -> str:
+    """Kernel 9's route for graphs of N nodes, F features in and H out,
+    from the shape alone: "mma" within N <= 64, F, H <= 128 (where
+    ``mma_plan`` fits at least one pipeline in ``limit`` bytes), else
+    "tiled". Raises ``ValueError`` where the tiled route refuses the
+    graph (``tiles``)."""
+    if min(n, f, h) < 1:
+        raise ValueError(f"batched_mp takes N, F, H >= 1, got N={n}, "
+                         f"F={f}, H={h}")
+    if (n <= MMA_MAX_N and max(f, h) <= MMA_MAX_FH
+            and mma_plan(n, f, h, limit)["pairs"] >= 1):
+        return "mma"
+    tiles(n, f, h, limit)
+    return "tiled"
+
+
 def batched_mp(adj, x, w):
     """Kernel 9: (adj @ x) @ w, [B, N, H] float32, for adj [B, N, N],
     x [B, N, F] and w [F, H] float32."""
@@ -90,15 +149,20 @@ def batched_mp(adj, x, w):
     b, n, _ = adj.shape
     f, h = w.shape
     dev = adj.device
-    if min(n, f, h) < 1:
-        raise ValueError(f"batched_mp takes N, F, H >= 1, got adj "
-                         f"{tuple(adj.shape)}, w {tuple(w.shape)}")
-    rt, ft, ht = tiles(n, f, h, _lib.max_smem(dev))
+    limit = _lib.max_smem(dev)
+    kind = route(n, f, h, limit)
     args = (_lib.check(adj, "adj", (b, n, n), dev, dtype="float32"),
             _lib.check(x, "x", (b, n, f), dev, dtype="float32"),
             _lib.check(w, "w", (f, h), dev, dtype="float32"))
     out = torch.empty((b, n, h), dtype=torch.float32, device=dev)
-    if b:
+    if not b:
+        return out
+    if kind == "mma":
+        plan = mma_plan(n, f, h, limit)
+        _lib.launch("batched_mp", "reach_batched_mp_mma", dev, *args,
+                    out.data_ptr(), b, n, f, h, plan["pairs"],
+                    plan["stages"])
+    else:
         _lib.launch("batched_mp", "reach_batched_mp", dev, *args,
-                    out.data_ptr(), b, n, f, h, rt, ft, ht)
+                    out.data_ptr(), b, n, f, h, *tiles(n, f, h, limit))
     return out

@@ -10,8 +10,11 @@ interval, exact only if the group is one exact run. Output ``nb, ne, nx
 -1 / 0) and ``cnt [B] = min(runs, k)``. This is the per-wave compute of
 the device index build (``core.build``).
 
-  merge_cover — kernel 5 (``csrc/merge_cover.cu``), one thread per row.
-                Replaces the reference's ``merge_cover_sorted_rows``.
+  merge_cover — kernel 5 (``csrc/merge_cover.cu``), one thread per row,
+                128 rows a block, their output slabs staged in shared
+                memory and written with 16-byte stores, and narrow rows'
+                begins staged with 16-byte loads (``plan``). Replaces the
+                reference's ``merge_cover_sorted_rows``.
   merge_cover_plain — the reference's own math written out over rows:
                 the ``_merge_sorted_row`` recurrence as a loop over the
                 slots, vectorised across rows, then ``_topgap_cover_row``
@@ -29,6 +32,9 @@ from .interval_stab import on_cpu
 
 INVALID = 2**31 - 1
 MAX_K = 33                     # the kernel keeps at most 32 gaps per row
+ROWS_PER_BLOCK = 128           # the kernel's rows (threads) a block
+MAX_STAGED_M = 32              # begins staged in shared memory up to this m
+MAX_STAGED_W_OUT = 64          # outputs staged up to this w_out
 
 
 def _merge_rows_plain(cb, ce, cx):
@@ -117,6 +123,20 @@ def merge_cover_plain(cb, ce, cx, k: int, w_out: int):
             torch.clamp(runs, max=k).to(torch.int32))
 
 
+def plan(m: int, w_out: int) -> dict:
+    """Kernel 5's staging for rows of m slots and w_out outputs, from the
+    shape alone: where m <= 32 (the build's largest call has m 9; wider
+    rows walk device memory), a block's 128 begin rows ``[128, m | 1]``
+    in shared memory, and where w_out <= 64 its three output slabs
+    ``3 x [128, w_out | 1]``. Odd row strides keep the per-row walk free
+    of bank conflicts. ``smem``: the block's bytes."""
+    stage_cb, stage_out = m <= MAX_STAGED_M, w_out <= MAX_STAGED_W_OUT
+    words = ((m | 1) if stage_cb else 0) + (3 * (w_out | 1)
+                                            if stage_out else 0)
+    return dict(rows=ROWS_PER_BLOCK, stage_cb=stage_cb, stage_out=stage_out,
+                smem=4 * ROWS_PER_BLOCK * words)
+
+
 def merge_cover(cb, ce, cx, k: int, w_out: int):
     """Kernel 5: (nb, ne, nx [B, w_out], cnt [B]) int32 of the begin-sorted
     rows cb, ce, cx [B, m] int32, covered to at most k intervals."""
@@ -135,7 +155,9 @@ def merge_cover(cb, ce, cx, k: int, w_out: int):
     nx = torch.empty_like(nb)
     cnt = torch.empty(rows, dtype=torch.int32, device=dev)
     if rows:
+        p = plan(m, w_out)
         _lib.launch("merge_cover", "reach_merge_cover", dev, *args,
                     nb.data_ptr(), ne.data_ptr(), nx.data_ptr(),
-                    cnt.data_ptr(), rows, m, k, w_out)
+                    cnt.data_ptr(), rows, m, k, w_out, int(p["stage_cb"]),
+                    int(p["stage_out"]))
     return nb, ne, nx, cnt

@@ -249,9 +249,15 @@ def _cover_rows(rng, rows, m, spread):
 @pytest.mark.parametrize("m,k,w_out", [(1, 1, 1), (9, 2, 2), (9, 8, 8),
                                        (65, 8, 8), (513, 8, 8),
                                        (2049, 32, 32), (65, 12, 8),
-                                       (33, 3, 32)])
+                                       (33, 3, 32),
+                                       # begins staged up to m 32, outputs
+                                       # up to w_out 64: each limit and one
+                                       # past it
+                                       (32, 8, 8), (33, 8, 8), (9, 8, 64),
+                                       (9, 8, 65)])
 def test_merge_cover_matches_plain(dev, m, k, w_out):
     rng = np.random.default_rng(m + k)
+    # no multiple of a block's 128 rows: the last block is short
     rows = 20_000 if m < 100 else 600
     args = _cover_rows(rng, rows, m, spread=8 * m)
     before = _lib.LAUNCHES["merge_cover"]
@@ -342,7 +348,11 @@ def test_retrieval_score_edges(dev):
     (2, 200, 128, 128),
     # adj too large for one block: row tiles of adj
     (2, 240, 64, 64), (2, 256, 64, 64), (2, 384, 64, 64), (2, 512, 64, 64),
-    (2, 1024, 64, 64)])
+    (2, 1024, 64, 64),
+    # the tensor-core route: pipelines short of graphs (B 1, 3, 127), its
+    # edge (N 64) and the tiled route just past it (N 65)
+    (1, 30, 64, 64), (3, 30, 64, 64), (127, 30, 64, 64), (4, 64, 64, 64),
+    (4, 65, 64, 64)])
 def test_batched_mp_matches_plain(dev, b, n, f, h):
     rng = np.random.default_rng(b + n + f + h)
     adj = (rng.random((b, n, n)) < 0.2).astype(np.float32)
@@ -374,6 +384,38 @@ def _mp_close(got, args):
     err = float((got.cpu().double() - exact).abs().max())
     plain_err = float((want.double() - exact).abs().max())
     assert err <= 2 * plain_err, (err, plain_err)
+
+
+def test_batched_mp_is_bit_reproducible(dev):
+    """Two calls at the gnn path's bulk shape give the same bits: every
+    output is summed in a fixed order, without atomics."""
+    rng = np.random.default_rng(11)
+    b, n, f = 65_536, 30, 64
+    adj = torch.from_numpy((rng.random((b, n, n)) < 0.2).astype(
+        np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal((b, n, f)).astype(
+        np.float32)).to(dev)
+    for w in (torch.eye(f, device=dev), torch.randn((f, f), device=dev)):
+        first = batched_mp(adj, x, w)
+        assert torch.equal(batched_mp(adj, x, w), first)
+
+
+def test_batched_mp_counts_one_launch_per_call_on_each_route(dev):
+    """One count per call whatever the route: N 30 on the tensor cores,
+    N 65 on the row-tiled kernel."""
+    from repro_torch.kernels.batched_mp import route
+    for n, want in ((30, "mma"), (65, "tiled")):
+        assert route(n, 64, 64) == want
+        adj = torch.ones((5, n, n), device=dev)
+        x = torch.ones((5, n, 64), device=dev)
+        before = dict(_lib.LAUNCHES)
+        out = batched_mp(adj, x, torch.eye(64, device=dev))
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["batched_mp"] == before["batched_mp"] + 1
+        assert {k: v for k, v in _lib.LAUNCHES.items()
+                if k != "batched_mp"} == {k: v for k, v in before.items()
+                                          if k != "batched_mp"}
+        assert bool((out == n).all())
 
 
 def test_batched_mp_refuses_a_graph_too_large(dev):

@@ -25,7 +25,8 @@ from repro.models import gnn as ref_gnn
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.kernels import _lib, ops
 from repro_torch.kernels.batched_mp import (batched_mp, batched_mp_plain,
-                                            smem_bytes, tiles)
+                                            mma_plan, route, smem_bytes,
+                                            tiles)
 from repro_torch.models import gnn
 from repro_torch.models.convert import params_from_arrays
 
@@ -106,6 +107,73 @@ def test_tiles_refuse_more_blocks_than_the_grid_holds(n):
     more blocks a graph than grid.y's 65,535."""
     with pytest.raises(ValueError, match="65535"):
         tiles(n, 64, 64, H100_SMEM)
+
+
+# the (F, H) of every kernel-9 call on the gnn path: d_feat 16 into gin's
+# 64-wide layers (w = eye), gcn's 16, sage's 16 -> 128 -> 128
+GNN_CALLS = [(30, 16, 16), (30, 64, 64), (30, 16, 128), (30, 128, 128)]
+
+
+@pytest.mark.parametrize("n,f,h", GNN_CALLS)
+def test_route_takes_the_tensor_cores_on_every_gnn_call(n, f, h):
+    assert route(n, f, h, H100_SMEM) == "mma"
+    assert route(n, f, h) == "mma"            # the H100's limit by default
+
+
+@pytest.mark.parametrize("n,f,h,want", [
+    (64, 64, 64, "mma"), (64, 128, 128, "mma"), (1, 1, 1, "mma"),
+    (17, 9, 3, "mma"), (30, 70, 70, "mma"),
+    (65, 64, 64, "tiled"), (30, 129, 64, "tiled"), (30, 64, 129, "tiled"),
+    (240, 64, 64, "tiled"), (1024, 64, 64, "tiled"), (6448, 64, 64, "tiled"),
+])
+def test_route_by_shape(n, f, h, want):
+    assert route(n, f, h) == want
+
+
+@pytest.mark.parametrize("n,f,h", [(6449, 64, 64), (30_000, 16, 16),
+                                   (0, 16, 16), (30, 0, 16)])
+def test_route_refuses_what_no_route_takes(n, f, h):
+    with pytest.raises(ValueError):
+        route(n, f, h)
+
+
+@pytest.mark.parametrize("n", [1, 8, 16, 17, 30, 32, 33, 40, 48, 64])
+@pytest.mark.parametrize("f,h", [(1, 1), (16, 16), (64, 64), (16, 128),
+                                 (70, 70), (128, 128), (128, 16)])
+def test_mma_plan_fits_the_cards_shared_memory(n, f, h):
+    """Every shape within the tensor-core route's bounds, its largest
+    (N 64, F = H = 128) included, gets at least one pipeline in 227 KB."""
+    plan = mma_plan(n, f, h, H100_SMEM)
+    assert plan["pairs"] >= 1 and plan["smem"] <= H100_SMEM
+    assert plan["pairs"] <= (4 if plan["kf"] == 16 else 8)
+    assert plan["kf"] * 8 >= f and plan["stages"] in (1, 2)
+    if plan["stages"] == 1:
+        assert plan["w_bytes"] + 2 * plan["pairs"] * plan["stage_bytes"] \
+            > H100_SMEM
+
+
+@pytest.mark.parametrize("n", [8, 16, 24, 30, 32, 40, 48, 64])
+@pytest.mark.parametrize("f", [16, 30, 64, 70, 128])
+def test_mma_layout_keeps_banks_apart(n, f):
+    """The kernel's fragment loads on the plan's row strides: the 32
+    lanes of a load hit 32 different banks (adj's A fragment: row g,
+    column 8·ks + t; x's B fragment: row 8·ks + t, column 8·j + g), and
+    each quarter-warp's 16-byte loads of the split w 8 different
+    four-bank groups (float4 row 4·ks + t, column 8·j + g)."""
+    plan = mma_plan(n, f, 64)
+    kn, sa, sx = -(-n // 8) * 8, plan["sa"], plan["sx"]
+    sw4 = -(-64 // (8 * plan["hc"])) * 8 * plan["hc"] + 2
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    for ks in range(kn // 8):
+        for extra in (0, 4):
+            assert len(set((g * sa + 8 * ks + t + extra) % 32)) == 32
+        for j in range(plan["kf"]):
+            assert len(set(((8 * ks + t) * sx + 8 * j + g) % 32)) == 32
+    for ks in range(plan["kf"]):
+        for quarter in range(4):
+            lanes = slice(8 * quarter, 8 * quarter + 8)
+            groups = ((4 * ks + t[lanes]) * sw4 + 8 + g[lanes]) % 8
+            assert len(set(groups)) == 8
 
 
 def _dense_batch(rng, shp, b):

@@ -24,8 +24,9 @@ from repro.core.build.merge_kernels import \
 from repro_torch.core.build.merge_kernels import (gather_sorted,
                                                   merge_cover_rows)
 from repro_torch.kernels import _lib
-from repro_torch.kernels.merge_cover import (INVALID, merge_cover,
-                                             merge_cover_plain)
+from repro_torch.kernels.merge_cover import (INVALID, MAX_STAGED_M,
+                                             MAX_STAGED_W_OUT, merge_cover,
+                                             merge_cover_plain, plan)
 
 
 def _t(a):
@@ -181,3 +182,26 @@ def test_plain_matches_reference_rows(m, w_out, k):
         merge_cover_plain(_t(cb), _t(ce), _t(cx), k, w_out)[0].numpy(),
         got[0].numpy())
     assert got[0].shape == (b_rows, w_out)
+
+
+H100_SMEM = 232_448
+
+
+# the card test's (m, k, w_out), then the staging limits and one past each
+@pytest.mark.parametrize("m,k,w_out", [
+    (1, 1, 1), (9, 2, 2), (9, 8, 8), (65, 8, 8), (513, 8, 8),
+    (2049, 32, 32), (65, 12, 8), (33, 3, 32), (32, 8, 8), (33, 8, 8),
+    (9, 8, 64), (9, 8, 65), (32, 33, 64), (2049, 33, 1000)])
+def test_kernel_staging_plan_fits_shared_memory(m, k, w_out):
+    """Kernel 5 stages a block's 128 begin rows up to m 32 and its output
+    slabs up to w_out 64, in rows of odd stride; whatever it stages fits
+    a block's 227 KB."""
+    p = plan(m, w_out)
+    assert p["rows"] == 128
+    assert p["stage_cb"] == (m <= MAX_STAGED_M == 32)
+    assert p["stage_out"] == (w_out <= MAX_STAGED_W_OUT == 64)
+    want = 128 * 4 * (((m | 1) if p["stage_cb"] else 0)
+                      + (3 * (w_out | 1) if p["stage_out"] else 0))
+    assert p["smem"] == want <= H100_SMEM
+    # the largest plan there is: both at their limits
+    assert plan(MAX_STAGED_M, MAX_STAGED_W_OUT)["smem"] <= H100_SMEM
