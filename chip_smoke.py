@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--stab]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version (the integer kernels bit for bit,
@@ -72,9 +72,17 @@ training on the card:
 
 Every phase sets the launch counters to 0 just before it is driven and
 reads them just after; the reachability phases hold their answers against
-the host guided DFS (``core.query.QueryEngine``), the model phases against
-the CPU (rtol 1e-4, atol 1e-5 times the output's largest magnitude, at
-least 1). Any mismatch or exception exits non-zero.
+the host guided DFS (``core.query.QueryEngine``), and kernels 1 and 2
+against their plain versions on each phase's largest and smallest calls;
+the model phases against the CPU (rtol 1e-4, atol 1e-5 times the output's
+largest magnitude, at least 1). Any mismatch or exception exits non-zero.
+The main phase also splits one micro-batch of ``QuerySession.query`` by
+part on host clocks. Each kernel is timed at its path's largest call;
+kernels 1 and 2 also at the 2^20-query parity call (K 8) and kernel 1 at
+the dense phase's largest call, and kernels 1, 2 and 4 beside their launch
+floor (``zero_()`` of an output as large, timed the same way).
+``--stab`` only holds and times kernels 1 and 2 on the parity tables (a
+short call to compare two versions of them) and prints no result line.
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -350,18 +358,12 @@ def _tally(total: dict, name: str, result) -> None:
                    max(total[name][2], rel))
 
 
-def kernel_parity(dev) -> dict:
-    """Each kernel against its plain version on random inputs (≥ 2^20
-    rows where a row is small): {name: (max_abs_err, mismatches,
-    max_rel_err)}."""
-    import torch
-
-    from repro_torch.kernels import frontier_fused as ff
+def stab_parity(g, dev, err: dict, keep=(8,)) -> dict:
+    """Kernels 1 and 2 against their plain versions at 2^20 queries over
+    2^22 rows, K 1, 8 and 32 (W 2), tallied into ``err``. Returns the
+    calls at each K of ``keep``, {(name, K): (rows, args)}, for timing."""
     from repro_torch.kernels import interval_stab as st
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    err = {name: (0, 0, 0.0) for name in KERNELS}
-    n = 1 << 22
+    n, kept = 1 << 22, {}
     for k in (1, 8, 32):
         meta, slab = packed_tables(g, n, k, dev)
         cs, ct = query_pairs(g, n, PARITY_ROWS, dev)
@@ -376,7 +378,24 @@ def kernel_parity(dev) -> dict:
         _tally(err, "stab_naive", _compare(
             f"stab_naive K={k} W=2", st.stab_naive(*tables, cs, ct),
             st.stab_naive_plain(*tables, cs, ct)))
+        if k in keep:
+            kept[("stab_packed", k)] = (PARITY_ROWS, (meta, slab, cs, ct))
+            kept[("stab_naive", k)] = (PARITY_ROWS, (*tables, cs, ct))
         del meta, slab, tables
+    return kept
+
+
+def kernel_parity(dev):
+    """Each kernel against its plain version on random inputs (≥ 2^20
+    rows where a row is small): {name: (max_abs_err, mismatches,
+    max_rel_err)}, and kernels 1 and 2's K 8 calls (``stab_parity``)."""
+    import torch
+
+    from repro_torch.kernels import frontier_fused as ff
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    err = {name: (0, 0, 0.0) for name in KERNELS}
+    stab_calls = stab_parity(g, dev, err)
     # kernel 3: 2^20 candidates of 256 queries over a 2^20-node bitset
     q, nn, c = 256, 1 << 20, PARITY_ROWS
     i32 = dict(device=dev, dtype=torch.int32)
@@ -487,7 +506,7 @@ def kernel_parity(dev) -> dict:
                 _tally(err, name, res)
     print(f"  flash_fwd: {2 * len(FLASH_SHAPES)} calls and batched_mp: 30 "
           f"calls gave the same bits on a repeat run", flush=True)
-    return err
+    return err, stab_calls
 
 
 # the largest |kernel - plain| of kernels 7 and 8 in bfloat16 as a share of
@@ -791,10 +810,25 @@ LIBRARY_PAIRS = {
 }
 
 
+# kernels timed beside their launch floor: the verdict kernels, whose
+# path's calls move well under a microsecond of bytes
+FLOOR_KERNELS = ("stab_packed", "stab_naive", "classify_emit")
+
+
+def launch_floor(rows: int) -> tuple:
+    """(L2-cold ms, L2-warm ms) of ``zero_()`` on an int32 output of
+    ``rows``, through ``device_ms`` as a kernel is timed: what one launch
+    between the event pair costs under that protocol, whatever it does."""
+    import torch
+    out = torch.empty(rows, dtype=torch.int32, device="cuda")
+    return (device_ms(out.zero_), device_ms(out.zero_, cold=False))
+
+
 def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
     """Times each kernel at ``recorded[name]`` (the path's largest call),
     and at each ``(name, label, call)`` of ``extra``, which is printed and
-    returned under ``label``."""
+    returned under ``label``. Kernels 1, 2 and 4 also get their launch
+    floor (``launch_floor``) on an output of the call's rows."""
     from repro_torch.kernels import batched_mp as bm
     from repro_torch.kernels import frontier_fused as ff
     from repro_torch.kernels import interval_stab as st
@@ -826,7 +860,8 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
         nbytes, ops = work_of(name, args)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / ALU_OPS_PER_S * 1e3
-        out[label] = dict(rows=rows, ms=ms, plain_ms=plain_ms,
+        out[label] = dict(rows=rows, ms=ms, warm_ms=warm_ms,
+                          plain_ms=plain_ms,
                           library=library, library_ms=library_ms,
                           bound_ms=max(t_bytes, t_ops),
                           bound_by="bytes" if t_bytes >= t_ops else
@@ -837,6 +872,11 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
             (_, n, f), h = args[1].shape, args[2].shape[1]
             out[label]["route"] = bm.route(n, f, h)
             lib += f"; {out[label]['route']} route"
+        if name in FLOOR_KERNELS:
+            floor = launch_floor(rows)
+            out[label]["floor_ms"], out[label]["floor_warm_ms"] = floor
+            lib += (f"; launch floor {floor[0]:.4f} ms cold, {floor[1]:.4f} "
+                    f"ms warm (zero_ of {rows} int32)")
         shapes = " x ".join(str(tuple(a.shape)) for a in args
                             if hasattr(a, "shape"))
         print(f"  time {label}: {rows} rows ({shapes}), kernel {ms:.4f} ms "
@@ -959,6 +999,68 @@ def hold_to_host(ix, sess, qs, qt, ans, n_sample, label):
     check(bad == 0, f"{label}: answers differ from the host engine")
 
 
+def hold_stab_calls(rec, phase: str, err: dict) -> None:
+    """Kernels 1 and 2 against their plain versions, bit for bit, on the
+    largest and smallest calls the phase made of each (kept by ``rec``),
+    tallied into ``err``."""
+    from repro_torch.kernels import interval_stab as st
+    kernel = {"stab_packed": (st.stab_packed, st.stab_packed_plain),
+              "stab_naive": (st.stab_naive, st.stab_naive_plain)}
+    for name, (fn, plain) in kernel.items():
+        for which, calls in (("largest", rec.calls), ("smallest", rec.small)):
+            if name in calls:
+                rows, args = calls[name]
+                _tally(err, name, _compare(
+                    f"{name} on the {phase} phase's {which} call ({rows} "
+                    f"rows)", fn(*args), plain(*args)))
+
+
+def host_split(sess, s, t, reps: int = 21) -> dict:
+    """One batch of ``QuerySession.query`` (``s``, ``t``: original ids, one
+    full micro-batch) split by part on host clocks, with a
+    ``torch.cuda.synchronize()`` at each boundary: each part is run on its
+    own as the path runs it, median of ``reps``; the rest is the whole
+    call's median less the parts'. Nothing on the served path changes."""
+    import torch
+
+    from repro_torch.kernels import interval_stab as st
+    eng = sess.engine
+    times = collections.defaultdict(list)
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+    for _ in range(reps):
+        t0 = clock()
+        sess.query(s, t)
+        t1 = clock()
+        ps, pt = sess._pad(s, t, sess._bucket(s.size))
+        t2 = clock()
+        cs = eng.comp[eng._tensor(ps, torch.int64)]
+        ct = eng.comp[eng._tensor(pt, torch.int64)]
+        t3 = clock()
+        verdict = st.stab_packed(eng.dev["meta"], eng.dev["slab"], cs, ct)
+        t4 = time.perf_counter()          # the launch is queued, not done
+        t5 = clock()
+        verdict.cpu().numpy()
+        t6 = clock()
+        for key, dt in (("whole", t1 - t0), ("pad and bucket", t2 - t1),
+                        ("ids to the card + comp gather", t3 - t2),
+                        ("kernel-1 wrapper (checks, empty, ctypes)",
+                         t4 - t3), ("kernel-1 wait", t5 - t4),
+                        ("verdict to the host + sync", t6 - t5)):
+            times[key].append(dt * 1e3)
+    med = {key: float(np.median(v)) for key, v in times.items()}
+    whole = med.pop("whole")
+    med["rest (stats, numpy, session, dispatch)"] = whole - sum(med.values())
+    print(f"  host split of one {s.size}-query batch of QuerySession.query "
+          f"(median of {reps}, host clocks, a sync at each boundary): whole "
+          f"{whole:.4f} ms = " + ", ".join(
+              f"{k} {v:.4f} ms ({v / whole:.1%})" for k, v in med.items()),
+          flush=True)
+    return dict(whole_ms=whole, **med)
+
+
 def main_phase(dev, rec):
     from repro_torch.core.workload import positive_queries, random_queries
     from repro_torch.graphs.generators import scale_free_digraph
@@ -984,6 +1086,7 @@ def main_phase(dev, rec):
     hold_to_host(ix, sess, qs, qt, ans, 10_000, "main random")
     profile_window(lambda: sess.query(qs[:1 << 18], qt[:1 << 18]),
                    f"main random, {1 << 18} queries")
+    host_split(sess, qs[:spec.max_batch], qt[:spec.max_batch])
     return counts, calls, dict(g=g, queries=(qs, qt, ps, pt),
                                answers=(ans, ans_p))
 
@@ -1179,8 +1282,9 @@ def dense_phase(dev, rec):
     check(sess.engine.packed.n <= 8192, "dense graph over 8192 nodes")
     qs, qt = random_queries(g, 1 << 15, seed=8)
     reset_counters()
+    rec.reset()
     ans, st = serve(sess, qs, qt, "random")
-    counts = read_counters()
+    counts, calls = read_counters(), dict(rec.calls)
     print(f"  counts: {counts}", flush=True)
     check(st.phase2_dense > 0, "dense: no dense phase-2 traffic")
     want = QueryEngine(ix).batch(qs, qt)
@@ -1188,7 +1292,30 @@ def dense_phase(dev, rec):
     print(f"  host check dense: {qs.size} answers, {bad} mismatches",
           flush=True)
     check(bad == 0, "dense: answers differ from the host engine")
-    return counts
+    return counts, calls
+
+
+def stab_only(dev) -> None:
+    """``--stab``: kernels 1 and 2 alone, for a short call that compares
+    two versions of them. Held against their plain versions at the parity
+    shapes (``stab_parity``), then timed on those tables at one session
+    micro-batch of queries (as the main path's call) and at 2^20, beside
+    their launch floor."""
+    import torch
+
+    from repro_torch.reach import IndexSpec
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    err = {name: (0, 0, 0.0) for name in KERNELS}
+    calls = stab_parity(g, dev, err, keep=(1, 8, 32))
+    extra = []
+    for (name, k), (rows, args) in sorted(calls.items()):
+        for q in (IndexSpec.max_batch, rows):
+            # the last q pairs: the first eighth of the call are cs == ct
+            ids = (args[-2][rows - q:], args[-1][rows - q:])
+            extra.append((name, f"{name} K={k} at {q} queries",
+                          (q, (*args[:-2], *ids))))
+    time_kernels({}, extra=tuple(extra))
 
 
 def _tree_to(tree, dev):
@@ -1972,6 +2099,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the model phases' data and weights")
+    parser.add_argument("--stab", action="store_true",
+                        help="only hold and time kernels 1 and 2 on random "
+                        "tables (no phase, no result line)")
     args = parser.parse_args()
     try:
         import torch
@@ -2006,9 +2136,13 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
+    if args.stab:
+        stab_only(dev)
+        print(card_line(), flush=True)
+        return 0
     print("parity (kernel vs plain; integer kernels bit for bit):",
           flush=True)
-    err = kernel_parity(dev)
+    err, stab_calls = kernel_parity(dev)
 
     def done(phase):
         print(f"  [{phase} done at {time.perf_counter() - t_start:.0f} s]",
@@ -2018,13 +2152,18 @@ def main() -> int:
     rec = Recorder()
     try:
         main_counts, main_calls, main_out = main_phase(dev, rec)
+        hold_stab_calls(rec, "main", err)
         done("main")
         wf_counts, wf_call = wavefront_phase(dev, rec, main_out)
+        hold_stab_calls(rec, "wavefront (loaded index)", err)
         del main_out
         done("wavefront")
         p2_counts, p2_calls = phase2_phase(dev, rec)
+        hold_stab_calls(rec, "phase2 (cap 256)", err)
         s64_counts, s64_calls = seeds64_phase(dev, rec)
-        dense_counts = dense_phase(dev, rec)
+        hold_stab_calls(rec, "seeds64", err)
+        dense_counts, dense_calls = dense_phase(dev, rec)
+        hold_stab_calls(rec, "dense", err)
         done("phase2, seeds64, dense")
         rs_counts, rs_calls = recsys_phase(dev, rec, args.seed)
         gnn_counts, gnn_calls = gnn_phase(dev, rec, args.seed)
@@ -2066,6 +2205,12 @@ def main() -> int:
     largest = recorded["batched_mp"][1]
     smallest = gnn_calls["smallest"]["batched_mp"]
     times = time_kernels(recorded, extra=(
+        ("stab_packed", "stab_packed (2^20 parity call, K 8)",
+         stab_calls[("stab_packed", 8)]),
+        ("stab_naive", "stab_naive (2^20 parity call, K 8, W 2)",
+         stab_calls[("stab_naive", 8)]),
+        ("stab_packed", "stab_packed (dense phase's largest call)",
+         dense_calls["stab_packed"]),
         ("batched_mp", "batched_mp (smallest call)", smallest),
         *(("batched_mp", f"batched_mp (B={b} N={n} F={f} H={h})", call)
           for (b, n, f, h), call in sorted(gnn_calls["mp_shapes"].items())
@@ -2096,7 +2241,9 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             **{key: t[key] for key in ("plain_at", "ms_at_plain_shape",
-                                       "library_expanded_ms") if key in t}})
+                                       "library_expanded_ms", "warm_ms",
+                                       "floor_ms", "floor_warm_ms")
+               if key in t}})
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_expanded_ms", "plain_at", "ms_at_plain_shape")
         if kname == "flash_fwd":

@@ -37,8 +37,8 @@ _I32 = ctypes.c_int
 _I64 = ctypes.c_int64
 SIGNATURES = {
     # C entry point: pointers, then sizes, then the stream
-    "reach_stab_packed": [_P] * 5 + [_I64, _I32, _P],
-    "reach_stab_naive": [_P] * 11 + [_I64, _I32, _I32, _P],
+    "reach_stab_packed": [_P] * 5 + [_I64] + [_I32] * 4 + [_I64, _P],
+    "reach_stab_naive": [_P] * 11 + [_I64] + [_I32] * 5 + [_I64, _P],
     "reach_probe": [_P] * 6 + [_I64, _I64, _I32, _P],
     "reach_classify_emit": [_P] * 7 + [_I64, _I32, _P],
     "reach_merge_cover": [_P] * 7 + [_I64] + [_I32] * 5 + [_P],

@@ -15,14 +15,57 @@ int32 in {0 NEG, 1 POS, 2 UNKNOWN}.
 
 Unlike the reference, which gathers the rows in XLA and streams them into
 the kernel, both kernels take the tables and the (cs, ct) ids and do the
-row gathers themselves; ids must lie in [0, n). On a CPU tensor a wrapper
-runs its plain version; on a CUDA tensor it launches the kernel or raises.
+row gathers themselves; ids must lie in [0, n). Each query takes a group
+of lanes that load its rows together (``launch_shape``). On a CPU tensor a
+wrapper runs its plain version; on a CUDA tensor it launches the kernel or
+raises.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _lib, ref
+
+H100_SMS = 132           # streaming multiprocessors of an H100 SXM
+MAX_GRID = 2**31 - 1     # blocks on the grid's x dimension
+
+
+def vector_width(k: int) -> int:
+    """int32 a lane loads at once from a table row of K slots: 4 (16 bytes)
+    where K % 4 == 0, else 2 where K is even, else 1. Every row and piece
+    is then aligned to its load: kernel 1's slab rows of 2K and their ends
+    at offset K, kernel 2's rows of K."""
+    return 4 if k % 4 == 0 else 2 if k % 2 == 0 else 1
+
+
+def launch_shape(q: int, k: int, w: int = 0) -> tuple:
+    """(threads per block, lanes per query, blocks) of kernels 1 and 2 for
+    Q queries over rows of K slots and W seed words of s and of t (kernel
+    2; kernel 1's one seed word lies in its meta row: W = 0).
+
+    A query's group has a lane for each ``vector_width(k)``-wide piece of
+    its slots and for each seed word, rounded up to a power of two and at
+    most 32 (lanes then loop). Blocks start at 256 threads, halved down to
+    32 while the grid would have fewer than two blocks an SM, so that the
+    serving path's call (16,384 queries, 2 lanes each at K 8) spreads over
+    every SM. Raises ``ValueError`` where the kernels cannot take the call.
+    """
+    if q < 0 or k < 0 or w < 0:
+        raise ValueError(f"stab launch: need Q, K, W >= 0, got Q={q}, "
+                         f"K={k}, W={w}")
+    need = max(k // vector_width(k), w, 1)
+    lanes = 1
+    while lanes < min(need, 32):
+        lanes <<= 1
+    threads = 256
+    while threads > 32 and -(-q * lanes // threads) < 2 * H100_SMS:
+        threads //= 2
+    blocks = max(1, -(-q * lanes // threads))
+    if blocks > MAX_GRID:
+        raise ValueError(f"stab launch: {q} queries of {lanes} lanes take "
+                         f"{blocks} blocks of {threads}; the grid holds "
+                         f"{MAX_GRID}")
+    return threads, lanes, blocks
 
 
 def on_cpu(t) -> bool:
@@ -45,15 +88,18 @@ def stab_packed(meta, slab, cs, ct):
     if on_cpu(cs):
         return stab_packed_plain(meta, slab, cs, ct)
     n, q, k2 = meta.shape[0], cs.shape[0], slab.shape[1]
-    dev = cs.device
+    if k2 % 2:
+        raise ValueError(f"slab: {k2} columns, expected 2K")
+    k, dev = k2 // 2, cs.device
+    vec, shape = vector_width(k), launch_shape(q, k)
     args = (_lib.check(meta, "meta", (n, 4), dev, align=16),
-            _lib.check(slab, "slab", (n, k2), dev),
+            _lib.check(slab, "slab", (n, k2), dev, align=4 * vec),
             _lib.check(cs, "cs", (q,), dev),
             _lib.check(ct, "ct", (q,), dev))
     out = torch.empty(q, dtype=torch.int32, device=dev)
     if q:
         _lib.launch("stab_packed", "reach_stab_packed", dev, *args,
-                    out.data_ptr(), q, k2 // 2)
+                    out.data_ptr(), q, k, vec, shape[1], shape[0], shape[2])
     return out
 
 
@@ -78,12 +124,13 @@ def stab_naive(pi, tau, blevel, begins, ends, exact, s_plus, s_minus,
     n, q = pi.shape[0], cs.shape[0]
     k, w = begins.shape[1], s_plus.shape[1]
     dev = cs.device
+    vec, shape = vector_width(k), launch_shape(q, k, w)
     args = (_lib.check(pi, "pi", (n,), dev),
             _lib.check(tau, "tau", (n,), dev),
             _lib.check(blevel, "blevel", (n,), dev),
-            _lib.check(begins, "begins", (n, k), dev),
-            _lib.check(ends, "ends", (n, k), dev),
-            _lib.check(exact, "exact", (n, k), dev),
+            _lib.check(begins, "begins", (n, k), dev, align=4 * vec),
+            _lib.check(ends, "ends", (n, k), dev, align=4 * vec),
+            _lib.check(exact, "exact", (n, k), dev, align=4 * vec),
             _lib.check(s_plus, "s_plus", (n, w), dev),
             _lib.check(s_minus, "s_minus", (n, w), dev),
             _lib.check(cs, "cs", (q,), dev),
@@ -91,5 +138,6 @@ def stab_naive(pi, tau, blevel, begins, ends, exact, s_plus, s_minus,
     out = torch.empty(q, dtype=torch.int32, device=dev)
     if q:
         _lib.launch("stab_naive", "reach_stab_naive", dev, *args,
-                    out.data_ptr(), q, k, w)
+                    out.data_ptr(), q, k, w, vec, shape[1], shape[0],
+                    shape[2])
     return out

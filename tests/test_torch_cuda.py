@@ -113,20 +113,38 @@ def _same(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
-@pytest.mark.parametrize("k", [1, 8, 32])
-def test_stab_packed_matches_plain(dev, k):
-    rng = np.random.default_rng(k)
+def _stab_pairs(rng, n, q, same):
+    """(cs, ct) of ``_pairs``, or every pair with cs == ct."""
+    if same:
+        cs = rng.integers(0, n, q)
+        return cs, cs.copy()
+    return _pairs(rng, n, q)
+
+
+# K odd, even and a multiple of 4 (the kernels' 1-, 2- and 4-wide loads),
+# up to 32 slots; Q of one query, less than a warp and not a multiple of a
+# block; and a call where every pair folds (cs == ct)
+@pytest.mark.parametrize("k,q,same", [
+    *((k, 70_001, False) for k in (1, 2, 3, 5, 8, 16, 32)),
+    (8, 1, False), (3, 31, False), (8, 31, False), (8, 4096, True)])
+def test_stab_packed_matches_plain(dev, k, q, same):
+    rng = np.random.default_rng(k + q)
     meta, slab = _packed(rng, 5000, k)
-    cs, ct = _pairs(rng, 5000, 70_001)
+    cs, ct = _stab_pairs(rng, 5000, q, same)
     args = [_i32(a) for a in (meta, slab, cs, ct)]
     before = _lib.LAUNCHES["stab_packed"]
     _same(stab_packed(*(a.to(dev) for a in args)), stab_packed_plain(*args))
     assert _lib.LAUNCHES["stab_packed"] == before + 1
 
 
-@pytest.mark.parametrize("k,w", [(1, 2), (8, 2), (32, 1), (3, 0)])
-def test_stab_naive_matches_plain(dev, k, w):
-    rng = np.random.default_rng(k + w)
+@pytest.mark.parametrize("k,w,q,same", [
+    *((k, w, 50_000, False) for k, w in (
+        (1, 2), (8, 2), (32, 1), (3, 0), (1, 0), (5, 3), (7, 1), (2, 3),
+        (16, 0), (31, 2))),
+    (1, 2, 1, False), (3, 3, 31, False), (1, 2, 70_001, False),
+    (1, 2, 4096, True)])
+def test_stab_naive_matches_plain(dev, k, w, q, same):
+    rng = np.random.default_rng(k + w + q)
     n = 6000
     pi = rng.integers(0, 1 << 26, n)
     near = pi[rng.integers(0, n, (n, k))]
@@ -138,9 +156,11 @@ def test_stab_naive_matches_plain(dev, k, w):
         np.where(invalid, SENTINEL, b), np.where(invalid, -1, e),
         (rng.random((n, k)) < 0.3) & ~invalid,
         _words(rng, (n, w)), _words(rng, (n, w)))]
-    cs, ct = (_i32(a) for a in _pairs(rng, n, 50_000))
+    cs, ct = (_i32(a) for a in _stab_pairs(rng, n, q, same))
+    before = _lib.LAUNCHES["stab_naive"]
     _same(stab_naive(*(t.to(dev) for t in tables), cs.to(dev), ct.to(dev)),
           stab_naive_plain(*tables, cs, ct))
+    assert _lib.LAUNCHES["stab_naive"] == before + 1
 
 
 def test_probe_matches_plain(dev):
@@ -176,6 +196,10 @@ def test_wrappers_refuse_bad_operands(dev):
         stab_packed(meta, slab.t(), idx, idx)
     with pytest.raises(ValueError):
         stab_packed(meta.cpu(), slab, idx, idx)
+    # K 4 takes 16-byte loads: a slab 4 bytes off that alignment is refused
+    shifted = torch.zeros(65, dtype=torch.int32, device=dev)[1:].view(8, 8)
+    with pytest.raises(ValueError):
+        stab_packed(meta, shifted, idx, idx)
 
 
 @pytest.mark.parametrize("mode", ["dense", "sparse"])
