@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--stab]
+    python3 chip_smoke.py [--seed N]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version (the integer kernels bit for bit,
@@ -78,11 +78,10 @@ the model phases against the CPU (rtol 1e-4, atol 1e-5 times the output's
 largest magnitude, at least 1). Any mismatch or exception exits non-zero.
 The main phase also splits one micro-batch of ``QuerySession.query`` by
 part on host clocks. Each kernel is timed at its path's largest call;
-kernels 1 and 2 also at the 2^20-query parity call (K 8) and kernel 1 at
-the dense phase's largest call, and kernels 1, 2 and 4 beside their launch
-floor (``zero_()`` of an output as large, timed the same way).
-``--stab`` only holds and times kernels 1 and 2 on the parity tables (a
-short call to compare two versions of them) and prints no result line.
+kernels 1 and 2 also at the 2^20-query parity calls (K 1, 8, 32) and
+kernel 1 at the dense phase's largest call, and kernels 1, 2 and 4 beside
+their launch floor (``zero_()`` of an output as large, timed the same way;
+for kernels 1 and 2 also one gathered table row an id).
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -358,10 +357,10 @@ def _tally(total: dict, name: str, result) -> None:
                    max(total[name][2], rel))
 
 
-def stab_parity(g, dev, err: dict, keep=(8,)) -> dict:
+def stab_parity(g, dev, err: dict) -> dict:
     """Kernels 1 and 2 against their plain versions at 2^20 queries over
     2^22 rows, K 1, 8 and 32 (W 2), tallied into ``err``. Returns the
-    calls at each K of ``keep``, {(name, K): (rows, args)}, for timing."""
+    calls, {(name, K): (rows, args)}, for timing."""
     from repro_torch.kernels import interval_stab as st
     n, kept = 1 << 22, {}
     for k in (1, 8, 32):
@@ -378,17 +377,15 @@ def stab_parity(g, dev, err: dict, keep=(8,)) -> dict:
         _tally(err, "stab_naive", _compare(
             f"stab_naive K={k} W=2", st.stab_naive(*tables, cs, ct),
             st.stab_naive_plain(*tables, cs, ct)))
-        if k in keep:
-            kept[("stab_packed", k)] = (PARITY_ROWS, (meta, slab, cs, ct))
-            kept[("stab_naive", k)] = (PARITY_ROWS, (*tables, cs, ct))
-        del meta, slab, tables
+        kept[("stab_packed", k)] = (PARITY_ROWS, (meta, slab, cs, ct))
+        kept[("stab_naive", k)] = (PARITY_ROWS, (*tables, cs, ct))
     return kept
 
 
 def kernel_parity(dev):
     """Each kernel against its plain version on random inputs (≥ 2^20
     rows where a row is small): {name: (max_abs_err, mismatches,
-    max_rel_err)}, and kernels 1 and 2's K 8 calls (``stab_parity``)."""
+    max_rel_err)}, and kernels 1 and 2's calls (``stab_parity``)."""
     import torch
 
     from repro_torch.kernels import frontier_fused as ff
@@ -824,11 +821,25 @@ def launch_floor(rows: int) -> tuple:
     return (device_ms(out.zero_), device_ms(out.zero_, cold=False))
 
 
+def gather_floor(table, ids) -> tuple:
+    """(L2-cold ms, L2-warm ms) of ``index_select`` of one ``table`` row
+    an id, timed as ``launch_floor``: the ids, then one dependent random
+    gather and a write, the least a verdict kernel's chain can take."""
+    import torch
+    out = torch.empty((ids.shape[0], *table.shape[1:]), dtype=table.dtype,
+                      device="cuda")
+
+    def gather():
+        torch.index_select(table, 0, ids, out=out)
+    return (device_ms(gather), device_ms(gather, cold=False))
+
+
 def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
     """Times each kernel at ``recorded[name]`` (the path's largest call),
     and at each ``(name, label, call)`` of ``extra``, which is printed and
     returned under ``label``. Kernels 1, 2 and 4 also get their launch
-    floor (``launch_floor``) on an output of the call's rows."""
+    floor (``launch_floor``) on an output of the call's rows, kernels 1
+    and 2 their gather floor (``gather_floor``: the first table by cs)."""
     from repro_torch.kernels import batched_mp as bm
     from repro_torch.kernels import frontier_fused as ff
     from repro_torch.kernels import interval_stab as st
@@ -877,6 +888,12 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
             out[label]["floor_ms"], out[label]["floor_warm_ms"] = floor
             lib += (f"; launch floor {floor[0]:.4f} ms cold, {floor[1]:.4f} "
                     f"ms warm (zero_ of {rows} int32)")
+        if name in ("stab_packed", "stab_naive"):
+            gfloor = gather_floor(args[0], args[-2])
+            out[label]["gather_ms"], out[label]["gather_warm_ms"] = gfloor
+            lib += (f"; gather floor {gfloor[0]:.4f} ms cold, "
+                    f"{gfloor[1]:.4f} ms warm (index_select of "
+                    f"{tuple(args[0].shape)} by cs)")
         shapes = " x ".join(str(tuple(a.shape)) for a in args
                             if hasattr(a, "shape"))
         print(f"  time {label}: {rows} rows ({shapes}), kernel {ms:.4f} ms "
@@ -1015,12 +1032,13 @@ def hold_stab_calls(rec, phase: str, err: dict) -> None:
                     f"rows)", fn(*args), plain(*args)))
 
 
-def host_split(sess, s, t, reps: int = 21) -> dict:
+def host_split(sess, s, t, reps: int = 101) -> dict:
     """One batch of ``QuerySession.query`` (``s``, ``t``: original ids, one
     full micro-batch) split by part on host clocks, with a
     ``torch.cuda.synchronize()`` at each boundary: each part is run on its
-    own as the path runs it, median of ``reps``; the rest is the whole
-    call's median less the parts'. Nothing on the served path changes."""
+    own as the path runs it, median and quartiles of ``reps``; the rest is
+    the whole call's median less the parts'. Nothing on the served path
+    changes."""
     import torch
 
     from repro_torch.kernels import interval_stab as st
@@ -1050,14 +1068,17 @@ def host_split(sess, s, t, reps: int = 21) -> dict:
                          t4 - t3), ("kernel-1 wait", t5 - t4),
                         ("verdict to the host + sync", t6 - t5)):
             times[key].append(dt * 1e3)
-    med = {key: float(np.median(v)) for key, v in times.items()}
+    q1, med, q3 = ({key: float(np.percentile(v, p))
+                    for key, v in times.items()} for p in (25, 50, 75))
     whole = med.pop("whole")
     med["rest (stats, numpy, session, dispatch)"] = whole - sum(med.values())
     print(f"  host split of one {s.size}-query batch of QuerySession.query "
-          f"(median of {reps}, host clocks, a sync at each boundary): whole "
-          f"{whole:.4f} ms = " + ", ".join(
-              f"{k} {v:.4f} ms ({v / whole:.1%})" for k, v in med.items()),
-          flush=True)
+          f"(median [quartiles] of {reps}, host clocks, a sync at each "
+          f"boundary): whole {whole:.4f} ms [{q1['whole']:.4f}, "
+          f"{q3['whole']:.4f}] = " + ", ".join(
+              f"{k} {v:.4f} ms ({v / whole:.1%})"
+              + (f" [{q1[k]:.4f}, {q3[k]:.4f}]" if k in q1 else "")
+              for k, v in med.items()), flush=True)
     return dict(whole_ms=whole, **med)
 
 
@@ -1293,29 +1314,6 @@ def dense_phase(dev, rec):
           flush=True)
     check(bad == 0, "dense: answers differ from the host engine")
     return counts, calls
-
-
-def stab_only(dev) -> None:
-    """``--stab``: kernels 1 and 2 alone, for a short call that compares
-    two versions of them. Held against their plain versions at the parity
-    shapes (``stab_parity``), then timed on those tables at one session
-    micro-batch of queries (as the main path's call) and at 2^20, beside
-    their launch floor."""
-    import torch
-
-    from repro_torch.reach import IndexSpec
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    err = {name: (0, 0, 0.0) for name in KERNELS}
-    calls = stab_parity(g, dev, err, keep=(1, 8, 32))
-    extra = []
-    for (name, k), (rows, args) in sorted(calls.items()):
-        for q in (IndexSpec.max_batch, rows):
-            # the last q pairs: the first eighth of the call are cs == ct
-            ids = (args[-2][rows - q:], args[-1][rows - q:])
-            extra.append((name, f"{name} K={k} at {q} queries",
-                          (q, (*args[:-2], *ids))))
-    time_kernels({}, extra=tuple(extra))
 
 
 def _tree_to(tree, dev):
@@ -2099,9 +2097,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the model phases' data and weights")
-    parser.add_argument("--stab", action="store_true",
-                        help="only hold and time kernels 1 and 2 on random "
-                        "tables (no phase, no result line)")
     args = parser.parse_args()
     try:
         import torch
@@ -2136,10 +2131,6 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    if args.stab:
-        stab_only(dev)
-        print(card_line(), flush=True)
-        return 0
     print("parity (kernel vs plain; integer kernels bit for bit):",
           flush=True)
     err, stab_calls = kernel_parity(dev)
@@ -2205,10 +2196,9 @@ def main() -> int:
     largest = recorded["batched_mp"][1]
     smallest = gnn_calls["smallest"]["batched_mp"]
     times = time_kernels(recorded, extra=(
-        ("stab_packed", "stab_packed (2^20 parity call, K 8)",
-         stab_calls[("stab_packed", 8)]),
-        ("stab_naive", "stab_naive (2^20 parity call, K 8, W 2)",
-         stab_calls[("stab_naive", 8)]),
+        *((name, f"{name} (2^20 parity call, K {k}"
+           f"{', W 2' if name == 'stab_naive' else ''})", call)
+          for (name, k), call in sorted(stab_calls.items())),
         ("stab_packed", "stab_packed (dense phase's largest call)",
          dense_calls["stab_packed"]),
         ("batched_mp", "batched_mp (smallest call)", smallest),
@@ -2242,7 +2232,8 @@ def main() -> int:
             "library_ms": t["library_ms"], "library": t["library"],
             **{key: t[key] for key in ("plain_at", "ms_at_plain_shape",
                                        "library_expanded_ms", "warm_ms",
-                                       "floor_ms", "floor_warm_ms")
+                                       "floor_ms", "floor_warm_ms",
+                                       "gather_ms", "gather_warm_ms")
                if key in t}})
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_expanded_ms", "plain_at", "ms_at_plain_shape")

@@ -37,9 +37,12 @@
 // first lane applies the filters and the combine (verdict.cuh, shared
 // with kernel 4) and writes the verdict; the first lanes of a warp's
 // groups write neighbouring verdicts. The cs == ct fold is the same pass.
-// Whole warps take part in the ballots: no lane returns early. (Table
-// loads through ld.global.nc.L1::no_allocate were slower at the path's
-// call than __ldg, and are not used.)
+// Whole warps take part in the ballots: no lane returns early. Where a
+// group would have one lane (kernel 1 at K 1, 2 or 4), kernel 1 runs one
+// thread a query over the whole row instead (stab_packed_one), which is
+// faster at 2^20 queries. (Table loads through ld.global.nc.L1::
+// no_allocate were slower at the path's call than __ldg, and are not
+// used.)
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -86,6 +89,29 @@ struct Group {
     return ((__ballot_sync(kFull, flag) >> base) & mask) != 0u;
   }
 };
+
+// A group of one lane (K 1, 2 or 4) has nothing to vote on: one thread a
+// query over its whole slab row. Compiled, it waits for t's meta row
+// (pi(t)) before it issues the slab loads; at 2^20 queries over 2^22 rows
+// that beats issuing all of a query's loads at once.
+__global__ void stab_packed_one(const int32_t* __restrict__ meta,
+                                const int32_t* __restrict__ slab,
+                                const int32_t* __restrict__ cs,
+                                const int32_t* __restrict__ ct,
+                                int32_t* __restrict__ out, int64_t q, int k) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= q) return;
+  const int32_t s = __ldg(cs + i);
+  const int32_t t = __ldg(ct + i);
+  if (s == t) {
+    out[i] = reach::POS;
+    return;
+  }
+  out[i] = reach::packed_verdict(reach::load_row4(meta, s),
+                                 reach::load_row4(meta, t),
+                                 slab + static_cast<int64_t>(s) * 2 * k, k);
+}
 
 template <int V>
 __global__ void stab_packed_kernel(const int32_t* __restrict__ meta,
@@ -240,7 +266,10 @@ extern "C" int reach_stab_packed(const int32_t* meta, const int32_t* slab,
   if (!shape_ok(q, k, vec, lanes, threads, blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto grid = static_cast<unsigned>(blocks);
-  if (vec == 4)
+  if (lanes == 1)
+    stab_packed_one<<<grid, threads, 0, stream>>>(meta, slab, cs, ct, out, q,
+                                                  k);
+  else if (vec == 4)
     stab_packed_kernel<4><<<grid, threads, 0, stream>>>(meta, slab, cs, ct,
                                                         out, q, k, lanes);
   else if (vec == 2)

@@ -22,11 +22,12 @@ raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _lib, ref
 
-H100_SMS = 132           # streaming multiprocessors of an H100 SXM
 MAX_GRID = 2**31 - 1     # blocks on the grid's x dimension
 
 
@@ -38,10 +39,13 @@ def vector_width(k: int) -> int:
     return 4 if k % 4 == 0 else 2 if k % 2 == 0 else 1
 
 
-def launch_shape(q: int, k: int, w: int = 0) -> tuple:
+@functools.lru_cache(maxsize=1024)
+def launch_shape(q: int, k: int, w: int = 0, sms: int = 132) -> tuple:
     """(threads per block, lanes per query, blocks) of kernels 1 and 2 for
     Q queries over rows of K slots and W seed words of s and of t (kernel
-    2; kernel 1's one seed word lies in its meta row: W = 0).
+    2; kernel 1's one seed word lies in its meta row: W = 0) on a card of
+    ``sms`` streaming multiprocessors (132 on an H100 SXM). Cached: a
+    path's calls come in a few bucket sizes.
 
     A query's group has a lane for each ``vector_width(k)``-wide piece of
     its slots and for each seed word, rounded up to a power of two and at
@@ -58,7 +62,7 @@ def launch_shape(q: int, k: int, w: int = 0) -> tuple:
     while lanes < min(need, 32):
         lanes <<= 1
     threads = 256
-    while threads > 32 and -(-q * lanes // threads) < 2 * H100_SMS:
+    while threads > 32 and -(-q * lanes // threads) < 2 * sms:
         threads //= 2
     blocks = max(1, -(-q * lanes // threads))
     if blocks > MAX_GRID:
@@ -66,6 +70,12 @@ def launch_shape(q: int, k: int, w: int = 0) -> tuple:
                          f"{blocks} blocks of {threads}; the grid holds "
                          f"{MAX_GRID}")
     return threads, lanes, blocks
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def on_cpu(t) -> bool:
@@ -91,7 +101,7 @@ def stab_packed(meta, slab, cs, ct):
     if k2 % 2:
         raise ValueError(f"slab: {k2} columns, expected 2K")
     k, dev = k2 // 2, cs.device
-    vec, shape = vector_width(k), launch_shape(q, k)
+    vec, shape = vector_width(k), launch_shape(q, k, 0, sm_count(dev.index))
     args = (_lib.check(meta, "meta", (n, 4), dev, align=16),
             _lib.check(slab, "slab", (n, k2), dev, align=4 * vec),
             _lib.check(cs, "cs", (q,), dev),
@@ -124,7 +134,8 @@ def stab_naive(pi, tau, blevel, begins, ends, exact, s_plus, s_minus,
     n, q = pi.shape[0], cs.shape[0]
     k, w = begins.shape[1], s_plus.shape[1]
     dev = cs.device
-    vec, shape = vector_width(k), launch_shape(q, k, w)
+    vec = vector_width(k)
+    shape = launch_shape(q, k, w, sm_count(dev.index))
     args = (_lib.check(pi, "pi", (n,), dev),
             _lib.check(tau, "tau", (n,), dev),
             _lib.check(blevel, "blevel", (n,), dev),

@@ -121,11 +121,12 @@ def _stab_pairs(rng, n, q, same):
     return _pairs(rng, n, q)
 
 
-# K odd, even and a multiple of 4 (the kernels' 1-, 2- and 4-wide loads),
-# up to 32 slots; Q of one query, less than a warp and not a multiple of a
-# block; and a call where every pair folds (cs == ct)
+# K odd, even and a multiple of 4 (the kernels' 1-, 2- and 4-wide loads;
+# K 1, 2 and 4 one thread a query), up to 32 slots; Q of one query, less
+# than a warp and not a multiple of a block; and a call where every pair
+# folds (cs == ct)
 @pytest.mark.parametrize("k,q,same", [
-    *((k, 70_001, False) for k in (1, 2, 3, 5, 8, 16, 32)),
+    *((k, 70_001, False) for k in (1, 2, 3, 4, 5, 8, 16, 32)),
     (8, 1, False), (3, 31, False), (8, 31, False), (8, 4096, True)])
 def test_stab_packed_matches_plain(dev, k, q, same):
     rng = np.random.default_rng(k + q)

@@ -6,8 +6,8 @@ on the card (``tests/test_torch_cuda.py``)."""
 import numpy as np
 import pytest
 
-from repro_torch.kernels.interval_stab import (H100_SMS, MAX_GRID,
-                                               launch_shape, vector_width)
+from repro_torch.kernels.interval_stab import (MAX_GRID, launch_shape,
+                                               vector_width)
 
 MAX_BATCH = 16_384       # IndexSpec.max_batch: the serving path's call
 
@@ -44,10 +44,11 @@ def test_vector_width_keeps_every_load_aligned(k):
         assert (s * k * 4) % (4 * v) == 0
 
 
+@pytest.mark.parametrize("sms", [132, 114])     # H100 SXM, H100 PCIe
 @pytest.mark.parametrize("k,w", [(2, 0), (8, 0), (1, 2), (8, 2)])
-def test_launch_shape_spreads_the_serving_call_over_every_sm(k, w):
-    threads, lanes, blocks = launch_shape(MAX_BATCH, k, w)
-    assert blocks >= H100_SMS
+def test_launch_shape_spreads_the_serving_call_over_every_sm(k, w, sms):
+    threads, lanes, blocks = launch_shape(MAX_BATCH, k, w, sms)
+    assert blocks >= sms
 
 
 @pytest.mark.parametrize("args", [(-1, 8, 0), (16, -1, 0), (16, 8, -1),
