@@ -80,8 +80,8 @@ The main phase also splits one micro-batch of ``QuerySession.query`` by
 part on host clocks. Each kernel is timed at its path's largest call;
 kernels 1 and 2 also at the 2^20-query parity calls (K 1, 8, 32) and
 kernel 1 at the dense phase's largest call, and kernels 1, 2 and 4 beside
-their launch floor (``zero_()`` of an output as large, timed the same way;
-for kernels 1 and 2 also one gathered table row an id).
+their launch floor (``zero_()`` of an output as large, timed the same
+way).
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -821,25 +821,11 @@ def launch_floor(rows: int) -> tuple:
     return (device_ms(out.zero_), device_ms(out.zero_, cold=False))
 
 
-def gather_floor(table, ids) -> tuple:
-    """(L2-cold ms, L2-warm ms) of ``index_select`` of one ``table`` row
-    an id, timed as ``launch_floor``: the ids, then one dependent random
-    gather and a write, the least a verdict kernel's chain can take."""
-    import torch
-    out = torch.empty((ids.shape[0], *table.shape[1:]), dtype=table.dtype,
-                      device="cuda")
-
-    def gather():
-        torch.index_select(table, 0, ids, out=out)
-    return (device_ms(gather), device_ms(gather, cold=False))
-
-
 def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
     """Times each kernel at ``recorded[name]`` (the path's largest call),
     and at each ``(name, label, call)`` of ``extra``, which is printed and
     returned under ``label``. Kernels 1, 2 and 4 also get their launch
-    floor (``launch_floor``) on an output of the call's rows, kernels 1
-    and 2 their gather floor (``gather_floor``: the first table by cs)."""
+    floor (``launch_floor``) on an output of the call's rows."""
     from repro_torch.kernels import batched_mp as bm
     from repro_torch.kernels import frontier_fused as ff
     from repro_torch.kernels import interval_stab as st
@@ -888,12 +874,6 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
             out[label]["floor_ms"], out[label]["floor_warm_ms"] = floor
             lib += (f"; launch floor {floor[0]:.4f} ms cold, {floor[1]:.4f} "
                     f"ms warm (zero_ of {rows} int32)")
-        if name in ("stab_packed", "stab_naive"):
-            gfloor = gather_floor(args[0], args[-2])
-            out[label]["gather_ms"], out[label]["gather_warm_ms"] = gfloor
-            lib += (f"; gather floor {gfloor[0]:.4f} ms cold, "
-                    f"{gfloor[1]:.4f} ms warm (index_select of "
-                    f"{tuple(args[0].shape)} by cs)")
         shapes = " x ".join(str(tuple(a.shape)) for a in args
                             if hasattr(a, "shape"))
         print(f"  time {label}: {rows} rows ({shapes}), kernel {ms:.4f} ms "
@@ -2232,8 +2212,7 @@ def main() -> int:
             "library_ms": t["library_ms"], "library": t["library"],
             **{key: t[key] for key in ("plain_at", "ms_at_plain_shape",
                                        "library_expanded_ms", "warm_ms",
-                                       "floor_ms", "floor_warm_ms",
-                                       "gather_ms", "gather_warm_ms")
+                                       "floor_ms", "floor_warm_ms")
                if key in t}})
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_expanded_ms", "plain_at", "ms_at_plain_shape")
