@@ -28,9 +28,17 @@ training on the card:
            phase's (kernel 1).
   phase2   a weak index (k=1, no seeds) over 1M nodes with the sparse
            phase 2, at the default frontier cap and at cap 256, which
-           forces the overflow retry (kernels 1, 3, 4).
+           forces the overflow retry (kernels 1, 3, 4). At the default
+           cap each expansion call is one CUDA graph: kernels 3 and 4
+           launch once a BFS step, set-up and clean-up once a call (as
+           the kernels count their own launches on the device) and the
+           host syncs once a call (checked); steps, syncs and launches a
+           step are printed, the profiler's launches beside the
+           kernels' counts, and one call is split by part on host clocks
+           at the graph call's own marks.
   seeds64  a weak index (k=1) with 64 seeds over 1M nodes: the 12-array
-           layout, in phase 1 and in the sparse phase 2 (kernels 2, 3).
+           layout, in phase 1 and in the sparse phase 2 (kernels 2, 3, 4;
+           stepped from the host, a sync a step).
   dense    the dense phase 2 on a graph of ≤ 8192 condensed nodes.
   recsys   MIND at its published widths (2^23-item table, D 64, 4
            interests, 3 routing rounds, history 50) through
@@ -75,13 +83,19 @@ reads them just after; the reachability phases hold their answers against
 the host guided DFS (``core.query.QueryEngine``), and kernels 1 and 2
 against their plain versions on each phase's largest and smallest calls;
 the model phases against the CPU (rtol 1e-4, atol 1e-5 times the output's
-largest magnitude, at least 1). Any mismatch or exception exits non-zero.
+largest magnitude, at least 1). Kernels 3 and 4 are held word for word
+(the whole step state) against their plain versions on a random step of
+2^20 candidates, on every step of the phase2 and seeds64 phases' largest
+and smallest expansion calls and first overflowing one (each replayed
+step by step with the kernels' own wrappers, its answers equal to the
+served call's), and on a call whose sources are the phase2 index's hubs
+(the COO tail swept). Any mismatch or exception exits non-zero.
 The main phase also splits one micro-batch of ``QuerySession.query`` by
-part on host clocks. Each kernel is timed at its path's largest call;
-kernels 1 and 2 also at the 2^20-query parity calls (K 1, 8, 32) and
-kernel 1 at the dense phase's largest call, and kernels 1, 2 and 4 beside
-their launch floor (``zero_()`` of an output as large, timed the same
-way).
+part on host clocks. Each kernel is timed at its path's largest call
+(kernels 3 and 4 at the phase2 step of most candidates); kernels 1 and 2
+also at the 2^20-query parity calls (K 1, 8, 32) and kernel 1 at the
+dense phase's largest call, and kernels 1 to 4 beside their launch floor
+(``zero_()`` of an output as large, timed the same way).
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -91,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import json
 import subprocess
 import sys
@@ -393,30 +408,10 @@ def kernel_parity(dev):
     g.manual_seed(0)
     err = {name: (0, 0, 0.0) for name in KERNELS}
     stab_calls = stab_parity(g, dev, err)
-    # kernel 3: 2^20 candidates of 256 queries over a 2^20-node bitset
-    q, nn, c = 256, 1 << 20, PARITY_ROWS
-    i32 = dict(device=dev, dtype=torch.int32)
-    cq = torch.randint(0, q, (c,), generator=g, **i32)
-    cv = torch.randint(0, nn, (c,), generator=g, **i32)
-    ok = (torch.rand(c, generator=g, device=dev) < 0.8).to(torch.int32)
-    visited = torch.randint(-2**31, 2**31 - 1, (q, nn // 32), generator=g,
-                            **i32)
-    pos = (torch.rand(q, generator=g, device=dev) < 0.2).to(torch.int32)
-    _tally(err, "probe", _compare(
-        "probe", ff.probe(cq, cv, ok, visited, pos, 20),
-        ff.probe_plain(cq, cv, ok, visited, pos, 20)))
-    del visited
-    # kernel 4: 2^20 survivors with their gathered rows, K = 8
-    meta, slab = packed_tables(g, 1 << 20, 8, dev)
-    cs, ct = query_pairs(g, 1 << 20, c, dev)
-    keys = torch.randint(0, 2**30, (c,), generator=g, **i32)
-    keys[::5] = 2**31 - 1
-    args = (meta[cs.long()], meta[ct.long()], slab[cs.long()], keys,
-            (cs == ct).to(torch.int32))
-    _tally(err, "classify_emit", _compare(
-        "classify_emit", ff.classify_emit(*args),
-        ff.classify_emit_plain(*args)))
-    del meta, slab, args
+    # kernels 3 and 4: one step of 256 queries over 2^20 nodes, a front of
+    # 16,384 entries by ELL width 64 (2^20 candidates), cap 16,384 (kernel
+    # 4's one-block form at its largest), overflowing
+    hold_step(random_step(g, dev), "random 2^20-candidate step", err)
     # kernel 5: the build's working widths, k = w_out as the build calls it
     from repro_torch.kernels import merge_cover as mc
     # (and rows that are no multiple of a block's 128, begins staged up to
@@ -581,14 +576,17 @@ def flash_bwd_parity(label, args) -> dict:
 L2_FLUSH_BYTES = 256 << 20     # > the H100's 50 MB L2
 
 
-def device_ms(fn, reps: int = 30, cold: bool = True) -> float:
+def device_ms(fn, reps: int = 30, cold: bool = True, prep=None) -> float:
     """Median device time of one call from a pair of CUDA events around
     each of ``reps`` calls. All are queued behind a sleep kernel, so host
     launch overhead opens no gaps. With ``cold``, a 256 MiB write before
     each call evicts the L2, so the call reads its inputs from device
     memory, as the bound assumes; without it, repeated calls on the same
-    inputs find them in the L2."""
+    inputs find them in the L2. ``prep`` (outside the events) restores
+    what a call changes that the next one reads."""
     import torch
+    if prep:
+        prep()
     fn()
     torch.cuda.synchronize()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -596,7 +594,9 @@ def device_ms(fn, reps: int = 30, cold: bool = True) -> float:
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(100_000_000)           # ~50 ms of queued work
     for start, end in events:
-        if cold:
+        if prep:
+            prep()
+        if cold:                  # after prep: what prep wrote is evicted
             flush.fill_(1)
         start.record()
         fn()
@@ -612,19 +612,35 @@ class Recorder:
     wrappers themselves."""
 
     def __init__(self):
-        from repro_torch.kernels import frontier_fused as ff
         from repro_torch.kernels import ops
         self.reset()
         self._orig = {}
         for mod, name in ((ops, "stab_packed"), (ops, "stab_naive"),
-                          (ff, "probe"), (ops, "classify_emit"),
                           (ops, "retrieval_score"), (ops, "batched_mp")):
             fn = getattr(mod, name)
             self._orig[(mod, name)] = fn
             setattr(mod, name, self._wrap(name, fn))
+        self._orig[(ops, "expand_frontier")] = ops.expand_frontier
+        ops.expand_frontier = self._wrap_expand(ops.expand_frontier)
 
-    ROWS_ARG = {"stab_packed": -2, "stab_naive": -2, "probe": 0,
-                "classify_emit": -1, "retrieval_score": 0, "batched_mp": 0}
+    ROWS_ARG = {"stab_packed": -2, "stab_naive": -2, "retrieval_score": 0,
+                "batched_mp": 0}
+
+    def _wrap_expand(self, fn):
+        # kernels 3 and 4 run inside the sparse loop (a graph on the card):
+        # keep each expansion call's inputs, its steps and its result, to
+        # replay it step by step with the kernels' own wrappers
+        from repro_torch.kernels import frontier_fused as ff
+
+        def wrapped(dev, *args, **kw):
+            before = ff.STEPS["steps"]
+            out = fn(dev, *args, **kw)
+            if args[4].is_cuda:
+                self.expansions.append(dict(
+                    dev=dev, args=args, kw=kw, pos=out[0].numpy(),
+                    overflow=out[1], steps=ff.STEPS["steps"] - before))
+            return out
+        return wrapped
 
     def _wrap(self, name, fn):
         # references, not copies: copying would add to the served time;
@@ -653,6 +669,7 @@ class Recorder:
         self.calls = {}
         self.small = {}
         self.sizes = {}
+        self.expansions = []
         # kernel 9: calls of each (B, N, F, H), and the first one's inputs
         self.mp_shapes = collections.Counter()
         self.mp_calls = {}
@@ -709,9 +726,7 @@ def work_of(name, args):
     Each input element the result depends on is read once — a table row,
     bitset word or flag that several queries gather counts once — and
     each output is written once. Rows the result does not depend on are
-    not counted: those of cs == ct pairs, of candidates with ok == 0 (and
-    the answered flag of one already visited), of SENTINEL slots, and of
-    slots that are their query's target."""
+    not counted: those of cs == ct pairs. Kernels 3 and 4: ``step_work``."""
     if name == "stab_packed":
         meta, slab, cs, ct = args
         k = slab.shape[1] // 2
@@ -727,16 +742,6 @@ def work_of(name, args):
         nbytes = (q * 12 + _distinct(s, t) * (8 + 8 * w)
                   + _distinct(s) * 12 * k + _distinct(t) * 4)
         return nbytes, int(live.sum()) * (6 * k + 8 * w + 10) + q
-    if name == "probe":
-        cq, cv, ok, visited, pos, _ = args
-        c, valid = cq.shape[0], ok != 0
-        q, v = cq[valid].long(), cv[valid].long()
-        word = visited[q, v >> 5]
-        fresh = ((word >> (v & 31)) & 1) == 0
-        nbytes = (c * 8 + int(valid.sum()) * 8
-                  + _distinct(q * visited.shape[1] + (v >> 5)) * 4
-                  + _distinct(q[fresh]) * 4)
-        return nbytes, c * 2 + int(valid.sum()) * 10
     if name == "retrieval_score":
         cands, ints = args
         (c, d), i = cands.shape, ints.shape[0]
@@ -781,12 +786,7 @@ def work_of(name, args):
         nbytes = (valid * 12 + int((n_valid < m).sum()) * 4
                   + rows * (12 * w_out + 4))
         return nbytes, valid * 10
-    meta_s, meta_t, slab_s, keys, eq = args
-    c, k = keys.shape[0], slab_s.shape[1] // 2
-    live = keys != 2**31 - 1
-    rows = int((live & (eq == 0)).sum())
-    return (c * 12 + int(live.sum()) * 4 + rows * (32 + 8 * k),
-            c * 2 + rows * (6 * k + 30))
+    raise KeyError(name)
 
 
 # The yardstick of kernels 9 and 10: no single PyTorch call computes
@@ -807,9 +807,9 @@ LIBRARY_PAIRS = {
 }
 
 
-# kernels timed beside their launch floor: the verdict kernels, whose
-# path's calls move well under a microsecond of bytes
-FLOOR_KERNELS = ("stab_packed", "stab_naive", "classify_emit")
+# kernels timed beside their launch floor: the verdict kernels and the
+# BFS step's two, whose path's calls move well under a microsecond of bytes
+FLOOR_KERNELS = ("stab_packed", "stab_naive", "probe", "classify_emit")
 
 
 def launch_floor(rows: int) -> tuple:
@@ -824,21 +824,19 @@ def launch_floor(rows: int) -> tuple:
 def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
     """Times each kernel at ``recorded[name]`` (the path's largest call),
     and at each ``(name, label, call)`` of ``extra``, which is printed and
-    returned under ``label``. Kernels 1, 2 and 4 also get their launch
-    floor (``launch_floor``) on an output of the call's rows."""
+    returned under ``label``. Kernels 1 and 2 also get their launch floor
+    (``launch_floor``) on an output of the call's rows; kernels 3 and 4
+    are timed by ``time_step_kernels``."""
     from repro_torch.kernels import batched_mp as bm
-    from repro_torch.kernels import frontier_fused as ff
     from repro_torch.kernels import interval_stab as st
     from repro_torch.kernels import merge_cover as mc
     from repro_torch.kernels import retrieval_score as rs
     plain = {"stab_packed": st.stab_packed_plain,
              "stab_naive": st.stab_naive_plain,
-             "probe": ff.probe_plain, "classify_emit": ff.classify_emit_plain,
              "merge_cover": mc.merge_cover_plain,
              "retrieval_score": rs.retrieval_score_plain,
              "batched_mp": bm.batched_mp_plain}
     kernel = {"stab_packed": st.stab_packed, "stab_naive": st.stab_naive,
-              "probe": ff.probe, "classify_emit": ff.classify_emit,
               "merge_cover": mc.merge_cover,
               "retrieval_score": rs.retrieval_score,
               "batched_mp": bm.batched_mp}
@@ -1010,6 +1008,360 @@ def hold_stab_calls(rec, phase: str, err: dict) -> None:
                 _tally(err, name, _compare(
                     f"{name} on the {phase} phase's {which} call ({rows} "
                     f"rows)", fn(*args), plain(*args)))
+
+
+# ------------------------------------------- kernels 3 and 4 (BFS step)
+def random_step(g, dev, q: int = 256, n: int = 1 << 20, w: int = 64,
+                cap: int = 16384):
+    """A random step state: Q queries over n nodes with ELL width W (a
+    fifth of the slots empty), a front of ~cap distinct keys, visited
+    words of 1 bit in 8, a fifth of the queries answered, packed tables at
+    K 8. Returns (state, tables)."""
+    import torch
+
+    from repro_torch.kernels import frontier_fused as ff
+    i32 = dict(device=dev, dtype=torch.int32)
+    ell = torch.randint(0, n, (n, w), generator=g, **i32)
+    ell[torch.rand((n, w), generator=g, device=dev) < 0.2] = -1
+    meta, slab = packed_tables(g, n, 8, dev)
+    st = ff.StepState(q=q, n_nodes=n, w=w, m_t=0, cap=cap, max_steps=2,
+                      device=dev)
+    keys = torch.unique((torch.randint(0, q, (cap,), generator=g, **i32)
+                         << st.vbits)
+                        | torch.randint(0, n, (cap,), generator=g, **i32))
+    st.front[:keys.numel()] = keys
+    st.visited.copy_(torch.randint(-2**31, 2**31 - 1, st.visited.shape,
+                                   generator=g, **i32)
+                     & torch.randint(-2**31, 2**31 - 1, st.visited.shape,
+                                     generator=g, **i32)
+                     & torch.randint(-2**31, 2**31 - 1, st.visited.shape,
+                                     generator=g, **i32))
+    st.pos.copy_((torch.rand(q, generator=g, device=dev) < 0.2).int())
+    ct = torch.randint(0, n, (q,), generator=g, **i32)
+    ff._put(st.ctl, {ff.RUN: 1, ff.N_FRONT: keys.numel(), ff.EPOCH: 1})
+    empty = torch.zeros(0, **i32)
+    tables = dict(ell=ell, tail_src=empty, tail_dst=empty,
+                  is_hub=torch.zeros(n, dtype=torch.bool, device=dev),
+                  meta=meta, slab=slab, ct=ct)
+    return st, tables, None, False
+
+
+def _plain_dedup(st, tables, classify, distinct):
+    from repro_torch.kernels import frontier_fused as ff
+    fetch_rows, classify = ff.plain_hooks(tables, classify)
+    ff.dedup_classify_emit_plain(st, tables["ct"], tables["is_hub"],
+                                 fetch_rows=fetch_rows, classify=classify,
+                                 distinct_overflow=distinct)
+
+
+def _state_words(st, after_probe=False):
+    """The words of a state the step writes, for an exact comparison (the
+    launch counters aside, which the plain versions leave alone, and the
+    tile counter after kernel 3 alone: it counts tiles taken)."""
+    from repro_torch.kernels import frontier_fused as ff
+    words = st.state.clone()
+    words[ff.LAUNCH_WORDS] = 0
+    if after_probe:
+        words[ff.TILE] = 0
+    ctl = words.tolist()
+    out = [words, st.slots, st.visited, st.front[:ctl[ff.N_FRONT]],
+           st.log[:ctl[ff.LOG_N]]]
+    return tuple(out + ([] if st.fbits is None else [st.fbits]))
+
+
+def hold_step(call, label, err) -> None:
+    """Kernel 3, then kernel 4, on a copy of a step state against their
+    plain versions on another copy (on the card), every word compared;
+    tallied into ``err``."""
+    from repro_torch.kernels import frontier_fused as ff
+    st, tables, classify, distinct = call
+    got, want = st.clone(), st.clone()
+    ff.expand_probe(got, tables)
+    ff.expand_probe_plain(want, tables["ell"], tables["tail_src"],
+                          tables["tail_dst"])
+    _tally(err, "probe", _compare(
+        f"probe {label} (raw {int(want.ctl[ff.RAW])}, cap {st.cap})",
+        _state_words(got, True), _state_words(want, True)))
+    ff.dedup_classify_emit(got, tables, classify=classify,
+                           distinct_overflow=distinct)
+    _plain_dedup(want, tables, classify, distinct)
+    _tally(err, "classify_emit", _compare(
+        f"classify_emit {label} (next front {int(want.ctl[ff.N_FRONT])}, "
+        f"overflow {int(want.ctl[ff.OVF])})", _state_words(got),
+        _state_words(want)))
+
+
+def replay_call(call):
+    """A recorded expansion call stepped from the host with kernels 3 and
+    4's own wrappers (``frontier_fused._stepped_call``): [(state before
+    the step, tables, classify, distinct)], and the call's (pos,
+    overflow) that way."""
+    from repro_torch.kernels import frontier_fused as ff
+    from repro_torch.kernels import ops
+    dev, (ell, tsrc, tdst, is_hub, cs, ct, pad) = call["dev"], call["args"]
+    fused = "slab" in dev
+    st = ff.StepState(q=cs.shape[0], n_nodes=ell.shape[0], w=ell.shape[1],
+                      m_t=tsrc.shape[0], cap=call["kw"]["cap"],
+                      max_steps=call["kw"]["max_steps"], device=cs.device)
+    tables = ff._tables(ell, tsrc, tdst, is_hub, st.ct, {
+        "meta": dev["meta"], "slab": dev["slab"]} if fused else None)
+    classify = ops.frontier_classify(dev)
+    states = []
+    host = ff._stepped_call(
+        st, tables, cs, ct, pad, classify=classify,
+        distinct_overflow=not fused,
+        on_step=lambda s: states.append((s.clone(), tables, classify,
+                                         not fused)))
+    return states, (host[ff.CTL_WORDS:] != 0, bool(host[ff.OVF]))
+
+
+def _candidates(st) -> int:
+    from repro_torch.kernels import frontier_fused as ff
+    ctl = st.ctl.tolist()
+    return ctl[ff.N_FRONT] * st.w + (st.q * st.m_t if ctl[ff.HUB] else 0)
+
+
+def hold_step_calls(rec, phase: str, err: dict, kept: dict) -> None:
+    """Kernels 3 and 4 against their plain versions on every step of the
+    phase's largest and smallest expansion calls (by steps) and of its
+    first overflowing one, each replayed step by step; the replay's
+    answers must equal the served call's. The step of most candidates is
+    kept in ``kept`` for timing."""
+    calls = [c for c in rec.expansions if c["steps"]]
+    if not calls:
+        return
+    picks = {"largest": max(calls, key=lambda c: (c["steps"],
+                                                  c["kw"]["cap"])),
+             "smallest": min(calls, key=lambda c: c["steps"])}
+    ovf = [c for c in calls if c["overflow"]]
+    if ovf:
+        picks["first overflowing"] = ovf[0]
+    for which, call in picks.items():
+        states, (pos, overflow) = replay_call(call)
+        check(np.array_equal(pos, call["pos"])
+              and overflow == call["overflow"],
+              f"{phase}: the stepped replay of the {which} call differs "
+              "from the served one")
+        for i, state in enumerate(states):
+            hold_step(state, f"{phase} {which} call (cap "
+                      f"{call['kw']['cap']}), step {i}", err)
+            rows = _candidates(state[0])
+            if rows > kept.get("rows", -1):
+                kept.update(rows=rows, call=state, phase=phase)
+
+
+def step_work(call):
+    """((bytes, ops) of kernel 3, (bytes, ops) of kernel 4) on a step
+    state: what the step must read and write on this data. Kernel 3: each
+    front key, the ELL rows of its distinct live nodes, with a hub the tail
+    (8 B an edge) and the frontier words its queries' gates read, the
+    visited word and answered flag of each distinct valid candidate, each
+    kept survivor, a few control words; ~10 ops a candidate. Kernel 4: the
+    slots it sorts, the ct of each distinct query, the meta rows of each
+    distinct node and target and the slab rows of each distinct node of
+    the live uniques not their query's target (kernel 2's verdict, 4 B a
+    key, on the 12-array layout), a read and a write of each visited word
+    and answered flag, the log, the old front's hub words and the next
+    front; n log2 n ops to sort, ~(6K + 30) a key."""
+    import math
+
+    import torch
+
+    from repro_torch.kernels import frontier_fused as ff
+    st, tables, classify, distinct = call
+    ctl = st.ctl.tolist()
+    vbits, vmask = st.vbits, (1 << st.vbits) - 1
+    front = st.front[:ctl[ff.N_FRONT]]
+    front = front[front != 2**31 - 1]
+    fq, fv = front >> vbits, front & vmask
+    nbr = tables["ell"][fv.long()]
+    ok = nbr >= 0
+    cq = fq[:, None].expand_as(nbr)[ok].long()
+    cv = nbr[ok].long()
+    b3 = 4 * front.numel() + _distinct(fv) * 4 * st.w
+    if ctl[ff.HUB] and st.fbits is not None:
+        tsrc = tables["tail_src"].long()
+        gate = ((st.fbits[:, tsrc >> 5] >> (tsrc & 31)) & 1) != 0
+        qq, ee = gate.nonzero(as_tuple=True)
+        cq = torch.cat([cq, qq])
+        cv = torch.cat([cv, tables["tail_dst"].long()[ee]])
+        b3 += 8 * tsrc.numel() + 4 * st.q * _distinct(tsrc >> 5)
+    probe = st.clone()
+    ff.expand_probe_plain(probe, tables["ell"], tables["tail_src"],
+                          tables["tail_dst"])
+    pctl = probe.ctl.tolist()
+    n = pctl[ff.RAW] if distinct else min(pctl[ff.RAW], st.cap + 1)
+    b3 += (_distinct(cq * st.n_words + (cv >> 5)) * 4
+           + _distinct(cq) * 4 + n * 4 + 32)
+    done = probe.clone()
+    _plain_dedup(done, tables, classify, distinct)
+    dctl = done.ctl.tolist()
+    keys = done.log[pctl[ff.LOG_N]:dctl[ff.LOG_N]].long()
+    nq, nv = keys >> vbits, keys & vmask
+    nt = tables["ct"].long()[nq]
+    rows = nv != nt
+    m = keys.numel()
+    b4 = (4 * n + 12 * _distinct(nq) + 8 * _distinct(nq * st.n_words
+                                                    + (nv >> 5))
+          + 4 * m + 4 * dctl[ff.N_FRONT] + 32)
+    if st.fbits is not None:
+        b4 += 4 * ctl[ff.N_FRONT]
+    if classify is None:
+        k = tables["slab"].shape[1] // 2
+        b4 += (16 * _distinct(nv[rows], nt[rows])
+               + 8 * k * _distinct(nv[rows]))
+    else:
+        k = 0
+        b4 += 4 * m
+    ops4 = n * max(1, math.ceil(math.log2(max(n, 2)))) + m * (6 * k + 30)
+    return (b3, 10 * _candidates(st)), (b4, ops4)
+
+
+def time_step_kernels(kept: dict) -> dict:
+    """Kernels 3 and 4 timed on the kept step (the path's step of most
+    candidates) with ``device_ms``, each call's inputs restored outside the
+    events (kernel 3: its tile counter and epoch; kernel 4: the state
+    kernel 3 left), beside their plain versions, their bound and the
+    launch floor (``zero_()`` of an int32 output of the step's candidates,
+    of its slots for kernel 4)."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import frontier_fused as ff
+    st, tables, classify, distinct = call = kept["call"]
+    (b3, o3), (b4, o4) = step_work(call)
+    out = {}
+    probe_st = st.clone()
+    args3 = probe_st.args(tables)
+
+    def prep3():
+        probe_st.state[ff.TILE].zero_()
+        probe_st.state[ff.EPOCH].add_(1)
+
+    def kernel3():
+        _lib.launch(None, "reach_expand_probe", probe_st.device,
+                    ctypes.addressof(args3))
+    plain3 = st.clone()
+
+    def run_plain3():
+        ff.expand_probe_plain(plain3, tables["ell"], tables["tail_src"],
+                              tables["tail_dst"])
+    after = st.clone()
+    ff.expand_probe(after, tables)
+    step_st = after.clone()
+    saved = (after.state, after.front, after.visited, after.fbits)
+
+    def prep4():
+        for dst, src in zip((step_st.state, step_st.front, step_st.visited,
+                             step_st.fbits), saved):
+            if src is not None:
+                dst.copy_(src)
+
+    def kernel4():
+        ff.dedup_classify_emit(step_st, tables, classify=classify,
+                               distinct_overflow=distinct)
+
+    def run_plain4():
+        _plain_dedup(step_st, tables, classify, distinct)
+    rows3 = _candidates(st)
+    rows4 = int(after.ctl[ff.RAW])
+    # each kernel's own launch shape returning at once (RUN 0): kernel 3's
+    # resident grid, kernel 4's one block of 1024 threads with its
+    # shared memory
+    idle3, idle4 = st.clone(), after.clone()
+    idle3.state[ff.RUN] = 0
+    idle4.state[ff.RUN] = 0
+    idle = {"probe": idle3.args(tables), "classify_emit": idle4.args(tables)}
+    entry = {"probe": "reach_expand_probe",
+             "classify_emit": "reach_dedup_classify_emit"}
+    for name, fn, prep, plain, rows, nbytes, ops in (
+            ("probe", kernel3, prep3, run_plain3, rows3, b3, o3),
+            ("classify_emit", kernel4, prep4, run_plain4,
+             min(rows4, st.cap + 1), b4, o4)):
+        ms = device_ms(fn, prep=prep)
+        warm_ms = device_ms(fn, cold=False, prep=prep)
+        plain_ms = device_ms(plain, prep=prep if name != "probe" else None)
+        floor = launch_floor(max(rows, 1))
+        at_once = device_ms(lambda: _lib.launch(
+            None, entry[name], st.device, ctypes.addressof(idle[name])))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / ALU_OPS_PER_S * 1e3
+        out[name] = dict(rows=rows, ms=ms, warm_ms=warm_ms,
+                         plain_ms=plain_ms, library=None, library_ms=None,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else
+                         "operations", bytes=nbytes, ops=ops,
+                         err=(0, 0, 0.0), floor_ms=floor[0],
+                         floor_warm_ms=floor[1], at_once_ms=at_once)
+        print(f"  time {name} ({kept['phase']} step of {rows3} candidates, "
+              f"{rows4} survivors, cap {st.cap}, hub "
+              f"{int(st.ctl[ff.HUB])}): kernel {ms:.6f} ms (L2 cold; "
+              f"{warm_ms:.6f} ms L2 warm), plain {plain_ms:.4f} ms; launch "
+              f"floor {floor[0]:.6f} ms cold, {floor[1]:.6f} ms warm (zero_ "
+              f"of {max(rows, 1)} int32), its own launch returning at once "
+              f"{at_once:.6f} ms, bound "
+              f"{out[name]['bound_ms']:.7f} ms ({nbytes} B, {ops} ops; "
+              f"{out[name]['bound_by']})", flush=True)
+    torch.cuda.synchronize()
+    return out
+
+
+def sparse_host_split(sess, call, reps: int = 101) -> dict:
+    """One expansion call of the served path (``call``, recorded, at its
+    cap) split by part on host clocks: ``frontier_fused._graph_call``
+    marks its own boundaries (``StepState.mark``), with a sync at each
+    but the enqueue. Each part runs to the mark that ends it: the engine
+    before the call (pad to the card, checks, workspace lookup), the three
+    input copies, the graph launch (enqueue), the graph's run (final
+    sync), the control words and pos back and numpy (read-back), the
+    engine after. Median [quartiles] of ``reps``, the whole call unmarked
+    beside it."""
+    import torch
+    eng = sess.engine
+    cs, ct, pad = call["args"][4:7]
+    cap = call["kw"]["cap"]
+    pad_np = pad.cpu().numpy()
+    st = next(v for v in eng._sparse_state.values()
+              if v.cap == cap and v.graph is not None)
+    times = collections.defaultdict(list)
+    stamps = []
+
+    def mark(label, sync=True):
+        if sync:
+            torch.cuda.synchronize()
+        stamps.append((label, time.perf_counter()))
+    parts = {"call": "engine before the call (pad to the card, checks, "
+                     "workspace lookup)",
+             "inputs": "input copies (3)", "enqueue": "enqueue (graph launch)",
+             "run": "final sync (the graph's run)",
+             "read": "read-back (control words and pos, numpy)",
+             "end": "engine after the call"}
+    for marked in (False, True):
+        for _ in range(reps):
+            stamps.clear()
+            st.mark = mark if marked else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._expand_chunk(cs, ct, pad_np, cap)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st.mark = None
+            times["whole" if marked else "unmarked"].append((t1 - t0) * 1e3)
+            prev = t0
+            for label, t in (stamps + [("end", t1)] if marked else []):
+                times[parts[label]].append((t - prev) * 1e3)
+                prev = t
+    q1, med, q3 = ({key: float(np.percentile(v, p))
+                    for key, v in times.items()} for p in (25, 50, 75))
+    unmarked, whole = med.pop("unmarked"), med.pop("whole")
+    print(f"  host split of one expansion call (cap {cap}, {cs.shape[0]} "
+          f"queries; median [quartiles] of {reps}, host clocks): unmarked "
+          f"{unmarked:.4f} ms [{q1['unmarked']:.4f}, {q3['unmarked']:.4f}]; "
+          f"marked (a sync at each boundary) {whole:.4f} ms "
+          f"[{q1['whole']:.4f}, {q3['whole']:.4f}] = " + ", ".join(
+              f"{k} {v:.4f} ms ({v / whole:.1%}) [{q1[k]:.4f}, {q3[k]:.4f}]"
+              for k, v in med.items()), flush=True)
+    return dict(whole_ms=whole, unmarked_ms=unmarked, **med)
 
 
 def host_split(sess, s, t, reps: int = 101) -> dict:
@@ -1212,15 +1564,123 @@ def wavefront_phase(dev, rec, main):
     return counts, (largest[0].shape[0], largest)
 
 
-def phase2_phase(dev, rec):
+def _sparse_line(counts, rec) -> None:
+    steps = counts["sparse_steps"]
+    print(f"  sparse loop: {len(rec.expansions)} expansion calls, {steps} "
+          f"steps, {counts['sparse_syncs']} syncs, "
+          f"{counts['sparse_launches']} launches of kernels 3 and 4 "
+          f"({counts['sparse_launches'] / max(steps, 1):.2f} a step), "
+          f"{counts['sparse_helpers']} of set-up and clean-up", flush=True)
+
+
+# the sparse loop's kernels as the profiler names them
+STEP_KERNELS = {"probe": "expand_probe_kernel",
+                "classify_emit": "dedup_classify_emit_kernel",
+                "helpers": ("setup_kernel", "cleanup_kernel")}
+
+
+def listed_step_kernels(rows) -> dict:
+    """The profiler's launches of the sparse loop's kernels (rows of
+    ``profile_window``), keyed as their counters."""
+    out = dict.fromkeys(STEP_KERNELS, 0)
+    for _, count, key in rows:
+        for name, kernels in STEP_KERNELS.items():
+            kernels = kernels if isinstance(kernels, tuple) else (kernels,)
+            if any(f"::{k}(" in key for k in kernels):
+                out[name] += count
+    return out
+
+
+def profile_launch_counts(fn, label):
+    """Runs ``fn`` under the profiler (``profile_window``) and prints the
+    profiler's launches of the loop's kernels beside the kernels' own
+    counts in the same run."""
+    _, wall = _timed(fn)
+    reset_counters()
+    listed = listed_step_kernels(profile_window(fn, label, wall=wall))
+    c = read_counters()
+    counted = {"probe": c["probe"], "classify_emit": c["classify_emit"],
+               "helpers": c["sparse_helpers"]}
+    print(f"  profiler lists {listed}; the kernels counted {counted} over "
+          f"{c['sparse_steps']} steps", flush=True)
+    return listed, counted
+
+
+def profiler_loss(sess, rec, reps: int = 30) -> None:
+    """Why the profiler lists fewer launches than the kernels count: the
+    phase's largest call, each run under a profiler of its own, ``reps``
+    times each way — served through the engine's graph (built before the
+    profiler ran), through a graph built under the profiler (a fresh
+    workspace each run), and stepped from the host (standalone launches,
+    ``replay_call``): per run, the profiler's launches of kernels 3 and 4
+    against their counters."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import frontier_fused as ff
+    call = max(rec.expansions, key=lambda c: c["steps"])
+    dev, (ell, tsrc, tdst, is_hub, cs, ct, pad) = call["dev"], call["args"]
+    pad_np = pad.cpu().numpy()
+    cap = call["kw"]["cap"]
+
+    def fresh():
+        ff.expand_frontier_loop_fused(
+            ell, tsrc, tdst, is_hub, cs, ct, pad, n_nodes=ell.shape[0],
+            max_steps=call["kw"]["max_steps"], cap=cap,
+            tables={"meta": dev["meta"], "slab": dev["slab"]},
+            workspaces={})
+    for how, fn in (("engine's graph", lambda: sess.engine._expand_chunk(
+            cs, ct, pad_np, cap)), ("a graph built under the profiler",
+                                    fresh),
+            ("stepped", lambda: replay_call(call))):
+        runs = collections.Counter()
+        for _ in range(reps):
+            reset_counters()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            listed = listed_step_kernels(
+                [(0, e.count, e.key) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA])
+            c = read_counters()
+            runs[(listed["probe"], c["probe"], listed["classify_emit"],
+                  c["classify_emit"])] += 1
+        print(f"  profiler vs counters, the largest call ({call['steps']} "
+              f"steps) {how}, {reps} runs: " + ", ".join(
+                  f"{n}x probe {a}/{b}, classify_emit {x}/{y}"
+                  for (a, b, x, y), n in sorted(runs.items())), flush=True)
+
+
+def hub_call(sess, q: int, cap: int):
+    """An expansion call on ``sess``'s index whose Q sources are its hubs,
+    in turn (the COO tail swept at the first step: Q x m_t candidates),
+    and whose targets are random."""
+    import torch
+    eng = sess.engine
+    ell, tsrc, tdst, is_hub = eng._ell()
+    hubs = torch.nonzero(is_hub).flatten().int()
+    hubs = hubs[torch.arange(q, device=hubs.device) % hubs.numel()]
+    g = torch.Generator(device=hubs.device)
+    g.manual_seed(1)
+    ct = torch.randint(0, eng.packed.n, (q,), generator=g,
+                       device=hubs.device, dtype=torch.int32)
+    pad = torch.zeros(q, dtype=torch.bool, device=hubs.device)
+    return dict(dev=eng.dev, args=(ell, tsrc, tdst, is_hub, hubs, ct, pad),
+                kw=dict(max_steps=1, cap=cap))
+
+
+def phase2_phase(dev, rec, err):
     from repro_torch.core.workload import random_queries
+    from repro_torch.kernels import frontier_fused as ff
     from repro_torch.graphs.generators import scale_free_digraph
     from repro_torch.reach import IndexSpec
     print(f"phase2: scale_free_digraph({SIDE_NODES}, 4.0), k=1, no seeds, "
           "sparse phase 2", flush=True)
     g = scale_free_digraph(SIDE_NODES, 4.0, seed=3)
     qs, qt = random_queries(g, 1 << 18, seed=4)
-    out, built = {}, None
+    out, built, kept = {}, None, {}
     for cap in (IndexSpec.frontier_cap, 256):
         spec = IndexSpec(k=1, use_seeds=False, phase2_mode="sparse",
                          frontier_cap=cap)
@@ -1231,22 +1691,46 @@ def phase2_phase(dev, rec):
         ans, st = serve(sess, qs, qt, f"frontier_cap={cap}")
         counts, calls = read_counters(), dict(rec.calls)
         print(f"  counts: {counts}", flush=True)
+        _sparse_line(counts, rec)
         check(st.phase2_sparse > 0, "phase2: no sparse phase-2 traffic")
+        if cap == IndexSpec.frontier_cap:
+            # one graph a call: kernels 3 and 4 once a step, one sync a call
+            check(counts["probe"] == counts["classify_emit"]
+                  == counts["sparse_steps"] > 0, "phase2: kernels 3 and 4 "
+                  "must launch once a BFS step")
+            check(counts["sparse_syncs"] == len(rec.expansions),
+                  "phase2: one host sync a call")
+            check(counts["sparse_helpers"] == 2 * len(rec.expansions),
+                  "phase2: set-up and clean-up must launch once a call")
         if cap == 256:
             check(st.sparse_retries > 0, "phase2: cap 256 did not retry")
             print(f"  sparse_retries > 0: {st.sparse_retries}", flush=True)
         hold_to_host(ix, sess, qs, qt, ans, 2000, f"cap={cap}")
-        profile_window(lambda: sess.query(qs, qt),
-                       f"cap={cap}, {qs.size} queries")
+        hold_step_calls(rec, f"phase2 cap {cap}", err,
+                        kept if cap == IndexSpec.frontier_cap else {})
+        if cap == IndexSpec.frontier_cap:
+            largest = max(rec.expansions, key=lambda c: c["steps"])
+            sparse_host_split(sess, largest)
+            profiler_loss(sess, rec)
+            states, _ = replay_call(hub_call(sess, 256, cap))
+            check(int(states[0][0].ctl[ff.HUB]) == 1,
+                  "phase2: the hub call's first front has no hub")
+            for i, state in enumerate(states):
+                hold_step(state, f"phase2 hub call (256 hub sources, cap "
+                          f"{cap}, {_candidates(state[0])} candidates), "
+                          f"step {i}", err)
+            del states
+        profile_launch_counts(lambda: sess.query(qs, qt),
+                              f"cap={cap}, {qs.size} queries")
         out.setdefault("counts", counts)
         out.setdefault("calls", calls)
         out.setdefault("answers", ans)
         check(np.array_equal(out["answers"], ans),
               "phase2: answers differ between the two caps")
-    return out["counts"], out["calls"]
+    return out["counts"], out["calls"], kept
 
 
-def seeds64_phase(dev, rec):
+def seeds64_phase(dev, rec, err):
     from repro_torch.core.workload import random_queries
     from repro_torch.graphs.generators import scale_free_digraph
     from repro_torch.reach import IndexSpec
@@ -1264,9 +1748,11 @@ def seeds64_phase(dev, rec):
     ans, st = serve(sess, qs, qt, "random")
     counts, calls = read_counters(), dict(rec.calls)
     print(f"  counts: {counts}", flush=True)
+    _sparse_line(counts, rec)
     check(st.phase2_sparse > 0, "seeds64: no sparse phase-2 traffic")
     check(counts["probe"] > 0, "seeds64: phase 2 did not launch kernel 3")
     hold_to_host(ix, sess, qs, qt, ans, 2000, "seeds64")
+    hold_step_calls(rec, "seeds64", err, {})
     return counts, calls
 
 
@@ -2129,9 +2615,9 @@ def main() -> int:
         hold_stab_calls(rec, "wavefront (loaded index)", err)
         del main_out
         done("wavefront")
-        p2_counts, p2_calls = phase2_phase(dev, rec)
+        p2_counts, p2_calls, p2_kept = phase2_phase(dev, rec, err)
         hold_stab_calls(rec, "phase2 (cap 256)", err)
-        s64_counts, s64_calls = seeds64_phase(dev, rec)
+        s64_counts, s64_calls = seeds64_phase(dev, rec, err)
         hold_stab_calls(rec, "seeds64", err)
         dense_counts, dense_calls = dense_phase(dev, rec)
         hold_stab_calls(rec, "dense", err)
@@ -2159,15 +2645,14 @@ def main() -> int:
     check(dense_counts["stab_packed"] > 0, "dense: kernel 1 not launched")
     check(wf_counts["stab_packed"] > 0, "wavefront: the loaded index did "
           "not serve through kernel 1")
-    print(f"  sparse steps/syncs on phase2: {p2_counts['sparse_steps']}/"
-          f"{p2_counts['sparse_syncs']} (one host sync per BFS step, plus "
-          "one per expansion call)", flush=True)
+    print(f"  sparse steps/syncs/launches on phase2: "
+          f"{p2_counts['sparse_steps']}/{p2_counts['sparse_syncs']}/"
+          f"{p2_counts['sparse_launches']} (one graph a call: a sync a "
+          "call, kernels 3 and 4 once a step)", flush=True)
 
     print("times (CUDA events, the path's own inputs):", flush=True)
     recorded = {"stab_packed": main_calls["stab_packed"],
                 "stab_naive": s64_calls["stab_naive"],
-                "probe": p2_calls["probe"],
-                "classify_emit": p2_calls["classify_emit"],
                 "merge_cover": wf_call,
                 "retrieval_score": rs_calls["retrieval_score"],
                 "batched_mp": gnn_calls["largest"]["batched_mp"]}
@@ -2185,6 +2670,7 @@ def main() -> int:
         *(("batched_mp", f"batched_mp (B={b} N={n} F={f} H={h})", call)
           for (b, n, f, h), call in sorted(gnn_calls["mp_shapes"].items())
           if call[1] is not largest and call[1] is not smallest[1])))
+    times.update(time_step_kernels(p2_kept))
     times["flash_fwd"] = lm_time          # timed in the lm phase
     train_fwd = train_time.pop("flash_fwd")
     a, b = lm_time["err"], train_fwd["err"]   # both held against plain
@@ -2212,7 +2698,8 @@ def main() -> int:
             "library_ms": t["library_ms"], "library": t["library"],
             **{key: t[key] for key in ("plain_at", "ms_at_plain_shape",
                                        "library_expanded_ms", "warm_ms",
-                                       "floor_ms", "floor_warm_ms")
+                                       "floor_ms", "floor_warm_ms",
+                                       "at_once_ms")
                if key in t}})
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_expanded_ms", "plain_at", "ms_at_plain_shape")

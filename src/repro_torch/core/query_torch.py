@@ -133,6 +133,7 @@ class DeviceQueryEngine:
             self.adj_dense = a.to(self.device)
         self._ell_host = ell          # optional injected (ell, tsrc, tdst)
         self._ell_dev = None          # built lazily on first sparse use
+        self._sparse_state = {}       # the sparse loop's state, by cap
         self._host_engine = None      # built lazily on first host use
 
     # ------------------------------------------------------ lazy structures
@@ -267,8 +268,9 @@ class DeviceQueryEngine:
         p, ovf = ops.expand_frontier(
             self.dev, ell, tsrc, tdst, is_hub, cs_t, ct_t,
             torch.from_numpy(pad).to(self.device),
-            max_steps=self.max_steps, cap=cap)
-        return p.cpu().numpy(), ovf
+            max_steps=self.max_steps, cap=cap,
+            workspaces=self._sparse_state)
+        return p.numpy(), ovf
 
     def _phase2_sparse(self, cs_u: np.ndarray, ct_u: np.ndarray) -> np.ndarray:
         """Chunked expansion with the overflow-retry / terminal-host-
@@ -285,7 +287,8 @@ class DeviceQueryEngine:
             ct[:q] = ct_u[lo:hi]
             pad = np.ones(chunk, bool)
             pad[:q] = False
-            cs_t, ct_t = self._tensor(cs), self._tensor(ct)
+            cs_t = torch.from_numpy(cs).to(self.device)
+            ct_t = torch.from_numpy(ct).to(self.device)
             cap = max(self.frontier_cap, chunk)
             pos = np.zeros(chunk, bool)
             while True:

@@ -9,7 +9,9 @@ the sources are unchanged. A build or launch failure raises; nothing
 falls back to the plain versions.
 
 Every wrapper counts its launches in ``LAUNCHES`` (one per kernel launch,
-nowhere else), so a run can show that its path went through the kernels.
+nowhere else), so a run can show that its path went through the kernels;
+the sparse phase 2's graph adds the launches that kernels 3 and 4 counted
+on the device, in their own control words (``frontier_fused._graph_call``).
 """
 from __future__ import annotations
 
@@ -39,8 +41,17 @@ SIGNATURES = {
     # C entry point: pointers, then sizes, then the stream
     "reach_stab_packed": [_P] * 5 + [_I64] + [_I32] * 4 + [_I64, _P],
     "reach_stab_naive": [_P] * 11 + [_I64] + [_I32] * 5 + [_I64, _P],
-    "reach_probe": [_P] * 6 + [_I64, _I64, _I32, _P],
-    "reach_classify_emit": [_P] * 7 + [_I64, _I32, _P],
+    # kernels 3 and 4 and their helpers take one int64 argument vector
+    # (kernels/frontier_fused.py::ARG_FIELDS)
+    "reach_frontier_setup": [_P, _P],
+    "reach_expand_probe": [_P, _P],
+    "reach_dedup_classify_emit": [_P, _P],
+    "reach_frontier_mark": [_P, _I32, _P],
+    "reach_frontier_emit": [_P, _P],
+    "reach_frontier_cleanup": [_P, _P],
+    "reach_frontier_graph": [_P, _P],
+    "reach_frontier_graph_launch": [_I64, _P],
+    "reach_frontier_graph_destroy": [_I64],
     "reach_merge_cover": [_P] * 7 + [_I64] + [_I32] * 5 + [_P],
     "reach_retrieval_score": [_P] * 3 + [_I64, _I32, _I32, _I32, _P],
     "reach_batched_mp": [_P] * 4 + [_I64] + [_I32] * 6 + [_P],
@@ -145,16 +156,19 @@ class _Library:
 LIBRARY = _Library()
 
 
-def launch(counter: str, fn_name: str, device, *args) -> None:
+def launch(counter, fn_name: str, device, *args) -> None:
     """Launch one kernel on PyTorch's current stream of ``device``, raise
-    if the launch was refused, and count it. Pointers are passed as ints."""
+    if the launch was refused, and count it under ``counter`` (None: a
+    helper launch that no reference kernel stands for). Pointers are
+    passed as ints."""
     import torch
     lib = LIBRARY.get()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn_name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
-    LAUNCHES[counter] += 1
+    if counter is not None:
+        LAUNCHES[counter] += 1
 
 
 _MAX_SMEM: dict = {}

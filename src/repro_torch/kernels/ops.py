@@ -14,8 +14,7 @@ import torch
 from . import ref
 from .batched_mp import batched_mp  # noqa: F401  (kernel 9)
 from .flash_attention import flash_attention
-from .frontier_fused import (classify_emit, emit_plain,
-                             expand_frontier_loop_fused)
+from .frontier_fused import emit_plain, expand_frontier_loop_fused
 from .interval_stab import stab_naive, stab_packed
 from .retrieval_score import retrieval_score  # noqa: F401  (kernel 10)
 
@@ -54,41 +53,42 @@ def classify_all_nodes_vs_target(dev: dict, ct):
     return v == UNKNOWN, v == POS
 
 
+def frontier_classify(dev: dict):
+    """The sparse loop's survivor verdicts on the 12-array layout: kernel 2
+    on (cands, tgts), which gathers its own rows, then the emit rule; None
+    on the fused layout, where kernel 4 classifies from the meta/slab rows
+    in place."""
+    if "slab" in dev:
+        return None
+    sp, sm = ref.naive_seed_rows(dev)
+    tables = (dev["pi"], dev["tau"], dev["blevel"], dev["begins"],
+              dev["ends"], dev["exact"], sp, sm)
+
+    def classify(cands, tgts, keys, eq):
+        # kernel 2 folds cands == tgts to POS itself (eq)
+        return emit_plain(stab_naive(*tables, cands, tgts), keys)
+    return classify
+
+
 def expand_frontier(dev: dict, ell, tail_src, tail_dst, is_hub, cs, ct,
-                    pad, *, max_steps: int, cap: int):
+                    pad, *, max_steps: int, cap: int, workspaces=None):
     """Sparse phase-2 expansion of one chunk of UNKNOWN queries over the
-    ELL + tail layout, on one device: (pos [Q] bool, overflow bool).
-    Under overflow, positives are sound and the caller retries the rest
-    with a larger cap. The chunk is bounded by ``frontier.max_batch(n)``.
+    ELL + tail layout, on one device: (pos [Q] bool on the host,
+    overflow bool). Under overflow, positives are sound and the caller
+    retries the rest with a larger cap. The chunk is bounded by
+    ``frontier.max_batch(n)``. ``workspaces`` (required on a card): a
+    dict that keeps the loop's device state across calls
+    (``frontier_fused.StepState``).
 
-    The fused layout classifies survivors with kernel 4 on their gathered
-    meta/slab rows; the 12-array layout (multi-word seeds or n > 2**24)
-    classifies them with kernel 2, which gathers its own rows, followed
-    by the same emit rule, and overflows by the reference's XLA-loop rule
-    (more than ``cap`` distinct survivors), which is the loop the
-    reference runs there."""
+    The fused layout classifies survivors with kernel 4 from the meta/slab
+    rows in place; the 12-array layout (multi-word seeds or n > 2**24)
+    with ``frontier_classify``'s kernel 2, and overflows by the
+    reference's XLA-loop rule (more than ``cap`` distinct survivors),
+    which is the loop the reference runs there."""
     fused = "slab" in dev
-    if fused:
-        meta, slab = dev["meta"], dev["slab"]
-
-        def fetch_rows(cands, tgts):
-            c, t = cands.long(), tgts.long()
-            return meta[c], meta[t], slab[c]
-        classify = classify_emit
-    else:
-        sp, sm = ref.naive_seed_rows(dev)
-        tables = (dev["pi"], dev["tau"], dev["blevel"], dev["begins"],
-                  dev["ends"], dev["exact"], sp, sm)
-
-        def fetch_rows(cands, tgts):
-            return cands, tgts
-
-        def classify(cands, tgts, keys, eq):
-            # kernel 2 folds cands == tgts to POS itself (eq)
-            return emit_plain(stab_naive(*tables, cands, tgts), keys)
     return expand_frontier_loop_fused(
         ell, tail_src, tail_dst, is_hub, cs, ct, pad,
         n_nodes=ell.shape[0], max_steps=max_steps, cap=cap,
-        gather_rows=lambda table, ids: table[ids.long()],
-        fetch_rows=fetch_rows, classify=classify,
-        distinct_overflow=not fused)
+        classify=frontier_classify(dev),
+        tables={"meta": dev["meta"], "slab": dev["slab"]} if fused else None,
+        distinct_overflow=not fused, workspaces=workspaces)

@@ -8,6 +8,7 @@ machine with only PyTorch and the CUDA toolkit:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import functools
 from dataclasses import asdict
 
 import numpy as np
@@ -164,27 +165,215 @@ def test_stab_naive_matches_plain(dev, k, w, q, same):
     assert _lib.LAUNCHES["stab_naive"] == before + 1
 
 
-def test_probe_matches_plain(dev):
-    rng = np.random.default_rng(1)
-    q, n, c = 256, 1 << 20, 1 << 20
-    args = [_i32(a) for a in (
-        rng.integers(0, q, c), rng.integers(0, n, c), rng.random(c) < 0.8,
-        rng.integers(0, 2**32, (q, n // 32), dtype=np.uint32),
-        rng.random(q) < 0.2)]
-    _same(ff.probe(*(a.to(dev) for a in args), 20),
-          ff.probe_plain(*args, 20))
+@functools.lru_cache(maxsize=None)
+def _sparse_index(k, n_seeds):
+    from repro_torch.core.packed import pack_index
+    g = layered_dag(20_000, 40, 3.0, seed=3)
+    spec = (IndexSpec(k=k, use_seeds=False) if n_seeds is None
+            else IndexSpec(k=k, n_seeds=n_seeds))
+    return pack_index(build(g, spec))
+
+
+def _sparse_setup(dev, width=2, n_seeds=None, k=1):
+    """A weak index (budget ``k``) over a 20,000-node layered DAG with hubs
+    in the COO tail (ELL width 2), whose phase-2 queries run several steps:
+    the packed index, its CPU tables and the BFS tables on ``dev`` and on
+    the CPU."""
+    p = _sparse_index(k, n_seeds)
+    ell, tsrc, tdst = p.ell_layout(width=width)
+    is_hub = np.zeros(p.n, bool)
+    is_hub[tsrc] = True
+    tables = dict(ell=_i32(ell), tail_src=_i32(tsrc), tail_dst=_i32(tdst),
+                  is_hub=torch.from_numpy(is_hub))
+    cpu = p.to_torch("cpu")
+    if "slab" in cpu:
+        tables.update(meta=cpu["meta"], slab=cpu["slab"])
+    return p, cpu, {k: v.to(dev) for k, v in tables.items()}, tables
+
+
+def _queries(p, cpu, q, seed):
+    """Q pairs of condensed ids that phase 1 leaves UNKNOWN (phase 2's
+    traffic)."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+    cs = rng.integers(0, p.n, 40 * q).astype(np.int32)
+    ct = rng.integers(0, p.n, 40 * q).astype(np.int32)
+    v = ops.classify_queries(cpu, _i32(cs), _i32(ct)).numpy()
+    unknown = np.flatnonzero(v == ops.UNKNOWN)[:q]
+    assert unknown.size == q
+    return cs[unknown], ct[unknown]
+
+
+def _replay(st, tables, cs, pad, **kw):
+    """The loop stepped from the host with the standalone kernels
+    (``_stepped_call``): the state before each step (clones)."""
+    states = []
+    ff._stepped_call(st, tables, cs, tables["ct"], pad,
+                     on_step=lambda s: states.append(s.clone()), **kw)
+    return states
+
+
+def _hold_state(got, want, after_probe=False):
+    """Two StepStates equal word for word (the launch counters aside, which
+    the plain versions leave alone, and ctl's tile counter after kernel 3
+    alone)."""
+    a, b = got.state.cpu().clone(), want.state.cpu().clone()
+    a[ff.LAUNCH_WORDS] = b[ff.LAUNCH_WORDS] = 0
+    if after_probe:
+        a[ff.TILE] = b[ff.TILE] = 0
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    ctl = b.tolist()
+    for name in ("visited", "fbits", "slots"):
+        x, y = getattr(got, name), getattr(want, name)
+        if x is not None:
+            np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    np.testing.assert_array_equal(
+        got.front[:ctl[ff.N_FRONT]].cpu().numpy(),
+        want.front[:ctl[ff.N_FRONT]].cpu().numpy())
+    np.testing.assert_array_equal(got.log[:ctl[ff.LOG_N]].cpu().numpy(),
+                                  want.log[:ctl[ff.LOG_N]].cpu().numpy())
+
+
+# cap 64 overflows (raw > cap + 1), 4096 is the default, 32768 takes
+# kernel 4's two-launch form (above one block's sort)
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("cap", [64, 4096, 32768])
+def test_probe_matches_plain(dev, cap, k):
+    """Kernel 3 against expand_probe_plain, bit for bit, on every step of
+    a call with hubs in its fronts (the tail sweep)."""
+    p, cpu, tables, tables_cpu = _sparse_setup(dev, k=k)
+    cs, ct = _queries(p, cpu, 64, 1)
+    pad = np.zeros(64, bool)
+    pad[5] = True
+    st = ff.StepState(q=64, n_nodes=p.n, w=2, m_t=int(tables["tail_src"]
+                      .shape[0]), cap=cap, max_steps=p.n, device=dev)
+    tables["ct"] = _i32(ct).to(dev)
+    states = _replay(st, tables, _i32(cs).to(dev),
+                     torch.from_numpy(pad).to(dev))
+    assert len(states) >= (1 if cap == 64 else 2)
+    assert any(int(s.ctl[ff.HUB]) for s in states)
+    assert st.read()[ff.OVF] or cap != 64
+    for s in states:
+        got, want = s.clone(), s.clone()
+        ff.expand_probe(got, tables)
+        ff.expand_probe_plain(want, tables["ell"], tables["tail_src"],
+                              tables["tail_dst"])
+        _hold_state(got, want, after_probe=True)
 
 
 @pytest.mark.parametrize("k", [1, 8])
-def test_classify_emit_matches_plain(dev, k):
-    rng = np.random.default_rng(k)
-    meta, slab = _packed(rng, 4000, k)
-    cs, ct = _pairs(rng, 4000, 50_000)
-    keys = rng.integers(0, 2**30, cs.size)
-    keys[::5] = SENTINEL
-    args = [_i32(a) for a in (meta[cs], meta[ct], slab[cs], keys, cs == ct)]
-    _same(ff.classify_emit(*(a.to(dev) for a in args)),
-          ff.classify_emit_plain(*args))
+@pytest.mark.parametrize("cap", [64, 4096, 32768])
+def test_classify_emit_matches_plain(dev, cap, k):
+    """Kernel 4 (one block up to 16,384 slots, mark + emit above) against
+    dedup_classify_emit_plain, bit for bit, after kernel 3 on every step;
+    cap 64 overflows. k 8 reads slab rows of K > 1."""
+    p, cpu, tables, tables_cpu = _sparse_setup(dev, k=k)
+    cs, ct = _queries(p, cpu, 64, 2)
+    st = ff.StepState(q=64, n_nodes=p.n, w=2, m_t=int(tables["tail_src"]
+                      .shape[0]), cap=cap, max_steps=p.n, device=dev)
+    tables["ct"] = _i32(ct).to(dev)
+    states = _replay(st, tables, _i32(cs).to(dev),
+                     torch.zeros(64, dtype=torch.bool, device=dev))
+    meta, slab = tables["meta"], tables["slab"]
+    ovf = False
+    for s in states:
+        ff.expand_probe(s, tables)
+        got, want = s.clone(), s.clone()
+        ff.dedup_classify_emit(got, tables)
+        ff.dedup_classify_emit_plain(
+            want, tables["ct"], tables["is_hub"],
+            fetch_rows=lambda c, t: (meta[c.long()], meta[t.long()],
+                                     slab[c.long()]),
+            classify=ff.classify_emit_plain)
+        _hold_state(got, want)
+        ovf |= bool(want.ctl[ff.OVF])
+    assert ovf or cap != 64
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("cap,max_steps", [(64, None), (4096, None),
+                                           (4096, 2)])
+def test_sparse_loop_on_card_matches_cpu(dev, cap, max_steps, k):
+    """The card's loop (one graph a call) against the CPU loop, pos and
+    overflow, over chunks of one engine: kernels 3 and 4 once a step and
+    set-up and clean-up once a call, as the kernels counted their own
+    launches; one sync a call; the visited bitset zero between calls; a
+    step budget of 2 stops both loops after two steps."""
+    from repro_torch.kernels import ops
+    p, cpu, tables, tables_cpu = _sparse_setup(dev, k=k)
+    gpu_dev = p.to_torch(dev)
+    cache = {}
+    for seed in range(4):
+        cs, ct = _queries(p, cpu, 64, seed)
+        pad = np.zeros(64, bool)
+        pad[::11] = True
+        args = [_i32(cs), _i32(ct), torch.from_numpy(pad)]
+        layout = ("ell", "tail_src", "tail_dst", "is_hub")
+        steps_cap = max_steps or p.n
+        want = ops.expand_frontier(cpu, *(tables_cpu[k] for k in layout),
+                                   *args, max_steps=steps_cap, cap=cap)
+        ff.STEPS.reset()
+        before = dict(_lib.LAUNCHES)
+        got = ops.expand_frontier(
+            gpu_dev, *(tables[k] for k in layout),
+            *(a.to(dev) for a in args), max_steps=steps_cap, cap=cap,
+            workspaces=cache)
+        np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+        assert got[1] == want[1]
+        steps = ff.STEPS["steps"]
+        assert steps > 0 and ff.STEPS["syncs"] == 1
+        assert max_steps is None or steps <= max_steps
+        assert ff.STEPS["launches"] == 2 * steps
+        assert ff.STEPS["helpers"] == 2
+        for name in ("probe", "classify_emit"):
+            assert _lib.LAUNCHES[name] - before[name] == steps
+        (st,) = cache.values()
+        assert not st.visited.any() and not st.fbits.any()
+    assert cap != 64 or got[1]
+
+
+def test_naive_layout_step_kernels_match_plain(dev):
+    """The 12-array layout's step: kernel 3 keeping every survivor, the
+    distinct-count unique, kernel 2's verdicts, kernel 4's mark and emit,
+    against the plain step with kernel 2's plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.interval_stab import stab_naive
+    p, cpu, tables, tables_cpu = _sparse_setup(dev, n_seeds=64)
+    assert "slab" not in cpu
+    gpu_dev = p.to_torch(dev)
+    sp, sm = ops.ref.naive_seed_rows(gpu_dev)
+    naive = (gpu_dev["pi"], gpu_dev["tau"], gpu_dev["blevel"],
+             gpu_dev["begins"], gpu_dev["ends"], gpu_dev["exact"], sp, sm)
+
+    def classify(cands, tgts, keys, eq):
+        return ff.emit_plain(stab_naive(*naive, cands, tgts), keys)
+
+    def classify_plain(cands, tgts, keys, eq):
+        return ff.emit_plain(stab_naive_plain(*(t.cpu() for t in naive),
+                                              cands.cpu(), tgts.cpu())
+                             .to(dev), keys)
+    cs, ct = _queries(p, cpu, 64, 3)
+    cap = 300
+    st = ff.StepState(q=64, n_nodes=p.n, w=2, m_t=int(tables["tail_src"]
+                      .shape[0]), cap=cap, max_steps=p.n, device=dev)
+    tables["ct"] = _i32(ct).to(dev)
+    states = _replay(st, tables, _i32(cs).to(dev),
+                     torch.zeros(64, dtype=torch.bool, device=dev),
+                     classify=classify, distinct_overflow=True)
+    assert len(states) >= 2
+    for s in states:
+        got, want = s.clone(), s.clone()
+        ff.expand_probe(got, tables)
+        ff.expand_probe_plain(want, tables["ell"], tables["tail_src"],
+                              tables["tail_dst"])
+        _hold_state(got, want, after_probe=True)
+        ff.dedup_classify_emit(got, tables, classify=classify,
+                               distinct_overflow=True)
+        ff.dedup_classify_emit_plain(
+            want, tables["ct"], tables["is_hub"],
+            fetch_rows=lambda c, t: (c, t), classify=classify_plain,
+            distinct_overflow=True)
+        _hold_state(got, want)
 
 
 def test_wrappers_refuse_bad_operands(dev):

@@ -172,15 +172,15 @@ def test_probe_matches_pallas_interpret(q, n, c):
     rng = np.random.default_rng(q)
     cq, cv, ok, visited, pos = _probe_inputs(rng, q, n, c)
     vbits = key_bits(n)
-    # the reference pre-gathers the visited word; kernel 3 reads it itself
+    # the reference pre-gathers the visited word; the probe reads it itself
     cq0, cv0 = np.where(ok != 0, cq, 0), np.where(ok != 0, cv, 0)
     vw = visited[cq0, cv0 >> 5].view(np.int32)
     want = np.asarray(_row_call(
         functools.partial(_probe_kernel, vbits=vbits),
         tuple(jnp.asarray(a) for a in (cq0, cv0, ok, vw, pos[cq0])),
         block=256, interpret=True))
-    got = ff.probe(_t(cq), _t(cv), _t(ok), _t(visited.view(np.int32)),
-                   _t(pos), vbits).numpy()
+    got = ff.probe_plain(_t(cq), _t(cv), _t(ok),
+                         _t(visited.view(np.int32)), _t(pos), vbits).numpy()
     np.testing.assert_array_equal(got, want)
     assert (got == SENTINEL).any() and (got != SENTINEL).any()
 
@@ -200,7 +200,7 @@ def test_classify_emit_matches_pallas_interpret(k):
     args = (meta[cs], meta[ct], slab[cs], keys, eq)
     wv, wf = _classify_call(*(jnp.asarray(a) for a in args[:4]),
                             jnp.asarray(eq != 0), block=256, interpret=True)
-    gv, gf = ff.classify_emit(*(_t(a) for a in args))
+    gv, gf = ff.classify_emit_plain(*(_t(a) for a in args))
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
     np.testing.assert_array_equal(gf.numpy(), np.asarray(wf))
     assert set(np.unique(gv.numpy())) == {0, 1, 2}
