@@ -36,10 +36,27 @@ training on the card:
            step are printed, the profiler's launches beside the
            kernels' counts, and one call is split by part on host clocks
            at the graph call's own marks.
+  churn    live updates on the wavefront phase's loaded session, bound
+           to its artifact: 4 insert batches of 1,024 edges (the default
+           overlay_cap 4096; tails before the giant component in
+           topological order, so the condensation stays a DAG), 2^17
+           random queries after each over the union graph (kernels 1, 3,
+           4 with kernel 4's overlay rule; one CUDA graph and one sync an
+           expansion call, checked); each batch's largest and smallest
+           overlay calls replayed and held word for word; a reload that
+           replays the delta log, compact() (kernel 5 in every affected
+           wave, each call held against its plain version; builder
+           "compact", fewer waves than the schedule), the compacted index
+           against the host DFS, a reload of epoch 1: the same answers
+           throughout; every stage's seconds.
   seeds64  a weak index (k=1) with 64 seeds over 1M nodes: the 12-array
            layout, in phase 1 and in the sparse phase 2 (kernels 2, 3, 4;
            stepped from the host, a sync a step).
-  dense    the dense phase 2 on a graph of ≤ 8192 condensed nodes.
+  dense    the dense phase 2 on a graph of ≤ 8192 condensed nodes, then
+           one churn round (256 negative pairs inserted as edges; the
+           answers held against the brute-force closure of the condensed
+           union graph); steps, syncs and ms of the dense phase 2, base
+           and overlay.
   recsys   MIND at its published widths (2^23-item table, D 64, 4
            interests, 3 routing rounds, history 50) through
            ``models.api.build_cell``: serve_p99 (512 users), serve_bulk
@@ -107,8 +124,10 @@ import argparse
 import collections
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -412,6 +431,9 @@ def kernel_parity(dev):
     # 16,384 entries by ELL width 64 (2^20 candidates), cap 16,384 (kernel
     # 4's one-block form at its largest), overflowing
     hold_step(random_step(g, dev), "random 2^20-candidate step", err)
+    # the same with a live overlay's can_reach_tail (kernel 4's rule)
+    hold_step(random_step(g, dev, gate=True), "random 2^20-candidate step "
+              "with can_reach_tail", err)
     # kernel 5: the build's working widths, k = w_out as the build calls it
     from repro_torch.kernels import merge_cover as mc
     # (and rows that are no multiple of a block's 128, begins staged up to
@@ -620,6 +642,7 @@ class Recorder:
             fn = getattr(mod, name)
             self._orig[(mod, name)] = fn
             setattr(mod, name, self._wrap(name, fn))
+        # expand_frontier_overlay goes through expand_frontier
         self._orig[(ops, "expand_frontier")] = ops.expand_frontier
         ops.expand_frontier = self._wrap_expand(ops.expand_frontier)
 
@@ -629,7 +652,10 @@ class Recorder:
     def _wrap_expand(self, fn):
         # kernels 3 and 4 run inside the sparse loop (a graph on the card):
         # keep each expansion call's inputs, its steps and its result, to
-        # replay it step by step with the kernels' own wrappers
+        # replay it step by step with the kernels' own wrappers; an
+        # overlay call's can_reach_tail apart from the other args. The
+        # union tables are rewritten in place by the next add batch:
+        # replay a batch's calls before it.
         from repro_torch.kernels import frontier_fused as ff
 
         def wrapped(dev, *args, **kw):
@@ -637,8 +663,9 @@ class Recorder:
             out = fn(dev, *args, **kw)
             if args[4].is_cuda:
                 self.expansions.append(dict(
-                    dev=dev, args=args, kw=kw, pos=out[0].numpy(),
-                    overflow=out[1], steps=ff.STEPS["steps"] - before))
+                    dev=dev, args=args, crt=kw.get("can_reach_tail"), kw=kw,
+                    pos=out[0].numpy(), overflow=out[1],
+                    steps=ff.STEPS["steps"] - before))
             return out
         return wrapped
 
@@ -1012,11 +1039,12 @@ def hold_stab_calls(rec, phase: str, err: dict) -> None:
 
 # ------------------------------------------- kernels 3 and 4 (BFS step)
 def random_step(g, dev, q: int = 256, n: int = 1 << 20, w: int = 64,
-                cap: int = 16384):
+                cap: int = 16384, gate: bool = False):
     """A random step state: Q queries over n nodes with ELL width W (a
     fifth of the slots empty), a front of ~cap distinct keys, visited
     words of 1 bit in 8, a fifth of the queries answered, packed tables at
-    K 8. Returns (state, tables)."""
+    K 8; with ``gate``, a live overlay's can_reach_tail on half the nodes
+    (kernel 4's overlay rule). Returns (state, tables)."""
     import torch
 
     from repro_torch.kernels import frontier_fused as ff
@@ -1042,7 +1070,9 @@ def random_step(g, dev, q: int = 256, n: int = 1 << 20, w: int = 64,
     empty = torch.zeros(0, **i32)
     tables = dict(ell=ell, tail_src=empty, tail_dst=empty,
                   is_hub=torch.zeros(n, dtype=torch.bool, device=dev),
-                  meta=meta, slab=slab, ct=ct)
+                  meta=meta, slab=slab, ct=ct,
+                  can_reach_tail=(torch.rand(n, generator=g, device=dev)
+                                  < 0.5) if gate else None)
     return st, tables, None, False
 
 
@@ -1051,7 +1081,8 @@ def _plain_dedup(st, tables, classify, distinct):
     fetch_rows, classify = ff.plain_hooks(tables, classify)
     ff.dedup_classify_emit_plain(st, tables["ct"], tables["is_hub"],
                                  fetch_rows=fetch_rows, classify=classify,
-                                 distinct_overflow=distinct)
+                                 distinct_overflow=distinct,
+                                 can_reach_tail=tables.get("can_reach_tail"))
 
 
 def _state_words(st, after_probe=False):
@@ -1104,7 +1135,8 @@ def replay_call(call):
                       m_t=tsrc.shape[0], cap=call["kw"]["cap"],
                       max_steps=call["kw"]["max_steps"], device=cs.device)
     tables = ff._tables(ell, tsrc, tdst, is_hub, st.ct, {
-        "meta": dev["meta"], "slab": dev["slab"]} if fused else None)
+        "meta": dev["meta"], "slab": dev["slab"]} if fused else None,
+        call.get("crt"))
     classify = ops.frontier_classify(dev)
     states = []
     host = ff._stepped_call(
@@ -1115,18 +1147,41 @@ def replay_call(call):
     return states, (host[ff.CTL_WORDS:] != 0, bool(host[ff.OVF]))
 
 
-def _candidates(st) -> int:
+def _swept(st) -> int:
+    """The (query, slot) pairs kernel 3 tests on a step: each front entry's
+    W ELL slots and, with a hub in any front, every query's pass over the
+    whole tail (q x m_t)."""
     from repro_torch.kernels import frontier_fused as ff
     ctl = st.ctl.tolist()
     return ctl[ff.N_FRONT] * st.w + (st.q * st.m_t if ctl[ff.HUB] else 0)
+
+
+def _candidates(st, tables) -> int:
+    """The candidates a step needs on this data: each front entry's W ELL
+    slots, and the tail edges whose source is a hub in its own query's
+    front (what the frontier bits let through), not the q x m_t pairs
+    kernel 3 sweeps for them (``_swept``)."""
+    import torch
+
+    from repro_torch.kernels import frontier_fused as ff
+    ctl = st.ctl.tolist()
+    n = ctl[ff.N_FRONT] * st.w
+    if not ctl[ff.HUB] or st.fbits is None:
+        return n
+    front = st.front[:ctl[ff.N_FRONT]]
+    fv = (front[front != ff.SENTINEL] & ((1 << st.vbits) - 1)).long()
+    hub = tables["is_hub"]
+    deg = torch.bincount(tables["tail_src"].long(), minlength=hub.shape[0])
+    return n + int((deg[fv] * hub[fv]).sum())
 
 
 def hold_step_calls(rec, phase: str, err: dict, kept: dict) -> None:
     """Kernels 3 and 4 against their plain versions on every step of the
     phase's largest and smallest expansion calls (by steps) and of its
     first overflowing one, each replayed step by step; the replay's
-    answers must equal the served call's. The step of most candidates is
-    kept in ``kept`` for timing."""
+    answers must equal the served call's. One step is kept in ``kept``
+    for timing: the step of most (query, slot) pairs
+    kernel 3 sweeps, with the candidates it needs beside them."""
     calls = [c for c in rec.expansions if c["steps"]]
     if not calls:
         return
@@ -1145,9 +1200,10 @@ def hold_step_calls(rec, phase: str, err: dict, kept: dict) -> None:
         for i, state in enumerate(states):
             hold_step(state, f"{phase} {which} call (cap "
                       f"{call['kw']['cap']}), step {i}", err)
-            rows = _candidates(state[0])
+            rows = _swept(state[0])
             if rows > kept.get("rows", -1):
-                kept.update(rows=rows, call=state, phase=phase)
+                kept.update(rows=rows, call=state, phase=phase,
+                            candidates=_candidates(state[0], state[1]))
 
 
 def step_work(call):
@@ -1156,7 +1212,9 @@ def step_work(call):
     front key, the ELL rows of its distinct live nodes, with a hub the tail
     (8 B an edge) and the frontier words its queries' gates read, the
     visited word and answered flag of each distinct valid candidate, each
-    kept survivor, a few control words; ~10 ops a candidate. Kernel 4: the
+    kept survivor, a few control words; ~10 ops a candidate. A hub's tail
+    edges count once a query whose front holds it (8 B an edge read once,
+    ``_candidates``), not the q x m_t sweep kernel 3 makes. Kernel 4: the
     slots it sorts, the ct of each distinct query, the meta rows of each
     distinct node and target and the slab rows of each distinct node of
     the live uniques not their query's target (kernel 2's verdict, 4 B a
@@ -1185,7 +1243,7 @@ def step_work(call):
         qq, ee = gate.nonzero(as_tuple=True)
         cq = torch.cat([cq, qq])
         cv = torch.cat([cv, tables["tail_dst"].long()[ee]])
-        b3 += 8 * tsrc.numel() + 4 * st.q * _distinct(tsrc >> 5)
+        b3 += 8 * _distinct(ee)
     probe = st.clone()
     ff.expand_probe_plain(probe, tables["ell"], tables["tail_src"],
                           tables["tail_dst"])
@@ -1206,6 +1264,8 @@ def step_work(call):
           + 4 * m + 4 * dctl[ff.N_FRONT] + 32)
     if st.fbits is not None:
         b4 += 4 * ctl[ff.N_FRONT]
+    if tables.get("can_reach_tail") is not None:
+        b4 += _distinct(nv)                 # the overlay gate, 1 B a node
     if classify is None:
         k = tables["slab"].shape[1] // 2
         b4 += (16 * _distinct(nv[rows], nt[rows])
@@ -1214,15 +1274,15 @@ def step_work(call):
         k = 0
         b4 += 4 * m
     ops4 = n * max(1, math.ceil(math.log2(max(n, 2)))) + m * (6 * k + 30)
-    return (b3, 10 * _candidates(st)), (b4, ops4)
+    return (b3, 10 * _candidates(st, tables)), (b4, ops4)
 
 
 def time_step_kernels(kept: dict) -> dict:
     """Kernels 3 and 4 timed on the kept step (the path's step of most
-    candidates) with ``device_ms``, each call's inputs restored outside the
+    swept pairs) with ``device_ms``, each call's inputs restored outside the
     events (kernel 3: its tile counter and epoch; kernel 4: the state
     kernel 3 left), beside their plain versions, their bound and the
-    launch floor (``zero_()`` of an int32 output of the step's candidates,
+    launch floor (``zero_()`` of an int32 output of the step's swept pairs,
     of its slots for kernel 4)."""
     import torch
 
@@ -1263,7 +1323,7 @@ def time_step_kernels(kept: dict) -> dict:
 
     def run_plain4():
         _plain_dedup(step_st, tables, classify, distinct)
-    rows3 = _candidates(st)
+    rows3, cand3 = _swept(st), _candidates(st, tables)
     rows4 = int(after.ctl[ff.RAW])
     # each kernel's own launch shape returning at once (RUN 0): kernel 3's
     # resident grid, kernel 4's one block of 1024 threads with its
@@ -1286,15 +1346,15 @@ def time_step_kernels(kept: dict) -> dict:
             None, entry[name], st.device, ctypes.addressof(idle[name])))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / ALU_OPS_PER_S * 1e3
-        out[name] = dict(rows=rows, ms=ms, warm_ms=warm_ms,
+        out[name] = dict(rows=rows, candidates=cand3, ms=ms, warm_ms=warm_ms,
                          plain_ms=plain_ms, library=None, library_ms=None,
                          bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else
                          "operations", bytes=nbytes, ops=ops,
                          err=(0, 0, 0.0), floor_ms=floor[0],
                          floor_warm_ms=floor[1], at_once_ms=at_once)
-        print(f"  time {name} ({kept['phase']} step of {rows3} candidates, "
-              f"{rows4} survivors, cap {st.cap}, hub "
+        print(f"  time {name} ({kept['phase']} step of {rows3} swept pairs, "
+              f"{cand3} candidates, {rows4} survivors, cap {st.cap}, hub "
               f"{int(st.ctl[ff.HUB])}): kernel {ms:.6f} ms (L2 cold; "
               f"{warm_ms:.6f} ms L2 warm), plain {plain_ms:.4f} ms; launch "
               f"floor {floor[0]:.6f} ms cold, {floor[1]:.6f} ms warm (zero_ "
@@ -1444,10 +1504,9 @@ def main_phase(dev, rec):
                                answers=(ans, ans_p))
 
 
-def wavefront_phase(dev, rec, main):
-    """The device build of the main graph, then save → load → serve."""
-    import tempfile
-
+def wavefront_phase(dev, rec, main, path):
+    """The device build of the main graph, then save → load → serve; the
+    artifact goes to ``path`` (removed by ``main``)."""
     import torch
 
     from repro_torch.core.build import pipeline
@@ -1525,14 +1584,12 @@ def wavefront_phase(dev, rec, main):
     prologue_args = build_rec.prologue[1]
     build_rec.calls = []
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as path:
-        t0 = time.perf_counter()
-        save_index(path, ix, spec, packed=pk, ell=ell)
-        t_save = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        sess = QuerySession.load(path, device=dev)
-        t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_index(path, ix, spec, packed=pk, ell=ell)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sess = QuerySession.load(path, device=dev)
+    t_load = time.perf_counter() - t0
     print(f"  save_index {t_save:.1f} s, QuerySession.load {t_load:.1f} s; "
           f"phase 2 {sess.engine.phase2_mode}", flush=True)
     sess.query(qs[:spec.max_batch], qt[:spec.max_batch])     # warm up
@@ -1561,7 +1618,382 @@ def wavefront_phase(dev, rec, main):
               f"({few[0].shape[0]} x {few[0].shape[1]}): {ms:.4f} ms, "
               f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.3e} ms ({nbytes} B)",
               flush=True)
-    return counts, (largest[0].shape[0], largest)
+    return counts, (largest[0].shape[0], largest), dict(
+        session=sess, path=path, g=g, seconds=dict(save=t_save, load=t_load))
+
+
+def dag_inserts(ix, rng, count: int, before_giant: bool = True):
+    """``count`` distinct original-id edges whose condensed ends follow the
+    index's topological order (tau), so the condensation stays a DAG; each
+    condensed node stands for one original member of its component. With
+    ``before_giant`` the tails are drawn among the components before the
+    largest one in that order, which therefore reaches none of them;
+    without, from every component."""
+    comp = ix.cond.comp
+    n = ix.cond.n_comp
+    tau = ix.tl.tau[:n]
+    member = np.empty(n, np.int64)
+    member[comp] = np.arange(comp.size)
+    pool = (np.flatnonzero(tau < tau[np.argmax(ix.cond.comp_size)])
+            if before_giant else np.arange(n))
+    a = rng.choice(pool, 2 * count)
+    b = rng.integers(0, n, 2 * count)
+    fwd = tau[a] < tau[b]
+    lo, hi = np.where(fwd, a, b), np.where(fwd, b, a)
+    keep = lo != hi
+    pairs = np.unique(np.stack([lo[keep], hi[keep]], 1), axis=0)
+    pairs = pairs[rng.permutation(pairs.shape[0])[:count]]
+    return member[pairs[:, 0]], member[pairs[:, 1]]
+
+
+class Stopwatch:
+    """Seconds spent in module functions while the run goes through them:
+    ``watch(module, name)`` wraps one until ``close``."""
+
+    def __init__(self):
+        self.seconds = collections.defaultdict(float)
+        self._orig = []
+
+    def watch(self, mod, name, label=None, calls=None):
+        """``calls``: a list that gets each call's positional args."""
+        fn = getattr(mod, name)
+        self._orig.append((mod, name, fn))
+        label = label or name
+
+        def timed(*args, **kw):
+            if calls is not None:
+                calls.append(args)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[label] += time.perf_counter() - t0
+        setattr(mod, name, timed)
+
+    def close(self):
+        for mod, name, fn in reversed(self._orig):
+            setattr(mod, name, fn)
+        self._orig = []
+
+
+CHURN_BATCHES = 4
+CHURN_EDGES = 1024          # a batch; four fill the default overlay_cap
+CHURN_OPEN_SECONDS = 40.0   # the unrestricted batch's reopened queries
+CHURN_HOLD_SECONDS = 20.0   # ... and the host BFS holding their answers
+
+
+def open_batch(sess, qs, qt, before, rng, rec, err) -> float:
+    """One insert batch of the unrestricted draw (tails from every
+    component, ``dag_inserts(before_giant=False)``) on a session with an
+    empty overlay. The giant component then reaches delta tails, so the
+    base-NEG queries from it reopen; one such query floods its front with
+    the giant's ~1.5M tail edges, overflows every cap up to
+    ``frontier_cap_max`` and falls back to the union-graph BFS on the host
+    (``_phase2_host_overlay``: Python, one query at a time). The queries
+    that stay closed are served in one batch, and must keep their
+    answers (``before``: the session's, without an overlay; a source that
+    reaches no delta tail reaches what it did); the reopened ones on their
+    own, in groups of 1, 2, 4, ... until ``CHURN_OPEN_SECONDS`` would be
+    passed. Prints the reopened share, the fallbacks and their seconds,
+    and the whole sample's time at the measured rates; the answers the
+    card resolved are held against the host BFS for up to
+    ``CHURN_HOLD_SECONDS``, and kernels 3 and 4 on the groups' calls
+    against their plain versions. Returns the seconds it took."""
+    import torch
+
+    from repro_torch.core import query_torch
+    from repro_torch.kernels import ops
+    t_start = time.perf_counter()
+    eng = sess.engine
+    src, dst = dag_inserts(sess.index, rng, CHURN_EDGES, before_giant=False)
+    t0 = time.perf_counter()
+    applied = sess.apply_updates(src, dst)
+    t_apply = time.perf_counter() - t0
+    ov = eng.overlay
+    v, cs, _ = eng.classify(qs, qt)
+    cs = cs.cpu().numpy()
+    reopen = np.flatnonzero((v.cpu().numpy() == ops.NEG)
+                            & ov.can_reach_tail[cs])
+    giant = int(np.argmax(sess.index.cond.comp_size))
+    print(f"  open batch (tails from every component, on the epoch-1 "
+          f"session): {applied} new edges, apply_updates {t_apply:.3f} s, "
+          f"can_reach_tail {int(ov.can_reach_tail.sum())} of {ov.n} nodes "
+          f"(giant component {'in' if ov.can_reach_tail[giant] else 'not in'}"
+          f" it); reopened {reopen.size} of {qs.size} "
+          f"({reopen.size / qs.size:.2%})", flush=True)
+    check(applied > 0 and reopen.size > 0,
+          "churn open batch: no edge applied or no query reopened")
+    closed = np.setdiff1d(np.arange(qs.size), reopen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = serve(sess, qs[closed], qt[closed], "open batch, the queries "
+                   "not reopened")
+    t_closed = time.perf_counter() - t0
+    check(np.array_equal(got, before[closed]), "churn open batch: a query "
+          "not reopened changed its answer")
+
+    fallback = []
+    watch = Stopwatch()
+    watch.watch(query_torch.DeviceQueryEngine, "_phase2_host_overlay",
+                "host", calls=fallback)
+    sess.reset_stats()
+    reset_counters()
+    rec.reset()
+    done, spent, size, answers = 0, 0.0, 1, []
+    try:
+        while done < reopen.size:
+            idx = reopen[done:done + size]
+            t0 = time.perf_counter()
+            answers.append(sess.query(qs[idx], qt[idx]))
+            torch.cuda.synchronize()
+            spent += time.perf_counter() - t0
+            done += idx.size
+            size = min(2 * size, 256)
+            if spent + spent / done * size > CHURN_OPEN_SECONDS:
+                break
+    finally:
+        watch.close()
+    counts = read_counters()
+    st = sess.stats
+    ans = np.concatenate(answers)
+    rate = spent / done
+    print(f"  open batch, reopened queries served: {done} of {reopen.size} "
+          f"in {spent:.2f} s ({rate * 1e3:.1f} ms a query), "
+          f"{int(ans.sum())} positive, n_overlay_hits {st.n_overlay_hits}; "
+          f"phase 2 {st.phase2_queries} (sparse {st.phase2_sparse}, host "
+          f"{st.phase2_host}), sparse retries {st.sparse_retries}; "
+          f"{st.phase2_host} fell back to the host BFS, "
+          f"{watch.seconds['host']:.2f} s there "
+          f"({watch.seconds['host'] / max(st.phase2_host, 1):.3f} s a query);"
+          f" {len(rec.expansions)} overlay expansion calls, "
+          f"{counts['sparse_steps']} steps, kernels 3/4 {counts['probe']}/"
+          f"{counts['classify_emit']}", flush=True)
+    print(f"  open batch, the whole {qs.size}-query sample at these rates "
+          f"(extrapolated, not served): {t_closed:.3f} s for the "
+          f"{closed.size} not reopened + {reopen.size} x {rate:.3f} s = "
+          f"{t_closed + reopen.size * rate:.0f} s, "
+          f"{(t_closed + reopen.size * rate) / qs.size * 1e9:.0f} ns/query",
+          flush=True)
+    check(st.phase2_queries >= done, "churn open batch: a reopened query "
+          "did not reach phase 2")
+
+    # the card's answers (those that did not fall back) against the BFS
+    on_host = {pair for _, cs_u, ct_u in fallback
+               for pair in zip(cs_u.tolist(), ct_u.tolist())}
+    comp = sess.index.cond.comp
+    held = bad = 0
+    t0 = time.perf_counter()
+    for i, q in enumerate(reopen[:done]):
+        a, b = int(comp[qs[q]]), int(comp[qt[q]])
+        if (a, b) in on_host:
+            continue
+        bad += ov.host_reachable(a, b) != bool(ans[i])
+        held += 1
+        if time.perf_counter() - t0 > CHURN_HOLD_SECONDS:
+            break
+    print(f"  open batch: {held} answers the card resolved held against "
+          f"the host BFS in {time.perf_counter() - t0:.1f} s, {bad} "
+          f"mismatches", flush=True)
+    check(bad == 0, "churn open batch: answers differ from the host BFS")
+    step = {}
+    hold_step_calls(rec, "churn open batch", err, step)
+    print(f"  open batch: the step of most swept pairs held has "
+          f"{step.get('rows', 0)} ({step.get('candidates', 0)} candidates)",
+          flush=True)
+    return time.perf_counter() - t_start
+
+
+def churn_phase(dev, rec, err, wf):
+    """Live updates on the wavefront phase's loaded session (the main
+    graph at ferrari-web widths, bound to its artifact): four insert
+    batches that keep the condensation a DAG and fill the overlay, each
+    followed by 2^17 random queries over the union graph (kernels 1, 3,
+    4; kernel 4's overlay rule); then a reload that replays the delta
+    log, ``compact()`` (kernel 5 in every affected wave), and a reload of
+    the compacted epoch, all with the same answers.
+
+    The tails come before the giant component in topological order: a
+    tail the giant component reaches puts it in can_reach_tail, and then
+    every base-NEG query from it (most random sources) reopens and sweeps
+    its whole out-list (~1.5M tail edges at 4M nodes) a step, which
+    overflows every cap up to frontier_cap_max into the host fallback."""
+    import torch
+
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.core.workload import random_queries
+    from repro_torch.kernels import frontier_fused as ff
+    from repro_torch.kernels import merge_cover as mc
+    from repro_torch.kernels import ops
+    from repro_torch.reach import QuerySession, persist
+    from repro_torch.reach.dynamic import overlay as overlay_mod
+    from repro_torch.reach.dynamic import relabel
+    sess, path, g = wf["session"], wf["path"], wf["g"]
+    eng = sess.engine
+    ix0 = sess.index
+    ell, tsrc, _, _ = eng._ell()
+    q, cap, w = eng._phase2_chunk_size(), eng.frontier_cap, ell.shape[1]
+    m_u = tsrc.shape[0] + eng.overlay_cap
+    worst = cap * w + q * m_u
+    print(f"churn: {CHURN_BATCHES} insert batches of {CHURN_EDGES} edges "
+          f"on the wavefront phase's loaded session ({eng.packed.n} "
+          f"condensed nodes, bound to its artifact); union tail "
+          f"{tsrc.shape[0]} + {eng.overlay_cap}; a step's swept pairs at most "
+          f"{worst} (cap {cap} x W {w} + {q} queries x {m_u}; kernel 3 takes "
+          f"< {ff.MAX_CANDIDATES})", flush=True)
+    check(worst < ff.MAX_CANDIDATES, "churn: the union tail exceeds kernel "
+          "3's candidate space")
+    seconds = {}
+    rng = np.random.default_rng(11)
+    qs, qt = random_queries(g, 1 << 17, seed=12)
+    giant = int(np.argmax(ix0.cond.comp_size))
+    tau = ix0.tl.tau[:ix0.cond.n_comp]
+    print(f"  giant component: {int(ix0.cond.comp_size[giant])} of "
+          f"{g.n} nodes, {int(ix0.cond.dag.degrees()[giant])} condensed "
+          f"out-edges, {int((tau < tau[giant]).sum())} components before "
+          f"it in topological order (the tails' pool); "
+          f"{float(np.mean(ix0.cond.comp[qs] == giant)):.2%} of the random "
+          f"sources are in it", flush=True)
+    v, cs, _ = eng.classify(qs, qt)
+    base_neg = v.cpu().numpy() == ops.NEG
+    cs = cs.cpu().numpy()
+    served = collections.Counter()
+    hits, kept = 0, {}
+    watch = Stopwatch()
+    watch.watch(overlay_mod.DeltaOverlay, "_mark_ancestors")
+    try:
+        for b in range(CHURN_BATCHES):
+            src, dst = dag_inserts(ix0, rng, CHURN_EDGES)
+            t0 = time.perf_counter()
+            applied = sess.apply_updates(src, dst)
+            t_apply = time.perf_counter() - t0
+            ov = eng.overlay
+            reopened = int((base_neg & ov.can_reach_tail[cs]).sum())
+            reset_counters()
+            rec.reset()
+            ans, st = serve(sess, qs, qt, f"batch {b + 1}")
+            counts = read_counters()
+            calls = [c for c in rec.expansions if c["crt"] is not None]
+            served.update({k: counts[k] for k in ("probe", "classify_emit",
+                                                  "stab_packed")})
+            print(f"  batch {b + 1}: {applied} new edges (overlay "
+                  f"{ov.n_edges}/{ov.cap}), apply_updates {t_apply:.3f} s "
+                  f"(ancestor marking {watch.seconds['_mark_ancestors']:.3f}"
+                  f" s so far), can_reach_tail {int(ov.can_reach_tail.sum())}"
+                  f" of {ov.n} nodes; {st.ns_per_query:.0f} ns/query, "
+                  f"reopened {reopened} ({reopened / qs.size:.2%}), "
+                  f"n_overlay_hits {st.n_overlay_hits}; {len(calls)} overlay "
+                  f"expansion calls, {counts['sparse_steps']} steps, "
+                  f"{counts['sparse_syncs']} syncs "
+                  f"({counts['sparse_syncs'] / max(len(calls), 1):.2f} a "
+                  f"call), kernels 3/4 {counts['probe']}/"
+                  f"{counts['classify_emit']}", flush=True)
+            check(applied > 0, "churn: no insert was new")
+            check(len(calls) > 0 and len(calls) == len(rec.expansions),
+                  "churn: phase 2 did not take the overlay path")
+            check(counts["sparse_syncs"] == len(calls)
+                  and counts["sparse_helpers"] == 2 * len(calls),
+                  "churn: an overlay call was not one graph (one sync)")
+            check(counts["probe"] == counts["classify_emit"]
+                  == counts["sparse_steps"] > 0,
+                  "churn: kernels 3 and 4 must launch once a step")
+            hits += st.n_overlay_hits
+            # the batch's largest and smallest overlay calls, replayed and
+            # held word for word before the next batch rewrites the union
+            # tables; the step of most swept pairs over all batches is kept
+            step = {}
+            hold_step_calls(rec, f"churn batch {b + 1}", err, step)
+            print(f"  batch {b + 1}: the step of most swept pairs held has "
+                  f"{step.get('rows', 0)} ({step.get('candidates', 0)} "
+                  "candidates)", flush=True)
+            if step.get("rows", -1) > kept.get("rows", -1):
+                kept = step
+        check(hits > 0, "churn: no overlay hit in four batches")
+        states = [s for s in eng._sparse_state.values()
+                  if s.tables["can_reach_tail"] is not None]
+        print(f"  overlay loop states {len(states)} (caps "
+              f"{sorted(s.cap for s in states)}), graphs captured "
+              f"{sum(s.graph is not None for s in states)}", flush=True)
+        check(len({s.cap for s in states}) == len(states),
+              "churn: more than one overlay state for a cap")
+    finally:
+        watch.close()
+    seconds["mark_ancestors"] = watch.seconds["_mark_ancestors"]
+
+    t0 = time.perf_counter()
+    replayed = QuerySession.load(path, device=dev)
+    seconds["reload + replay"] = time.perf_counter() - t0
+    got = replayed.query(qs, qt)
+    print(f"  reload + replay of {len(persist.load_deltas(path, 0))} log "
+          f"batches: {seconds['reload + replay']:.1f} s, overlay "
+          f"{replayed.stats.overlay_edges} edges; answers differ in "
+          f"{int((got != ans).sum())}", flush=True)
+    check(np.array_equal(got, ans) and replayed.stats.overlay_edges
+          == eng.overlay.n_edges, "churn: the replayed session differs")
+    del replayed
+
+    watch = Stopwatch()
+    watch.watch(packed_mod, "pack_index")
+    watch.watch(persist, "save_index")
+    watch.watch(relabel, "union_dag")
+    build_rec = BuildRecorder()
+    reset_counters()
+    try:
+        t0 = time.perf_counter()
+        cst = sess.compact()
+        torch.cuda.synchronize()
+        seconds["compact"] = time.perf_counter() - t0
+    finally:
+        build_rec.close()
+        watch.close()
+    launches = read_counters()["merge_cover"]
+    bad = 0
+    for args, out in build_rec.calls:
+        want = mc.merge_cover_plain(*args)
+        bad += sum(int((a != b).sum()) for a, b in zip(out, want))
+    torch.cuda.synchronize()
+    seconds.update({f"compact: {k}": v for k, v in watch.seconds.items()})
+    print(f"  compact: {seconds['compact']:.1f} s = union_dag "
+          f"{watch.seconds['union_dag']:.2f} s, topological order + levels "
+          f"+ affected set {cst.seconds_condense - watch.seconds['union_dag']:.2f}"
+          f" s, rebuild_affected {cst.seconds_assign:.2f} s, seeds "
+          f"{cst.seconds_seeds:.2f} s, pack_index "
+          f"{watch.seconds['pack_index']:.2f} s, save_index "
+          f"{watch.seconds['save_index']:.2f} s, the rest "
+          f"{seconds['compact'] - cst.seconds_total - watch.seconds['pack_index'] - watch.seconds['save_index']:.2f}"
+          f" s; builder {cst.builder}, affected_nodes {cst.affected_nodes}, "
+          f"waves {cst.waves_touched} of {cst.waves_total}, hub_nodes "
+          f"{cst.hub_nodes}, merge_rounds {cst.merge_rounds}, "
+          f"host_fallbacks {cst.host_fallbacks}; merge_cover launches "
+          f"{launches} ({len(build_rec.calls)} calls), parity {bad} "
+          f"mismatches", flush=True)
+    check(cst.builder == "compact" and 0 < cst.waves_touched
+          < cst.waves_total, "churn: compact was not the bounded path")
+    check(launches == len(build_rec.calls) > 0 and bad == 0,
+          "churn: kernel 5 under compaction disagrees with its plain "
+          "version")
+    _tally(err, "merge_cover", (0, bad, 0.0))
+    served["merge_cover"] = launches
+    build_rec.calls = []
+    got, _ = serve(sess, qs, qt, "compacted")
+    check(np.array_equal(got, ans), "churn: answers after compact differ "
+          "from the overlay's")
+    hold_to_host(sess.index, sess, qs, qt, got, 2000, "churn compacted")
+
+    t0 = time.perf_counter()
+    epoch1 = QuerySession.load(path, device=dev)
+    seconds["reload epoch 1"] = time.perf_counter() - t0
+    got = epoch1.query(qs, qt)
+    print(f"  reload of epoch {epoch1.epoch}: "
+          f"{seconds['reload epoch 1']:.1f} s, overlay "
+          f"{epoch1.stats.overlay_edges} edges; answers differ in "
+          f"{int((got != ans).sum())}", flush=True)
+    check(epoch1.epoch == 1 and epoch1.stats.overlay_edges == 0
+          and np.array_equal(got, ans), "churn: the epoch-1 reload differs")
+    seconds["open batch"] = open_batch(epoch1, qs, qt, got, rng, rec, err)
+    del epoch1
+    print("  churn seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items()), flush=True)
+    return dict(served), kept
 
 
 def _sparse_line(counts, rec) -> None:
@@ -1717,7 +2149,8 @@ def phase2_phase(dev, rec, err):
                   "phase2: the hub call's first front has no hub")
             for i, state in enumerate(states):
                 hold_step(state, f"phase2 hub call (256 hub sources, cap "
-                          f"{cap}, {_candidates(state[0])} candidates), "
+                          f"{cap}, {_swept(state[0])} swept pairs, "
+                          f"{_candidates(state[0], state[1])} candidates), "
                           f"step {i}", err)
             del states
         profile_launch_counts(lambda: sess.query(qs, qt),
@@ -1757,10 +2190,16 @@ def seeds64_phase(dev, rec, err):
 
 
 def dense_phase(dev, rec):
-    from repro_torch.core.query import QueryEngine
+    """The dense phase 2, then one churn round: 256 negative query pairs
+    inserted as edges in topological order (the condensation stays a
+    DAG), and the union-graph answers held against the brute-force
+    closure of the condensed union graph."""
+    from repro_torch.core.query import QueryEngine, brute_force_closure
+    from repro_torch.core.query_torch import DENSE
     from repro_torch.core.workload import random_queries
     from repro_torch.graphs.generators import scale_free_digraph
     from repro_torch.reach import IndexSpec
+    from repro_torch.reach.dynamic import union_dag
     print("dense: scale_free_digraph(16000, 4.0), k=1, no seeds, dense "
           "phase 2", flush=True)
     g = scale_free_digraph(16_000, 4.0, seed=7)
@@ -1768,17 +2207,53 @@ def dense_phase(dev, rec):
     ix, sess, _ = make_session(g, spec, dev)
     check(sess.engine.packed.n <= 8192, "dense graph over 8192 nodes")
     qs, qt = random_queries(g, 1 << 15, seed=8)
+    eng = sess.engine
+    driver, spent = eng._dense_driver, []
+
+    def timed_driver(*args, **kw):
+        t0 = time.perf_counter()
+        out = driver(*args, **kw)          # ends in a copy to the host
+        spent.append(time.perf_counter() - t0)
+        return out
+    eng._dense_driver = timed_driver
+
+    def dense_line(label):
+        print(f"  dense phase 2 {label}: {len(spent)} driver calls, "
+              f"{DENSE['steps']} BFS steps, {DENSE['syncs']} syncs, "
+              f"{sum(spent) * 1e3:.1f} ms", flush=True)
     reset_counters()
+    DENSE.reset()
     rec.reset()
     ans, st = serve(sess, qs, qt, "random")
     counts, calls = read_counters(), dict(rec.calls)
     print(f"  counts: {counts}", flush=True)
+    dense_line("(base)")
     check(st.phase2_dense > 0, "dense: no dense phase-2 traffic")
     want = QueryEngine(ix).batch(qs, qt)
     bad = int((ans != want).sum())
     print(f"  host check dense: {qs.size} answers, {bad} mismatches",
           flush=True)
     check(bad == 0, "dense: answers differ from the host engine")
+
+    # 256 of the negative pairs, inserted as edges where they follow the
+    # topological order (the condensation stays a DAG): each flips its
+    # own query at least
+    comp, tau = ix.cond.comp, ix.tl.tau
+    neg = np.flatnonzero(~ans & (tau[comp[qs]] < tau[comp[qt]]))
+    pick = np.random.default_rng(13).choice(neg, 256, replace=False)
+    applied = sess.apply_updates(qs[pick], qt[pick])
+    spent.clear()
+    DENSE.reset()
+    ans, st = serve(sess, qs, qt, "random after inserts")
+    dense_line("(overlay)")
+    esrc, edst = eng.overlay.edges()
+    closure = brute_force_closure(union_dag(ix.cond.dag, esrc, edst))
+    bad = int((ans != closure[comp[qs], comp[qt]]).sum())
+    print(f"  churn round: {applied} new edges, n_overlay_hits "
+          f"{st.n_overlay_hits}; brute-force closure check: {qs.size} "
+          f"answers, {bad} mismatches", flush=True)
+    check(st.n_overlay_hits > 0, "dense: no overlay hit")
+    check(bad == 0, "dense: overlay answers differ from the closure")
     return counts, calls
 
 
@@ -2607,14 +3082,21 @@ def main() -> int:
 
     done("parity")
     rec = Recorder()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))   # the 4M artifact
     try:
         main_counts, main_calls, main_out = main_phase(dev, rec)
         hold_stab_calls(rec, "main", err)
         done("main")
-        wf_counts, wf_call = wavefront_phase(dev, rec, main_out)
+        wf_counts, wf_call, wf_out = wavefront_phase(dev, rec, main_out,
+                                                     work)
         hold_stab_calls(rec, "wavefront (loaded index)", err)
         del main_out
         done("wavefront")
+        churn_counts, churn_kept = churn_phase(dev, rec, err, wf_out)
+        del wf_out
+        done("churn")
+        shutil.rmtree(work)
         p2_counts, p2_calls, p2_kept = phase2_phase(dev, rec, err)
         hold_stab_calls(rec, "phase2 (cap 256)", err)
         s64_counts, s64_calls = seeds64_phase(dev, rec, err)
@@ -2631,6 +3113,7 @@ def main() -> int:
         done("train")
     finally:
         rec.close()
+        shutil.rmtree(work, ignore_errors=True)
     phase_counts = {"main": main_counts, "wavefront": wf_counts,
                     "phase2": p2_counts, "seeds64": s64_counts,
                     "dense": dense_counts, "recsys": rs_counts,
@@ -2643,6 +3126,11 @@ def main() -> int:
         check(n > 0, f"{kname} was not launched on the {meta['phase']} "
               "phase")
     check(dense_counts["stab_packed"] > 0, "dense: kernel 1 not launched")
+    print(f"  launches on the churn phase (4 batches served, then "
+          f"compact): {churn_counts}", flush=True)
+    check(all(churn_counts[k] > 0 for k in ("stab_packed", "probe",
+                                            "classify_emit", "merge_cover")),
+          "churn: a kernel of the live-update path was not launched")
     check(wf_counts["stab_packed"] > 0, "wavefront: the loaded index did "
           "not serve through kernel 1")
     print(f"  sparse steps/syncs/launches on phase2: "
@@ -2671,6 +3159,7 @@ def main() -> int:
           for (b, n, f, h), call in sorted(gnn_calls["mp_shapes"].items())
           if call[1] is not largest and call[1] is not smallest[1])))
     times.update(time_step_kernels(p2_kept))
+    overlay_times = time_step_kernels(churn_kept)
     times["flash_fwd"] = lm_time          # timed in the lm phase
     train_fwd = train_time.pop("flash_fwd")
     a, b = lm_time["err"], train_fwd["err"]   # both held against plain
@@ -2710,6 +3199,17 @@ def main() -> int:
                 key: bwd_hd128[kname][key] for key in keys
                 if key in bwd_hd128[kname]}
             rows[-1]["bf16_error_share_of_row_limit"] = BWD_ROW_SHARE[kname]
+        if kname in overlay_times:
+            # the churn phase's step of most swept pairs, kernel 4 with a
+            # live overlay's can_reach_tail
+            rows[-1]["at_overlay_step"] = {
+                key: overlay_times[kname][key]
+                for key in ("rows", "candidates", "ms", "warm_ms",
+                            "plain_ms", "bound_ms", "bound_by", "floor_ms",
+                            "floor_warm_ms", "at_once_ms")}
+            rows[-1]["launches_on_churn"] = churn_counts[kname]
+        if kname == "merge_cover":
+            rows[-1]["launches_on_churn_compact"] = churn_counts[kname]
     bad = {k: err[k][1] + times[k]["err"][1] for k in KERNELS}
     print("kernels: " + ", ".join(f"{r['name']} {bad[r['name']]} "
                                   f"mismatches, {r['launches']} launches"

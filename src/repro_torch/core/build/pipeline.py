@@ -258,6 +258,111 @@ def _drain_to_budget(ix: WavefrontIndex, dag: CSR, k: int,
     return drained
 
 
+def rebuild_affected(dag: CSR, tl: TreeLabels, affected: np.ndarray,
+                     labels_old, k: int, variant: str = "L", c: int = 4,
+                     merge_chunk: int = DEFAULT_MERGE_CHUNK,
+                     m_cap: Optional[int] = None,
+                     budget: Optional[int] = None, device="cuda"):
+    """Affected-subgraph entry point of the staged pipeline, on ``device``
+    (kernel 5 in every wave merge on a card, its plain version on the
+    CPU); the reference's ``rebuild_affected``.
+
+    Re-runs PLAN → WAVES → DRAIN over only the nodes whose reachable set
+    changed (``affected`` [n] bool — under insert-only updates, the union-
+    graph ancestors of the inserted edges' tails, which is closed under
+    predecessors, so every label whose merge inputs changed is itself
+    recomputed). ``dag`` is the UNION condensed DAG; ``tl`` carries the
+    union graph's recomputed tau/blevel beside the base build's frozen
+    pi/tbegin/tree. Unaffected labels are written into the device tables
+    once — wave merges of affected nodes read them in place — and returned
+    by reference.
+
+    Returns ``(labels, info)``: the per-node IntervalSets (+ virtual root)
+    and a dict with the wave telemetry (``waves_total``/``waves_touched``/
+    ``affected_nodes``), the MergeStats counters, the drain order, and
+    ``total_intervals``.
+    """
+    from .. import intervals as iv
+    from ..query_torch import resolve_device
+    dev = resolve_device(device)
+    n = dag.n
+    w_out = k if variant == "L" else c * k
+    m_cap, chunk = effective_widths(w_out, merge_chunk, m_cap)
+    widths = np.fromiter((labels_old[v][0].size for v in range(n)),
+                         dtype=np.int64, count=n)
+    if int(widths.max(initial=0)) > w_out:
+        raise ValueError(
+            f"existing labels up to {int(widths.max())} intervals exceed "
+            f"the slab width {w_out} for variant={variant!r}, k={k} — "
+            "compact must fall back to a full rebuild")
+
+    # the unaffected rows, scattered in one vectorized write
+    keep = np.flatnonzero(~affected[:n])
+    counts = np.zeros(n + 1, dtype=np.int32)
+    counts[keep] = widths[keep]
+    cnt = widths[keep]
+    rows = np.repeat(keep, cnt)
+    cols = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    begins_np = np.full((n + 1, w_out), np.int32(INVALID), dtype=np.int32)
+    ends_np = np.full((n + 1, w_out), -1, dtype=np.int32)
+    exact_np = np.zeros((n + 1, w_out), dtype=np.int32)
+    if rows.size:
+        for slab, part in ((begins_np, 0), (ends_np, 1), (exact_np, 2)):
+            slab[rows, cols] = np.concatenate(
+                [labels_old[v][part] for v in keep])
+
+    begins = torch.from_numpy(begins_np).to(dev)
+    ends = torch.from_numpy(ends_np).to(dev)
+    exact = torch.from_numpy(exact_np).to(dev)
+    tree_b_all = tl.tbegin[:n].astype(np.int32)
+    tree_e_all = tl.pi[:n].astype(np.int32)
+    deg = dag.degrees()
+    stats = MergeStats()
+
+    order, bounds = wavefront_schedule(tl.blevel[:n])
+    n_levels = len(bounds) - 1
+    waves_touched = 0
+    for lv in range(n_levels):
+        nodes = order[bounds[lv]: bounds[lv + 1]]
+        nodes = nodes[affected[nodes]]
+        if nodes.size == 0:
+            continue
+        waves_touched += 1
+        _merge_wave(begins, ends, exact, counts, nodes, deg[nodes], m_cap,
+                    chunk, dag.indptr, dag.indices, tree_b_all, tree_e_all,
+                    w_out, stats)
+
+    wf = WavefrontIndex(begins=begins.cpu().numpy(), ends=ends.cpu().numpy(),
+                        exact=exact.cpu().numpy() != 0, counts=counts,
+                        tl=tl, k=k, levels=n_levels,
+                        hub_nodes=stats.hub_nodes,
+                        merge_rounds=stats.merge_rounds,
+                        host_fallbacks=stats.host_fallbacks,
+                        peak_slab_bytes=stats.peak_slab_bytes)
+    if variant == "G":
+        wf.drain_order = _drain_to_budget(wf, dag, k, budget or k * n)
+
+    touched = affected.copy()
+    touched[wf.drain_order] = True        # drained rows changed in the slab
+    labels = [iv.make_set(wf.begins[v, : wf.counts[v]],
+                          wf.ends[v, : wf.counts[v]],
+                          wf.exact[v, : wf.counts[v]])
+              if touched[v] else labels_old[v] for v in range(n)]
+    labels.append(iv.single(1, n + 1, True))          # virtual root
+    info = {
+        "waves_total": n_levels,
+        "waves_touched": waves_touched,
+        "affected_nodes": int(affected.sum()),
+        "hub_nodes": stats.hub_nodes,
+        "merge_rounds": stats.merge_rounds,
+        "host_fallbacks": stats.host_fallbacks,
+        "peak_slab_bytes": stats.peak_slab_bytes,
+        "drain_order": wf.drain_order,
+        "total_intervals": int(wf.counts[:-1].sum()) + 1,
+    }
+    return labels, info
+
+
 def labels_from_wavefront(ix: WavefrontIndex):
     """Per-node IntervalSets (for equivalence tests vs the host build)."""
     from .. import intervals as iv

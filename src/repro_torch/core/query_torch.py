@@ -22,6 +22,15 @@ Two phases, with the answers and phase mix of the reference engine
 
   ``phase2_mode="auto"`` picks dense for n ≤ n_dense_max and sparse above.
 
+Live updates (``apply_updates``, ``reach.dynamic``): inserted edges go to a
+``DeltaOverlay`` and every mode answers over the union graph — phase-1 NEG
+answers whose source can reach a delta edge's tail reopen into phase 2,
+the sparse loop sweeps the delta slab as COO tail (kernels 3 and 4, with
+kernel 4's overlay rule on ``can_reach_tail``), the dense BFS steps a union
+adjacency, the host fallback is the overlay's union BFS. The union tables
+are allocated once per engine and rewritten in place per add batch, so the
+sparse loop keeps one state (and CUDA graph) across batches.
+
 The engine lives on one ``device``: "cuda" (the default) runs the
 hand-written kernels; "cpu" runs their plain PyTorch versions and must be
 asked for explicitly. Without a CUDA device, the default raises.
@@ -35,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels import frontier, ops
+from ..kernels import _lib, frontier, ops
 from .ferrari import FerrariIndex
 from .packed import PackedIndex, pack_index
 from .query import QueryEngine, ResettableStats
@@ -51,6 +60,15 @@ class ServeStats(ResettableStats):
     phase2_sparse: int = 0
     phase2_host: int = 0
     sparse_retries: int = 0
+    # live-update path (reach.dynamic)
+    n_updates: int = 0           # delta edges accepted into the overlay
+    n_overlay_hits: int = 0      # base-NEG queries flipped POS by the overlay
+    n_compactions: int = 0       # overlay folds into the index
+
+
+# the dense phase 2's BFS steps and device-to-host syncs (one a step on a
+# card: the stop test)
+DENSE = _lib.Counters(steps=0, syncs=0)
 
 
 def resolve_device(device) -> torch.device:
@@ -77,7 +95,12 @@ def _dense_bfs(front0, expandable, definite_pos, adj, max_steps: int):
     front = front0 & expandable & ~pos[:, None]
     visited = front.clone()          # the masked front0, as the reference
     step = 0
-    while step < max_steps and bool(front.any()):
+    while step < max_steps:
+        if front.is_cuda:
+            DENSE["syncs"] += 1
+        if not bool(front.any()):
+            break
+        DENSE["steps"] += 1
         reached = (front.to(torch.float32) @ adj) > 0.5
         new = reached & ~visited
         pos |= (new & definite_pos).any(dim=1)
@@ -93,7 +116,8 @@ class DeviceQueryEngine:
     Prefer constructing through ``repro_torch.reach`` (``IndexSpec`` +
     ``QuerySession``): it owns bucketed batching and statistics. ``packed``
     / ``ell`` inject pre-built layouts so construction skips the O(n) host
-    packing loops.
+    packing loops. ``overlay_cap``: the delta edges ``apply_updates``
+    holds beside the index.
     """
 
     def __init__(self, index: FerrariIndex, n_dense_max: int = 8192,
@@ -101,7 +125,7 @@ class DeviceQueryEngine:
                  ell_width: Optional[int] = None, frontier_cap: int = 4096,
                  frontier_cap_max: int = 1 << 18,
                  packed: Optional[PackedIndex] = None, ell=None,
-                 device="cuda"):
+                 overlay_cap: int = 4096, device="cuda"):
         if phase2_mode not in ("auto", "dense", "sparse", "host"):
             raise ValueError(f"unknown phase2_mode {phase2_mode!r}")
         self.device = resolve_device(device)
@@ -135,6 +159,14 @@ class DeviceQueryEngine:
         self._ell_dev = None          # built lazily on first sparse use
         self._sparse_state = {}       # the sparse loop's state, by cap
         self._host_engine = None      # built lazily on first host use
+        # live-update overlay (reach.dynamic): created on first insert;
+        # its union tables are allocated once and rewritten in place per
+        # add batch (version)
+        self.overlay_cap = overlay_cap
+        self.overlay = None
+        self._union = None            # sparse: (tsrc_u, tdst_u, hub_u, crt)
+        self._union_adj = None        # dense: (adj_u [n, n], crt)
+        self._union_version = {}      # "sparse"/"dense" -> overlay version
 
     # ------------------------------------------------------ lazy structures
     @property
@@ -188,6 +220,45 @@ class DeviceQueryEngine:
             out.append(t)
         return tuple(out)
 
+    # ------------------------------------------------------- live updates
+    def apply_updates(self, csrc, cdst) -> int:
+        """Append condensed-id edges to the delta overlay (creating it on
+        first use). Returns how many edges were actually new; later
+        ``answer()`` calls are sound and complete over the union graph.
+        Raises ``reach.dynamic.OverlayFull`` when the batch does not fit —
+        callers compact (``QuerySession`` automates this) and retry."""
+        if self.overlay is None:
+            from ..reach.dynamic.overlay import DeltaOverlay
+            self.overlay = DeltaOverlay(self.index.cond.dag, self.overlay_cap)
+        applied = self.overlay.add(csrc, cdst)
+        self.stats.n_updates += applied
+        return applied
+
+    def _stale(self, what: str) -> bool:
+        """True (and the version recorded) when ``what``'s union tables
+        lag the overlay's last add batch."""
+        if self._union_version.get(what) == self.overlay.version:
+            return False
+        self._union_version[what] = self.overlay.version
+        return True
+
+    def _overlay_dev(self):
+        """(ell, tail_src_u, tail_dst_u, is_hub_u, can_reach_tail): the
+        base COO tail with the delta slab appended ([m_t + cap]), the hub
+        mask extended to delta tails, and the overlay rule's gate. The
+        tensors are allocated on the first call and rewritten in place
+        once per add batch (``DeltaOverlay.union_tail_state``), so their
+        pointers, the sparse loop's state and its graph stay the same."""
+        ell, tsrc, tdst, is_hub = self._ell()
+        if self._stale("sparse"):
+            self._union = self.overlay.union_tail_state(
+                tsrc, tdst, is_hub, out=self._union)
+        return (ell,) + self._union
+
+    @property
+    def _overlay_live(self) -> bool:
+        return self.overlay is not None and self.overlay.n_edges > 0
+
     # ------------------------------------------------------------------ API
     def answer(self, srcs, dsts) -> np.ndarray:
         return self.finish_answer(self.start_answer(srcs, dsts))
@@ -206,27 +277,45 @@ class DeviceQueryEngine:
         t0 = time.perf_counter()
         verdict = verdict.cpu().numpy()
         out = verdict == ops.POS
+        neg_mask = verdict == ops.NEG
         unknown = np.flatnonzero(verdict == ops.UNKNOWN)
         self.stats.n_queries += len(verdict)
         self.stats.phase1_pos += int(out.sum())
-        self.stats.phase1_neg += int((verdict == ops.NEG).sum())
-        self.stats.phase2_queries += unknown.size
+        overlay = self._overlay_live
+        if overlay:
+            # base-NEG is no longer final when the source can reach a
+            # delta tail: those queries join the union-graph expansion
+            # (and leave the phase-1 mix, which stays a partition)
+            cs_h = cs.cpu().numpy()
+            reopened = np.flatnonzero(
+                neg_mask & self.overlay.can_reach_tail[cs_h])
+            residue = np.union1d(unknown, reopened)
+            self.stats.phase1_neg += int(neg_mask.sum()) - reopened.size
+        else:
+            residue = unknown
+            self.stats.phase1_neg += int(neg_mask.sum())
+        self.stats.phase2_queries += residue.size
         t1 = time.perf_counter()
         self.last_phase1_s = t1 - t0
         self.last_phase2_s = 0.0
-        if unknown.size == 0:
+        if residue.size == 0:
             return out
-        cs_u = cs.cpu().numpy()[unknown]
-        ct_u = ct.cpu().numpy()[unknown]
+        cs_u = (cs_h if overlay else cs.cpu().numpy())[residue]
+        ct_u = ct.cpu().numpy()[residue]
         if self.phase2_mode == "dense":
-            self.stats.phase2_dense += unknown.size
-            res = self._phase2_dense(cs_u, ct_u)
+            self.stats.phase2_dense += residue.size
+            res = (self._phase2_dense_overlay(cs_u, ct_u) if overlay
+                   else self._phase2_dense(cs_u, ct_u))
         elif self.phase2_mode == "sparse":
-            res = self._phase2_sparse(cs_u, ct_u)
+            res = (self._phase2_sparse_overlay(cs_u, ct_u) if overlay
+                   else self._phase2_sparse(cs_u, ct_u))
         else:
-            self.stats.phase2_host += unknown.size
-            res = self._phase2_host(cs_u, ct_u)
-        out[unknown] = res
+            self.stats.phase2_host += residue.size
+            res = (self._phase2_host_overlay(cs_u, ct_u) if overlay
+                   else self._phase2_host(cs_u, ct_u))
+        out[residue] = res
+        if overlay:
+            self.stats.n_overlay_hits += int((res & neg_mask[residue]).sum())
         self.last_phase2_s = time.perf_counter() - t1
         return out
 
@@ -236,7 +325,17 @@ class DeviceQueryEngine:
             (self._host._reachable_condensed(int(a), int(b))
              for a, b in zip(cs_u, ct_u)), dtype=bool, count=cs_u.size)
 
-    def _phase2_dense(self, cs_u: np.ndarray, ct_u: np.ndarray) -> np.ndarray:
+    def _phase2_host_overlay(self, cs_u: np.ndarray,
+                             ct_u: np.ndarray) -> np.ndarray:
+        """Union-graph host BFS (the terminal fallback under a live
+        overlay: the base guided DFS cannot traverse delta edges)."""
+        ov = self.overlay
+        return np.fromiter(
+            (ov.host_reachable(int(a), int(b))
+             for a, b in zip(cs_u, ct_u)), dtype=bool, count=cs_u.size)
+
+    def _dense_driver(self, cs_u: np.ndarray, ct_u: np.ndarray, adj,
+                      max_steps: int, can_reach_tail=None) -> np.ndarray:
         n = self.packed.n
         chunk = self.phase2_chunk
         res = np.zeros(cs_u.size, dtype=bool)
@@ -251,12 +350,35 @@ class DeviceQueryEngine:
             ct_h[:q] = ct_u[lo:hi]
             cs, ct = self._tensor(cs_h), self._tensor(ct_h)
             expandable, definite_pos = ops.classify_all_nodes_vs_target(
-                self.dev, ct)
+                self.dev, ct, can_reach_tail=can_reach_tail)
             front0 = torch.nn.functional.one_hot(cs.long(), n).bool()
-            pos = _dense_bfs(front0, expandable, definite_pos,
-                             self.adj_dense, self.max_steps)
+            pos = _dense_bfs(front0, expandable, definite_pos, adj,
+                             max_steps)
             res[lo:hi] = pos.cpu().numpy()[:q]
         return res
+
+    def _phase2_dense(self, cs_u: np.ndarray, ct_u: np.ndarray) -> np.ndarray:
+        return self._dense_driver(cs_u, ct_u, self.adj_dense, self.max_steps)
+
+    def _phase2_dense_overlay(self, cs_u: np.ndarray,
+                              ct_u: np.ndarray) -> np.ndarray:
+        """Dense BFS over the union adjacency: one [n, n] copy of the base
+        matrix per engine, the delta slab scattered into it in place per
+        add batch (padding writes a harmless (0, 0) self-loop — node 0 is
+        visited before it could re-front), base-NEG nodes expandable while
+        they can reach a delta tail, and the step bound n (delta edges may
+        cycle across the DAG)."""
+        ov = self.overlay
+        if self._union_adj is None:
+            self._union_adj = (self.adj_dense.clone(), torch.zeros(
+                ov.n, dtype=torch.bool, device=self.device))
+        adj, crt = self._union_adj
+        if self._stale("dense"):
+            dsrc, ddst, crt_now, _ = ov.device_state(self.device)
+            adj[dsrc.long(), ddst.long()] = 1.0
+            crt.copy_(crt_now)
+        return self._dense_driver(cs_u, ct_u, adj, self.packed.n,
+                                  can_reach_tail=crt)
 
     def _phase2_chunk_size(self) -> int:
         """Queries per sparse expansion call (key packing bounds it)."""
@@ -272,9 +394,25 @@ class DeviceQueryEngine:
             workspaces=self._sparse_state)
         return p.numpy(), ovf
 
-    def _phase2_sparse(self, cs_u: np.ndarray, ct_u: np.ndarray) -> np.ndarray:
+    def _expand_chunk_overlay(self, cs_t, ct_t, pad: np.ndarray, cap: int):
+        """One union-graph frontier expansion (kernels 3 and 4 with the
+        overlay rule), up to n steps."""
+        ell, tsrc_u, tdst_u, hub_u, crt = self._overlay_dev()
+        p, ovf = ops.expand_frontier_overlay(
+            self.dev, ell, tsrc_u, tdst_u, hub_u, crt, cs_t, ct_t,
+            torch.from_numpy(pad).to(self.device),
+            max_steps=self.packed.n, cap=cap,
+            workspaces=self._sparse_state)
+        return p.numpy(), ovf
+
+    def _sparse_driver(self, cs_u: np.ndarray, ct_u: np.ndarray,
+                       expand_fn, host_fn) -> np.ndarray:
         """Chunked expansion with the overflow-retry / terminal-host-
-        fallback policy of the reference ``_sparse_driver``."""
+        fallback policy of the reference ``_sparse_driver``.
+        ``expand_fn(cs_t, ct_t, pad, cap)`` runs one frontier expansion;
+        ``host_fn(cs, ct)`` resolves queries past ``frontier_cap_max``
+        (the base guided DFS, or the union-graph BFS when an overlay is
+        live)."""
         chunk = self._phase2_chunk_size()
         res = np.zeros(cs_u.size, dtype=bool)
         self.stats.phase2_sparse += cs_u.size
@@ -292,7 +430,7 @@ class DeviceQueryEngine:
             cap = max(self.frontier_cap, chunk)
             pos = np.zeros(chunk, bool)
             while True:
-                p, ovf = self._expand_chunk(cs_t, ct_t, pad, cap)
+                p, ovf = expand_fn(cs_t, ct_t, pad, cap)
                 pos |= p
                 if not ovf:
                     break
@@ -304,11 +442,20 @@ class DeviceQueryEngine:
                     unresolved = np.flatnonzero(~pos & ~pad)
                     self.stats.phase2_host += unresolved.size
                     self.stats.phase2_sparse -= unresolved.size
-                    pos[unresolved] = self._phase2_host(cs[unresolved],
-                                                        ct[unresolved])
+                    pos[unresolved] = host_fn(cs[unresolved],
+                                              ct[unresolved])
                     break
                 pad = pad | pos
                 if pad.all():
                     break       # every live query already proved positive
             res[lo:hi] = pos[:q]
         return res
+
+    def _phase2_sparse(self, cs_u: np.ndarray, ct_u: np.ndarray) -> np.ndarray:
+        return self._sparse_driver(cs_u, ct_u, self._expand_chunk,
+                                   self._phase2_host)
+
+    def _phase2_sparse_overlay(self, cs_u: np.ndarray,
+                               ct_u: np.ndarray) -> np.ndarray:
+        return self._sparse_driver(cs_u, ct_u, self._expand_chunk_overlay,
+                                   self._phase2_host_overlay)

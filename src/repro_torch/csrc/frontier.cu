@@ -11,7 +11,10 @@
 //   pallas_call :265 through _classify_call) together with the rest of the
 //   step (:199-239): the sorted unique of the slots, the overflow rule, the
 //   phase-1 packed verdict (verdict.cuh) with the s == t positive, the
-//   answered flags, the visited marks and the next front.
+//   answered flags, the visited marks and the next front. With a live
+//   overlay it reads can_reach_tail in place and applies the union-graph
+//   rule of expand_frontier_overlay_fused's post_verdict (:313): a NEG
+//   survivor that can reach a delta tail stays UNKNOWN (overlay_verdict).
 //
 // The reference runs the step under lax.while_loop; here the loop is a CUDA
 // graph whose while node runs {kernel 3, kernel 4} as long as kernel 4 sets
@@ -86,7 +89,7 @@ enum Ctl {
 enum Arg {
   A_CTL, A_FRONT, A_SLOTS, A_STATUS, A_VISITED, A_FBITS, A_LOG, A_ELL,
   A_TSRC, A_TDST, A_IS_HUB, A_META, A_SLAB, A_CS, A_CT, A_PAD, A_UNIQ,
-  A_VERDICT_IN, A_VERDICT, A_N_WORDS, A_SLOT_CAP, A_LOG_CAP, A_MAX_TILES,
+  A_VERDICT_IN, A_VERDICT, A_CRT, A_N_WORDS, A_SLOT_CAP, A_LOG_CAP, A_MAX_TILES,
   A_Q, A_W, A_M_T, A_K, A_CAP, A_VBITS, A_MAX_STEPS, A_COUNT
 };
 
@@ -111,6 +114,7 @@ struct Step {
   const int32_t* uniq;       // mark: sorted unique keys [cap + 1]
   const int32_t* verdict_in;  // mark: kernel 2's verdicts [cap], or null
   int32_t* verdict;          // mark -> emit: verdicts [cap]
+  const uint8_t* can_reach_tail;  // [n], the live overlay's; else null
   int64_t n_words, slot_cap, log_cap, max_tiles;
   int32_t q, w, m_t, k, cap, vbits, max_steps;
   cudaGraphConditionalHandle cond;   // 0 outside the graph
@@ -138,6 +142,7 @@ Step step_of(const int64_t* a) {
   s.uniq = reinterpret_cast<const int32_t*>(a[A_UNIQ]);
   s.verdict_in = reinterpret_cast<const int32_t*>(a[A_VERDICT_IN]);
   s.verdict = reinterpret_cast<int32_t*>(a[A_VERDICT]);
+  s.can_reach_tail = reinterpret_cast<const uint8_t*>(a[A_CRT]);
   s.n_words = a[A_N_WORDS];
   s.slot_cap = a[A_SLOT_CAP];
   s.log_cap = a[A_LOG_CAP];
@@ -379,6 +384,17 @@ __device__ __forceinline__ int verdict_of_key(const Step& s, int32_t key) {
                                s.k);
 }
 
+// The live overlay's rule (union-graph serving, reach/dynamic): a NEG
+// survivor that can still reach a delta edge's tail stays UNKNOWN and
+// keeps expanding; POS and UNKNOWN are unchanged. Every verdict kernel 4
+// takes, its own (verdict_of_key) or kernel 2's (verdict_in), passes here.
+__device__ __forceinline__ int overlay_verdict(const Step& s, int32_t nv,
+                                               int v) {
+  return v == reach::NEG && s.can_reach_tail && s.can_reach_tail[nv]
+             ? reach::UNKNOWN
+             : v;
+}
+
 // Verdict words carry the key's hub flag above the verdict, so the emit
 // reads no table.
 constexpr int kHubFlag = 16;
@@ -546,13 +562,14 @@ __global__ void __launch_bounds__(kStepThreads)
   int32_t* verd = keys;                      // the sorted keys are done
   for (int k = threadIdx.x; k < m; k += blockDim.x) {
     const int32_t key = uniq[k];
-    const int v = verdict_of_key(s, key);
+    const int v = overlay_verdict(s, key & ((1 << s.vbits) - 1),
+                                  verdict_of_key(s, key));
     if (v == reach::POS) {
       const int32_t nq = key >> s.vbits;
       atomicOr(answered + (nq >> 5), bit_of(nq));
     }
     verd[k] = mark(s, key, v);
-    s.log[log_n + k] = key;
+    if (log_n + k < s.log_cap) s.log[log_n + k] = key;
   }
   __syncthreads();
   emit_front(s, uniq, verd, m, ovf, answered);
@@ -573,9 +590,11 @@ __global__ void __launch_bounds__(kThreads) mark_kernel(Step s, int keep_all) {
   for (int64_t k = i0; k < s.cap; k += stride) {
     const int32_t key = s.uniq[k];
     if (key == reach::SENTINEL) continue;
-    const int v = s.verdict_in ? s.verdict_in[k] : verdict_of_key(s, key);
+    const int v = overlay_verdict(
+        s, key & ((1 << s.vbits) - 1),
+        s.verdict_in ? s.verdict_in[k] : verdict_of_key(s, key));
     s.verdict[k] = mark(s, key, v);
-    s.log[log_n + k] = key;
+    if (log_n + k < s.log_cap) s.log[log_n + k] = key;
     if (k == s.cap - 1 || s.uniq[k + 1] == reach::SENTINEL)
       s.ctl[M_NEW] = static_cast<int32_t>(k + 1);   // one thread: the last
   }
@@ -596,8 +615,9 @@ __global__ void __launch_bounds__(kStepThreads) emit_kernel(Step s) {
 }
 
 // ------------------------------------------------------------- clean-up
-// Zeroes the visited words of every logged key and the hub-bit words of
-// the last front, so the bitsets are zero for the next call.
+// Zeroes the visited words of every logged key (the whole bitset when the
+// call marked more keys than the log holds) and the hub-bit words of the
+// last front, so the bitsets are zero for the next call.
 __global__ void __launch_bounds__(kThreads) cleanup_kernel(Step s) {
   count_launch(s, L_CLEANUP);
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -605,9 +625,13 @@ __global__ void __launch_bounds__(kThreads) cleanup_kernel(Step s) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int32_t vmask = (1 << s.vbits) - 1;
   const int64_t log_n = s.ctl[LOG_N];
-  for (int64_t i = i0; i < log_n; i += stride) {
-    const int32_t key = s.log[i];
-    s.visited[word_of(s, key >> s.vbits, key & vmask)] = 0;
+  if (log_n > s.log_cap) {
+    for (int64_t i = i0; i < s.q * s.n_words; i += stride) s.visited[i] = 0;
+  } else {
+    for (int64_t i = i0; i < log_n; i += stride) {
+      const int32_t key = s.log[i];
+      s.visited[word_of(s, key >> s.vbits, key & vmask)] = 0;
+    }
   }
   if (s.fbits) {
     const int n_front = s.ctl[N_FRONT];

@@ -20,11 +20,16 @@ reference's ``expand_frontier_loop_fused``. One step is two kernels
       the answered flags and visited bits of the live keys, and the next
       front: the UNKNOWN keys of unanswered queries, densely in sorted
       order, with their hub bits. Replaces ``_classify_emit_kernel`` and
-      the rest of the step.
+      the rest of the step. Under a live overlay (union-graph serving,
+      ``reach.dynamic``) it reads ``can_reach_tail`` in place and keeps a
+      NEG survivor that can reach a delta tail UNKNOWN, the rule of the
+      reference's ``expand_frontier_overlay_fused``; the delta slab rides
+      the COO tail, so the graph path serves the overlay as it is.
 
 The loop's state (``StepState``) is a control-word buffer followed by
 ``pos``, the front, the slots, the visited and frontier bitsets and a log
-of the keys marked visited. On a card with the fused layout and cap ≤
+of the keys marked visited (up to ``LOG_MAX`` beyond the sources; the
+clean-up of a call that marked more zeroes the whole bitset). On a card with the fused layout and cap ≤
 ``SORT_MAX_CAP`` a call is one CUDA graph: set-up, a while node over the
 two kernels whose condition kernel 4 sets, and a clean-up that zeroes the
 words the call set; the host reads the control words and ``pos`` back
@@ -66,10 +71,15 @@ LAUNCH_WORDS = slice(L_SETUP, L_CLEANUP + 1)
 SORT_MAX_CAP = 16384
 PROBE_TILE = 1024           # kernel 3's candidates a tile
 MAX_CANDIDATES = 1 << 30    # kernel 3's look-back words hold 30-bit counts
+# keys the log holds beyond a call's sources; a call that marks more has
+# its whole visited bitset zeroed by the clean-up instead (the union-graph
+# loop runs up to n steps, so cap x max_steps bounds nothing there)
+LOG_MAX = 1 << 22
 # the int64 argument vector of csrc/frontier.cu's entry points, in order
 ARG_FIELDS = ("ctl", "front", "slots", "status", "visited", "fbits", "log",
               "ell", "tail_src", "tail_dst", "is_hub", "meta", "slab", "cs",
-              "ct", "pad", "uniq", "verdict_in", "verdict", "n_words",
+              "ct", "pad", "uniq", "verdict_in", "verdict", "can_reach_tail",
+              "n_words",
               "slot_cap", "log_cap", "max_tiles", "q", "w", "m_t", "k",
               "cap", "vbits", "max_steps")
 
@@ -177,7 +187,8 @@ class StepState:
         self.fbits = (torch.zeros((q, self.n_words), **i32) if m_t
                       else None)
         # each step marks at most cap keys, and a (query, node) pair once
-        self.log = torch.zeros(min(q + cap * max_steps, q * n_nodes), **i32)
+        self.log = torch.zeros(
+            min(q + cap * max_steps, q * n_nodes, q + LOG_MAX), **i32)
         self.cs = torch.zeros(q, **i32)
         self.ct = torch.zeros(q, **i32)
         self.pad = torch.zeros(q, dtype=torch.bool, device=self.device)
@@ -293,13 +304,17 @@ def frontier_setup(st, cs, pad, is_hub, tables: dict) -> None:
 
 
 def frontier_cleanup(st, tables: dict) -> None:
-    """Zeroes the visited words of every logged key and the last front's
-    hub-bit words: the bitsets are zero for the next call."""
+    """Zeroes the visited words of every logged key (all of them when the
+    call marked more keys than the log holds) and the last front's hub-bit
+    words: the bitsets are zero for the next call."""
     if on_cpu(st.state):
         ctl = st.ctl.tolist()
-        keys = st.log[:ctl[LOG_N]]
-        st.visited[(keys >> st.vbits).long(),
-                   ((keys & ((1 << st.vbits) - 1)) >> 5).long()] = 0
+        if ctl[LOG_N] > st.log.shape[0]:
+            st.visited.zero_()
+        else:
+            keys = st.log[:ctl[LOG_N]]
+            st.visited[(keys >> st.vbits).long(),
+                       ((keys & ((1 << st.vbits) - 1)) >> 5).long()] = 0
         if st.fbits is not None:
             f = st.front[:ctl[N_FRONT]]
             st.fbits[(f >> st.vbits).long(),
@@ -359,14 +374,24 @@ def expand_probe(st, tables: dict, *, gather_rows=_take) -> None:
 
 
 # ---------------------------------------------------------------- kernel 4
+def overlay_verdict_plain(verdict, nv, can_reach_tail):
+    """The live overlay's rule (kernel 4's ``overlay_verdict``): NEG
+    where ``can_reach_tail[nv]`` ([n] bool) turns UNKNOWN."""
+    reopen = (verdict == ref.NEG) & can_reach_tail[nv.long()]
+    return torch.where(reopen, ref.UNKNOWN, verdict).to(torch.int32)
+
+
 def dedup_classify_emit_plain(st, ct, is_hub, *, fetch_rows, classify,
-                              distinct_overflow: bool = False) -> None:
+                              distinct_overflow: bool = False,
+                              can_reach_tail=None) -> None:
     """Kernel 4's plain version: the sorted unique of the slots, overflow,
     ``classify(*fetch_rows(nv, nt), keys, eq)`` → (verdict, front keys),
-    the answered flags and visited bits of the live keys, the next front
-    (dense, with its hub bits; the old front's cleared) and the control
-    words. ``distinct_overflow``: the unique runs over every survivor and
-    only more than cap distinct keys overflow."""
+    with a live overlay's ``can_reach_tail`` its rule
+    (``overlay_verdict_plain``), the answered flags and visited bits of
+    the live keys, the next front (dense, with its hub bits; the old
+    front's cleared) and the control words. ``distinct_overflow``: the
+    unique runs over every survivor and only more than cap distinct keys
+    overflow."""
     ctl = st.ctl.tolist()
     if not ctl[RUN]:
         return
@@ -386,13 +411,17 @@ def dedup_classify_emit_plain(st, ct, is_hub, *, fetch_rows, classify,
     nt = ct[nq.long()]                        # target node ids
     verdict, fkey = classify(*fetch_rows(nv, nt), new,
                              (nv == nt).to(torch.int32))
+    if can_reach_tail is not None:
+        verdict, fkey = emit_plain(
+            overlay_verdict_plain(verdict, nv, can_reach_tail), new)
     old = st.front[:ctl[N_FRONT]]
     old = old[old != SENTINEL]
     _hub_rows(st, is_hub, old >> vbits, old & ((1 << vbits) - 1), clear=True)
     # live keys only: no dead slot scatters into word [0, 0]
     st.pos[nq[nvalid & (verdict == ref.POS)].long()] = 1
     or_bits(st.visited, nq[nvalid], nv[nvalid] >> 5, _bit(nv[nvalid]))
-    st.log[ctl[LOG_N]:ctl[LOG_N] + m] = new[:m]
+    logged = max(0, min(m, st.log.shape[0] - ctl[LOG_N]))
+    st.log[ctl[LOG_N]:ctl[LOG_N] + logged] = new[:logged]
     keep = (fkey != SENTINEL) & (st.pos[nq.long()] == 0)
     nxt = new[keep]
     st.front[:nxt.shape[0]] = nxt
@@ -408,7 +437,8 @@ def dedup_classify_emit(st, tables: dict, *, classify=None,
                         distinct_overflow: bool = False,
                         fetch_rows=None) -> None:
     """Kernel 4 on ``st``, with ``tables`` (ct, is_hub, and meta, slab on
-    the fused layout, where kernel 4 classifies from the rows in place).
+    the fused layout, where kernel 4 classifies from the rows in place;
+    ``can_reach_tail`` under a live overlay, read in place for its rule).
     Up to ``SORT_MAX_CAP`` on the fused layout one block sorts the slots;
     above it, and for the 12-array layout (``classify(cands, tgts, keys,
     eq)`` → (verdict, front), kernel 2's verdicts), ``unique_fixed`` sorts
@@ -420,7 +450,8 @@ def dedup_classify_emit(st, tables: dict, *, classify=None,
         fetch_rows = fetch_rows or default_fetch
         return dedup_classify_emit_plain(
             st, tables["ct"], tables["is_hub"], fetch_rows=fetch_rows,
-            classify=classify, distinct_overflow=distinct_overflow)
+            classify=classify, distinct_overflow=distinct_overflow,
+            can_reach_tail=tables.get("can_reach_tail"))
     if classify is None and not distinct_overflow and st.cap <= SORT_MAX_CAP:
         _args_launch("classify_emit", "reach_dedup_classify_emit", st,
                      tables)
@@ -446,11 +477,13 @@ def dedup_classify_emit(st, tables: dict, *, classify=None,
 
 
 # -------------------------------------------------------------- the loop
-def _tables(ell, tail_src, tail_dst, is_hub, ct, tables) -> dict:
+def _tables(ell, tail_src, tail_dst, is_hub, ct, tables,
+            can_reach_tail=None) -> dict:
     """The tables of a call (``ct`` the state's copy), each checked on a
     card."""
     out = {"ell": ell, "tail_src": tail_src, "tail_dst": tail_dst,
-           "is_hub": is_hub, "ct": ct, "meta": None, "slab": None}
+           "is_hub": is_hub, "ct": ct, "meta": None, "slab": None,
+           "can_reach_tail": can_reach_tail}
     if tables is not None:
         out.update(meta=tables["meta"], slab=tables["slab"])
     if ell.device.type == "cuda":
@@ -458,7 +491,9 @@ def _tables(ell, tail_src, tail_dst, is_hub, ct, tables) -> dict:
             if t is not None:
                 _lib.check(t, name, None, ell.device,
                            align=16 if name == "meta" else 4,
-                           dtype="bool" if name == "is_hub" else "int32")
+                           dtype=("bool" if name in ("is_hub",
+                                                     "can_reach_tail")
+                                  else "int32"))
     return out
 
 
@@ -538,7 +573,7 @@ def expand_frontier_loop_fused(ell, tail_src, tail_dst, is_hub, cs, ct,
                                cap: int, gather_rows=_take, fetch_rows=None,
                                classify=None, tables=None,
                                distinct_overflow: bool = False,
-                               workspaces=None):
+                               can_reach_tail=None, workspaces=None):
     """The BFS loop over one chunk of Q queries.
 
     ell [n, W], tail_src/tail_dst [m_t], cs/ct [Q] int32; is_hub [n] and
@@ -551,9 +586,13 @@ def expand_frontier_loop_fused(ell, tail_src, tail_dst, is_hub, cs, ct,
     distinct survivor keys. ``gather_rows(table, ids)`` and ``fetch_rows``
     are the plain loop's hooks (rows by global node id; the operands of
     ``classify``), kept pluggable for a sharded placement; on a card the
-    kernels read the tables in place. ``workspaces`` (required on a card):
-    a dict in which the state (zeroed bitsets, graphs) is kept across
-    calls. Returns (pos [Q] bool on the host, overflow).
+    kernels read the tables in place. ``can_reach_tail`` ([n] bool) is a
+    live overlay's: kernel 4 applies its rule to every verdict, the graph
+    path included (union-graph serving; ``tail_src``/``tail_dst`` then
+    carry the delta slab). ``workspaces`` (required on a card): a dict
+    in which the state (zeroed bitsets, graphs) is kept across calls, one
+    entry per shape and tables. Returns (pos [Q] bool on the host,
+    overflow).
     """
     q, w, m_t = cs.shape[0], ell.shape[1], int(tail_src.shape[0])
     check_key_space(n_nodes, q, cap)
@@ -564,23 +603,25 @@ def expand_frontier_loop_fused(ell, tail_src, tail_dst, is_hub, cs, ct,
                  max_steps=max_steps)
     graph = (not on_cpu(cs) and tables is not None and not distinct_overflow
              and cap <= SORT_MAX_CAP)
-    if on_cpu(cs):
-        st = StepState(**shape, device="cpu")
-        st.tables = _tables(ell, tail_src, tail_dst, is_hub, st.ct, tables)
-    else:
-        if workspaces is None:
+    if workspaces is None:
+        if not on_cpu(cs):
             raise ValueError("expand_frontier_loop_fused on a card needs "
                              "workspaces (a dict kept across calls)")
+        st = StepState(**shape, device="cpu")
+        st.tables = _tables(ell, tail_src, tail_dst, is_hub, st.ct, tables,
+                            can_reach_tail)
+    else:
         meta, slab = (None, None) if tables is None else (tables["meta"],
                                                           tables["slab"])
         key = (graph, cs.device, *shape.values(),
                *(None if t is None else t.data_ptr()
-                 for t in (ell, tail_src, tail_dst, is_hub, meta, slab)))
+                 for t in (ell, tail_src, tail_dst, is_hub, meta, slab,
+                           can_reach_tail)))
         st = workspaces.get(key)
         if st is None:
             st = StepState(**shape, device=cs.device)
             st.tables = _tables(ell, tail_src, tail_dst, is_hub, st.ct,
-                                tables)
+                                tables, can_reach_tail)
             workspaces[key] = st
     if graph:
         host = _graph_call(st, cs, ct, pad)

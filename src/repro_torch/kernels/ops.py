@@ -40,17 +40,22 @@ def classify_queries(dev: dict, cs, ct):
                       dev["ends"], dev["exact"], sp, sm, cs, ct)
 
 
-def classify_all_nodes_vs_target(dev: dict, ct):
+def classify_all_nodes_vs_target(dev: dict, ct, can_reach_tail=None):
     """Dense phase-2 helper: classify EVERY node u against each target of
     ``ct`` [Q] through the phase-1 kernel on the [Q·n] pairs. Returns
     (expandable [Q, n] bool, definite_pos [Q, n] bool): expandable nodes
     have an approximate hit and pass every negative filter; reaching a
     definite-positive node (exact hit, seed-positive, or u == t) proves
-    the query."""
+    the query. ``can_reach_tail`` ([n] bool, a live overlay's) keeps
+    base-NEG nodes expandable while they can still reach a delta-edge
+    tail."""
     n, q = dev["pi"].shape[0], ct.shape[0]
     cs_all = torch.arange(n, dtype=torch.int32, device=ct.device).repeat(q)
     v = classify_queries(dev, cs_all, ct.repeat_interleave(n)).view(q, n)
-    return v == UNKNOWN, v == POS
+    expandable = v == UNKNOWN
+    if can_reach_tail is not None:
+        expandable |= (v == NEG) & can_reach_tail[None, :]
+    return expandable, v == POS
 
 
 def frontier_classify(dev: dict):
@@ -71,14 +76,16 @@ def frontier_classify(dev: dict):
 
 
 def expand_frontier(dev: dict, ell, tail_src, tail_dst, is_hub, cs, ct,
-                    pad, *, max_steps: int, cap: int, workspaces=None):
+                    pad, *, max_steps: int, cap: int, workspaces=None,
+                    can_reach_tail=None):
     """Sparse phase-2 expansion of one chunk of UNKNOWN queries over the
     ELL + tail layout, on one device: (pos [Q] bool on the host,
     overflow bool). Under overflow, positives are sound and the caller
     retries the rest with a larger cap. The chunk is bounded by
     ``frontier.max_batch(n)``. ``workspaces`` (required on a card): a
     dict that keeps the loop's device state across calls
-    (``frontier_fused.StepState``).
+    (``frontier_fused.StepState``). ``can_reach_tail``: a live overlay's
+    gate for kernel 4's overlay rule (``expand_frontier_overlay``).
 
     The fused layout classifies survivors with kernel 4 from the meta/slab
     rows in place; the 12-array layout (multi-word seeds or n > 2**24)
@@ -91,4 +98,23 @@ def expand_frontier(dev: dict, ell, tail_src, tail_dst, is_hub, cs, ct,
         n_nodes=ell.shape[0], max_steps=max_steps, cap=cap,
         classify=frontier_classify(dev),
         tables={"meta": dev["meta"], "slab": dev["slab"]} if fused else None,
-        distinct_overflow=not fused, workspaces=workspaces)
+        distinct_overflow=not fused, can_reach_tail=can_reach_tail,
+        workspaces=workspaces)
+
+
+def expand_frontier_overlay(dev: dict, ell, tail_src, tail_dst, is_hub,
+                            can_reach_tail, cs, ct, pad, *, max_steps: int,
+                            cap: int, workspaces=None):
+    """Union-graph (base + delta slab) expansion for live-update serving
+    (``reach.dynamic``): ``expand_frontier`` over the union tail
+    (``tail_src``/``tail_dst`` with the delta slab appended, ``is_hub``
+    extended to the delta tails) with kernel 4's overlay rule on
+    ``can_reach_tail`` ([n] bool; None: no overlay). ``max_steps`` must
+    bound the union BFS depth (callers pass n: delta edges may close
+    cycles over the base DAG). On the fused layout this is kernels 3 and
+    4, one CUDA graph a call; on the 12-array layout kernel 2 gives the
+    verdicts the rule then reads."""
+    return expand_frontier(dev, ell, tail_src, tail_dst, is_hub, cs, ct, pad,
+                           max_steps=max_steps, cap=cap,
+                           workspaces=workspaces,
+                           can_reach_tail=can_reach_tail)

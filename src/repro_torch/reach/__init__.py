@@ -13,6 +13,13 @@
     reach.save_index(path, ix, spec)             # artifact on disk
     sess = reach.QuerySession.load(path)         # serve it again later
 
+    sess.apply_updates(srcs, dsts)               # live inserts (overlay)
+    sess.compact()                               # fold them into the index
+
+A loaded session is bound to its artifact: inserts append to its delta
+log, ``compact`` saves the next epoch, and ``load`` replays the log
+(``reach.dynamic``, ``reach.persist``).
+
 Artifacts share the reference package's format; ``index_from_arrays``
 rebuilds an index from an artifact's leaves.
 """

@@ -9,9 +9,10 @@ either package loads in the other. Beyond the FerrariIndex it saves the
 sparse phase 2: both come from host loops over all n nodes, and with them
 ``load_index`` is a pure array read (``convert.index_from_arrays``).
 
-Live updates are not ported yet: an artifact whose epoch has logged edge
-inserts (a ``deltas/`` batch for that epoch) is refused rather than
-served without them.
+Edge inserts between compactions live in an append-only delta log beside
+the artifact steps (``append_delta``/``load_deltas``), with the
+reference's file names and npz keys, so a log either package writes
+replays in the other (``QuerySession.load``).
 """
 from __future__ import annotations
 
@@ -140,20 +141,70 @@ def _load_arrays(path, step: Optional[int]):
 
 
 def load_index(path, step: Optional[int] = None) -> IndexArtifact:
-    """Load the latest committed index artifact under ``path``. Raises
-    ``NotImplementedError`` when edge inserts are logged for its epoch:
-    replaying them needs the live-update overlay, which is not ported."""
+    """Load the latest committed index artifact under ``path`` (the edge
+    inserts logged since its epoch are ``load_deltas``')."""
     arrays, manifest = _load_arrays(path, step)
     extra = manifest["extra"]
     epoch = int(extra.get("epoch", 0))
-    logged = sorted((Path(path) / "deltas").glob(f"epoch_{epoch:08d}_*.npz"))
-    if logged:
-        raise NotImplementedError(
-            f"{path} holds {len(logged)} logged insert batch(es) for epoch "
-            f"{epoch}; replaying a delta log needs live updates, which "
-            "this package does not have yet")
     index, packed, ell = index_from_arrays(arrays, extra)
     spec = (None if extra.get("spec") is None
             else IndexSpec.from_dict(extra["spec"]))
     return IndexArtifact(index=index, spec=spec, packed=packed, ell=ell,
                          manifest=manifest, epoch=epoch)
+
+
+# ------------------------------------------------------------ delta log --
+#
+# Edge inserts between compactions live in an append-only log BESIDE the
+# artifact steps: one npz per applied batch, named by the graph epoch it
+# extends. Compaction bumps the epoch and commits a new artifact step, so
+# older epochs' batches become inert history — never rewritten, never
+# deleted, just no longer selected by the loader.
+
+def delta_log_dir(path) -> Path:
+    return Path(path) / "deltas"
+
+
+def next_delta_seq(path, epoch: int) -> int:
+    """Number of log batches already on disk for ``epoch`` (= the next
+    sequence number). Sessions list once and count in memory after."""
+    d = delta_log_dir(path)
+    if not d.exists():
+        return 0
+    return len(list(d.glob(f"epoch_{int(epoch):08d}_*.npz")))
+
+
+def append_delta(path, epoch: int, src, dst,
+                 seq: Optional[int] = None) -> Path:
+    """Append one batch of ORIGINAL-id edge inserts to the delta log.
+
+    Original ids (not condensed): a full-rebuild compaction can change the
+    SCC map, and replay re-condenses through whatever comp map the loaded
+    artifact carries. Atomic tmp-write + rename, sequence-numbered within
+    the epoch so replay order is total; ``seq=None`` re-derives the
+    number by listing (``QuerySession`` passes its in-memory cursor).
+    """
+    d = delta_log_dir(path)
+    d.mkdir(parents=True, exist_ok=True)
+    if seq is None:
+        seq = next_delta_seq(path, epoch)
+    out = d / f"epoch_{int(epoch):08d}_{seq:08d}.npz"
+    tmp = out.with_suffix(".npz.tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, src=np.asarray(src, dtype=np.int64),
+                 dst=np.asarray(dst, dtype=np.int64))
+    tmp.rename(out)
+    return out
+
+
+def load_deltas(path, epoch: int):
+    """The logged insert batches extending artifact ``epoch``, in append
+    order: a list of (src, dst) original-id arrays."""
+    d = delta_log_dir(path)
+    if not d.exists():
+        return []
+    out = []
+    for f in sorted(d.glob(f"epoch_{int(epoch):08d}_*.npz")):
+        with np.load(f) as z:
+            out.append((z["src"], z["dst"]))
+    return out

@@ -12,6 +12,12 @@ session statistics.
 micro-batches (capped at ``spec.max_batch``); ``stage()``/``begin()``/
 ``finish()`` split one batch into host→device copy, phase-1 launch and
 phase 2, so a caller can stage batch N+1 while batch N classifies.
+
+``apply_updates()`` inserts edges into the live graph (the engine's delta
+overlay, ``reach.dynamic``) and ``compact()`` folds them into a new index;
+a session bound to an artifact directory (``load``/``bind_artifact``) logs
+every insert batch and saves every compacted epoch, and ``load`` replays
+the log to the current graph.
 """
 from __future__ import annotations
 
@@ -44,6 +50,11 @@ class SessionStats(ResettableStats):
     n_padded: int = 0
     seconds: float = 0.0
     buckets: Dict[int, int] = field(default_factory=dict)
+    # live-update path (reach.dynamic)
+    n_updates: int = 0           # delta edges accepted into the overlay
+    n_overlay_hits: int = 0      # base-NEG answers flipped POS by the overlay
+    n_compactions: int = 0       # overlay folds into the index
+    overlay_edges: int = 0       # current overlay fill (gauge, not counter)
 
     @property
     def ns_per_query(self) -> float:
@@ -89,8 +100,18 @@ class QuerySession:
                                         ell=ell, device=device))
         self._pending: List[Tuple[int, np.ndarray, np.ndarray]] = []
         self._next_ticket = 0
+        self._n_inflight = 0          # begin() handles not yet finish()ed
         self.artifact_manifest: Optional[dict] = None   # set by load()
-        self.epoch = 0                # graph epoch of a loaded artifact
+        self.epoch = 0                # graph epoch: bumped by compact()
+        self._artifact_dir = None     # set by load(); enables delta logging
+        # replay state (load()): not-yet-applied log batches + the tail of
+        # the batch being applied — a replay-triggered compaction re-logs
+        # both under the new epoch BEFORE committing its artifact, so no
+        # durably-logged edge can be orphaned by a crash (DESIGN.md §6.3)
+        self._replaying = False
+        self._replay_pending: List[Tuple[np.ndarray, np.ndarray]] = []
+        self._replay_tail = None
+        self._next_delta_seq = None   # per-epoch log cursor (lazy-listed)
         self.reset_stats()
 
     # ------------------------------------------------------------- loading
@@ -101,11 +122,14 @@ class QuerySession:
         (``reach.persist``), written by this package or the reference.
 
         ``spec`` overrides the spec stored with the artifact; the stored
-        ELL layout is reused only when its width still matches. An
-        artifact with logged edge inserts for its epoch is refused
-        (``NotImplementedError``): replaying them needs live updates.
+        ELL layout is reused only when its width still matches. Edge
+        inserts logged since the artifact's epoch replay into the overlay,
+        so the session serves the CURRENT graph, and it stays bound to
+        ``path``: later inserts append to its log.
         """
-        from .persist import load_index
+        from pathlib import Path
+
+        from .persist import load_deltas, load_index
         art = load_index(path)
         saved_width = None if art.spec is None else art.spec.ell_width
         use_spec = spec if spec is not None else (art.spec or IndexSpec())
@@ -114,6 +138,17 @@ class QuerySession:
                    device=device)
         sess.artifact_manifest = art.manifest
         sess.epoch = art.epoch
+        sess._artifact_dir = Path(path)
+        sess._replaying = True
+        sess._replay_pending = load_deltas(path, art.epoch)
+        try:
+            while sess._replay_pending:
+                src, dst = sess._replay_pending.pop(0)
+                sess.apply_updates(src, dst)
+        finally:
+            sess._replaying = False
+            sess._replay_pending = []
+            sess._replay_tail = None
         return sess
 
     # ------------------------------------------------------------ querying
@@ -211,9 +246,12 @@ class QuerySession:
         return _StagedBatch(q=q, bucket=b, srcs=cs, dsts=ct)
 
     def begin(self, staged: "_StagedBatch") -> "_InflightBatch":
-        """Launch phase 1 on a staged batch without waiting for it."""
+        """Launch phase 1 on a staged batch without waiting for it. The
+        handle is bound to the CURRENT engine: ``compact()`` refuses to
+        run while any handle is outstanding."""
         t0 = time.perf_counter()
         handle = self.engine.start_answer(staged.srcs, staged.dsts)
+        self._n_inflight += 1
         return _InflightBatch(staged=staged, handle=handle, t0=t0)
 
     def finish(self, inflight: "_InflightBatch") -> np.ndarray:
@@ -222,13 +260,195 @@ class QuerySession:
         staged batches exactly like ``query()`` ones; ``seconds`` covers
         begin→finish wall time."""
         st = inflight.staged
-        ans = self.engine.finish_answer(inflight.handle)[: st.q]
+        try:
+            ans = self.engine.finish_answer(inflight.handle)[: st.q]
+        finally:
+            self._n_inflight -= 1
         self._seconds += time.perf_counter() - inflight.t0
         self._n_positive += int(ans.sum())
         self._n_padded += st.bucket - st.q
         self._n_batches += 1
         self._buckets[st.bucket] = self._buckets.get(st.bucket, 0) + 1
         return ans
+
+    # -------------------------------------------------------- live updates
+    def bind_artifact(self, path, epoch: int = 0) -> None:
+        """Attach this session to an index artifact directory so
+        ``apply_updates`` appends to its delta log and ``compact``
+        persists new epochs. ``QuerySession.load`` binds automatically;
+        call this after a build-and-save so a freshly built session gets
+        the same durability."""
+        from pathlib import Path
+
+        from .persist import load_manifest
+        self._artifact_dir = Path(path)
+        self.epoch = epoch
+        # the log cursor belongs to the (dir, epoch) pair: force a re-list
+        # so binding never overwrites batches already on disk there
+        self._next_delta_seq = None
+        if self.artifact_manifest is None:
+            # carry the stored user_meta (graph identity): compact()
+            # re-saves it on every later epoch
+            self.artifact_manifest = load_manifest(path)
+
+    def apply_updates(self, srcs, dsts) -> int:
+        """Insert edges (ORIGINAL node ids) into the live graph.
+
+        Answers reflect the inserts the moment this returns: edges land in
+        the engine's delta overlay (capacity ``spec.overlay_cap``) and
+        queries expand over the union graph. When a batch needs more room
+        than the overlay has, ``compact()`` folds the overlay into the
+        index first (``spec.auto_compact``; otherwise this raises
+        ``OverlayFull`` and applies nothing). Bound sessions also append
+        every batch to the artifact's delta log.
+
+        Returns the number of NEW edges accepted (self-loops within an
+        SCC and duplicates are dropped).
+        """
+        srcs = np.asarray(srcs, dtype=np.int64)
+        dsts = np.asarray(dsts, dtype=np.int64)
+        if srcs.shape != dsts.shape or srcs.ndim != 1:
+            raise ValueError("srcs/dsts must be equal-length 1-D arrays")
+        # validate BEFORE logging: a bad id must neither wrap through
+        # negative indexing nor poison the delta log (a logged bad batch
+        # would make every future load's replay raise)
+        n_orig = self.index.cond.comp.shape[0]
+        if srcs.size and (min(srcs.min(), dsts.min()) < 0
+                          or max(srcs.max(), dsts.max()) >= n_orig):
+            raise ValueError(
+                f"edge endpoint out of range [0, {n_orig}) — updates take "
+                "ORIGINAL node ids of the indexed graph")
+        if not self.spec.auto_compact and not self._replaying:
+            # all-or-nothing: DeltaOverlay.add raises OverlayFull before
+            # mutating, so map the whole batch and apply it in one call;
+            # log only after success
+            comp = self.index.cond.comp
+            ca, cb = comp[srcs], comp[dsts]
+            keep = ca != cb
+            applied = self.engine.apply_updates(ca[keep], cb[keep])
+            if self._artifact_dir is not None:
+                from .persist import append_delta
+                append_delta(self._artifact_dir, self.epoch, srcs, dsts,
+                             seq=self._take_delta_seq())
+            return applied
+        applied = 0
+        lo = 0
+        while lo < srcs.size:
+            if self._replaying:
+                self._replay_tail = (srcs[lo:], dsts[lo:])
+            ov = self.engine.overlay
+            free = self.engine.overlay_cap if ov is None else ov.free
+            if free == 0:
+                self._auto_compact()
+                continue
+            hi = min(lo + free, srcs.size)
+            s, d = srcs[lo:hi], dsts[lo:hi]
+            # chunks log BEFORE applying; replayed batches never re-log
+            # here — they are already durable under the artifact's epoch,
+            # and a replay-triggered compaction re-logs the unfolded rest
+            # under its new epoch itself (see compact())
+            if self._artifact_dir is not None and not self._replaying:
+                from .persist import append_delta
+                append_delta(self._artifact_dir, self.epoch, s, d,
+                             seq=self._take_delta_seq())
+            comp = self.index.cond.comp
+            ca, cb = comp[s], comp[d]
+            keep = ca != cb          # same-SCC edges change nothing
+            applied += self.engine.apply_updates(ca[keep], cb[keep])
+            lo = hi
+        if self._replaying:
+            self._replay_tail = None
+        return applied
+
+    def _take_delta_seq(self) -> int:
+        """Next sequence number in the current epoch's delta log — listed
+        from disk once, then counted in memory."""
+        if self._next_delta_seq is None:
+            from .persist import next_delta_seq
+            self._next_delta_seq = next_delta_seq(self._artifact_dir,
+                                                  self.epoch)
+        seq = self._next_delta_seq
+        self._next_delta_seq += 1
+        return seq
+
+    def _auto_compact(self) -> None:
+        if not self.spec.auto_compact:
+            from .dynamic import OverlayFull
+            raise OverlayFull(
+                f"overlay full ({self.spec.overlay_cap} edges) and "
+                "auto_compact is off — call session.compact()")
+        self.compact()
+
+    def compact(self, mode: Optional[str] = None):
+        """Fold the delta overlay into the index (bounded incremental
+        relabeling — ``reach.dynamic.compact_index``), on the engine's
+        device.
+
+        Recomputes only the labels of union-graph ancestors of the
+        inserted tails, re-running the staged device pipeline over the
+        affected waves (kernel 5 on a card); falls back to a full rebuild
+        when an insert closed a cycle (``mode`` defaults to
+        ``spec.compact_mode``). The engine is rebuilt on the new index on
+        the same device — same spec, fresh packed layouts — with the
+        cumulative phase counters carried over. Bound sessions persist the
+        new index under the bumped epoch. Returns the new index's
+        BuildStats.
+        """
+        if self._n_inflight:
+            # a begin() handle holds phase-1 verdicts computed against the
+            # CURRENT engine/condensation; swapping the engine under it
+            # would misread condensed ids against the rebuilt index
+            raise RuntimeError(
+                f"compact() with {self._n_inflight} staged phase-1 "
+                "handle(s) outstanding — finish() them first")
+        from ..core.packed import pack_index
+        from .dynamic import compact_index
+        device = self.engine.device
+        ov = self.engine.overlay
+        esrc, edst = (ov.edges() if ov is not None
+                      else (np.zeros(0, np.int32), np.zeros(0, np.int32)))
+        new_ix = compact_index(self.index, esrc, edst, self.spec,
+                               mode=mode or self.spec.compact_mode,
+                               device=device)
+        pk = pack_index(new_ix)
+        # pack the ELL layout once and share it between the fresh engine
+        # and the re-saved artifact
+        p2 = self.spec.phase2_mode
+        if p2 == "auto":
+            p2 = "dense" if pk.n <= self.spec.n_dense_max else "sparse"
+        ell = (pk.ell_layout(width=self.spec.ell_width)
+               if self._artifact_dir is not None or p2 == "sparse" else None)
+        stats = self.engine.stats           # carry phase mix across the swap
+        self.index = new_ix
+        self.engine = make_engine(new_ix, self.spec, packed=pk, ell=ell,
+                                  device=device)
+        self.engine.stats = stats
+        self.engine.stats.n_compactions += 1
+        self.epoch += 1
+        self._next_delta_seq = 0     # fresh epoch — fresh log cursor
+        if self._artifact_dir is not None:
+            from .persist import append_delta, save_index
+            if self._replaying:
+                # a compaction mid-replay folds only the already-replayed
+                # prefix: re-log the in-flight batch tail and the pending
+                # log batches under the NEW epoch BEFORE committing its
+                # artifact (log-then-commit, DESIGN.md §6.3): before the
+                # commit the old epoch and its complete log win, after it
+                # the new epoch's log holds its complete tail
+                if self._replay_tail is not None \
+                        and self._replay_tail[0].size:
+                    append_delta(self._artifact_dir, self.epoch,
+                                 *self._replay_tail,
+                                 seq=self._take_delta_seq())
+                for s2, d2 in self._replay_pending:
+                    append_delta(self._artifact_dir, self.epoch, s2, d2,
+                                 seq=self._take_delta_seq())
+            meta = None
+            if self.artifact_manifest is not None:
+                meta = self.artifact_manifest["extra"].get("user_meta")
+            save_index(self._artifact_dir, new_ix, self.spec, meta=meta,
+                       packed=pk, ell=ell, epoch=self.epoch)
+        return new_ix.stats
 
     # ------------------------------------------------------------- warmup
     def warmup(self, *batch_sizes: int) -> None:
@@ -278,6 +498,11 @@ class QuerySession:
             n_padded=self._n_padded,
             seconds=self._seconds,
             buckets=dict(self._buckets),
+            n_updates=es.n_updates,
+            n_overlay_hits=es.n_overlay_hits,
+            n_compactions=es.n_compactions,
+            overlay_edges=(0 if self.engine.overlay is None
+                           else self.engine.overlay.n_edges),
         )
 
     def reset_stats(self) -> None:

@@ -403,4 +403,4 @@ def make_engine(index, spec: IndexSpec = IndexSpec(), *, packed=None,
         phase2_mode=spec.phase2_mode, ell_width=spec.ell_width,
         frontier_cap=spec.frontier_cap,
         frontier_cap_max=spec.frontier_cap_max, packed=packed, ell=ell,
-        device=dev)
+        overlay_cap=spec.overlay_cap, device=dev)

@@ -376,6 +376,105 @@ def test_naive_layout_step_kernels_match_plain(dev):
         _hold_state(got, want)
 
 
+@pytest.mark.parametrize("n_seeds,cap", [(None, 64), (None, 4096),
+                                          (None, 32768), (64, 300)])
+def test_overlay_classify_emit_matches_plain(dev, n_seeds, cap):
+    """Kernel 4 with a live overlay's ``can_reach_tail`` (read in place,
+    random here: half the nodes) against dedup_classify_emit_plain with
+    the same gate, word for word, after kernel 3 on every step of a
+    call: the one-block form, mark + emit above 16,384 slots, and the
+    12-array layout (kernel 2's verdicts through the rule in mark)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.interval_stab import stab_naive
+    p, cpu, tables, tables_cpu = _sparse_setup(dev, n_seeds=n_seeds)
+    rng = np.random.default_rng(7)
+    crt = torch.from_numpy(rng.random(p.n) < 0.5).to(dev)
+    tables["can_reach_tail"] = crt
+    kw, plain_kw = {}, {}
+    if n_seeds is None:
+        meta, slab = tables["meta"], tables["slab"]
+        plain_kw = dict(fetch_rows=lambda c, t: (meta[c.long()],
+                                                 meta[t.long()],
+                                                 slab[c.long()]),
+                        classify=ff.classify_emit_plain)
+    else:
+        gpu_dev = p.to_torch(dev)
+        sp, sm = ops.ref.naive_seed_rows(gpu_dev)
+        naive = (gpu_dev["pi"], gpu_dev["tau"], gpu_dev["blevel"],
+                 gpu_dev["begins"], gpu_dev["ends"], gpu_dev["exact"], sp,
+                 sm)
+
+        def classify(cands, tgts, keys, eq):
+            return ff.emit_plain(stab_naive(*naive, cands, tgts), keys)
+
+        def classify_plain(cands, tgts, keys, eq):
+            return ff.emit_plain(stab_naive_plain(
+                *(t.cpu() for t in naive), cands.cpu(), tgts.cpu()).to(dev),
+                keys)
+        kw = dict(classify=classify, distinct_overflow=True)
+        plain_kw = dict(fetch_rows=lambda c, t: (c, t),
+                        classify=classify_plain, distinct_overflow=True)
+    cs, ct = _queries(p, cpu, 64, 4)
+    st = ff.StepState(q=64, n_nodes=p.n, w=2, m_t=int(tables["tail_src"]
+                      .shape[0]), cap=cap, max_steps=p.n, device=dev)
+    tables["ct"] = _i32(ct).to(dev)
+    states = _replay(st, tables, _i32(cs).to(dev),
+                     torch.zeros(64, dtype=torch.bool, device=dev), **kw)
+    assert len(states) >= (1 if cap == 64 else 2)
+    reopened = 0
+    for s in states:
+        ff.expand_probe(s, tables)
+        got, want = s.clone(), s.clone()
+        ff.dedup_classify_emit(got, tables, **kw)
+        ff.dedup_classify_emit_plain(want, tables["ct"], tables["is_hub"],
+                                     can_reach_tail=crt, **plain_kw)
+        _hold_state(got, want)
+        off = s.clone()
+        ff.dedup_classify_emit_plain(off, tables["ct"], tables["is_hub"],
+                                     **plain_kw)
+        reopened += int(want.ctl[ff.N_FRONT]) - int(off.ctl[ff.N_FRONT])
+    assert reopened > 0          # the gate kept NEG survivors in the front
+
+
+def test_overlay_graph_captured_once_across_add_batches(dev):
+    """Four add batches on a card session: the union tables keep their
+    buffers, so the engine keeps one overlay loop state and one captured
+    graph; every overlay call is that graph (one sync a call), and the
+    answers equal the CPU session's after every batch."""
+    g = scale_free_digraph(20_000, 4.0, seed=0)
+    # caps up to 16,384 only: every overlay call is a graph call
+    spec = IndexSpec(k=1, use_seeds=False, phase2_mode="sparse",
+                     max_batch=4096, min_bucket=256, overlay_cap=4096,
+                     frontier_cap_max=16384)
+    ix = build(g, spec)
+    cpu = QuerySession(ix, spec, device="cpu")
+    gpu = QuerySession(ix, spec, device=dev)
+    rng = np.random.default_rng(11)
+    qs, qt = random_queries(g, 4096, seed=3)
+    graphs, keys = set(), []
+    for _ in range(4):
+        src = rng.integers(0, g.n, 1024)
+        dst = rng.integers(0, g.n, 1024)
+        assert gpu.apply_updates(src, dst) == cpu.apply_updates(src, dst)
+        want = cpu.query(qs, qt)
+        ff.STEPS.reset()
+        _lib.LAUNCHES.reset()
+        np.testing.assert_array_equal(gpu.query(qs, qt), want)
+        assert gpu.stats.n_overlay_hits == cpu.stats.n_overlay_hits
+        states = gpu.engine._sparse_state
+        overlay = {st.cap: st for st in states.values()
+                   if st.tables["can_reach_tail"] is not None}
+        assert overlay[spec.frontier_cap].graph is not None
+        graphs.add(overlay[spec.frontier_cap].graph)
+        keys.append(set(states))
+        calls = ff.STEPS["helpers"] // 2
+        assert calls > 0 and ff.STEPS["syncs"] == calls
+        assert _lib.LAUNCHES["probe"] == ff.STEPS["steps"]
+    # a later batch adds a state only for a cap no earlier one retried at
+    assert len(graphs) == 1 and all(a <= b for a, b in zip(keys, keys[1:]))
+    assert gpu.stats.n_overlay_hits > 0
+
+
 def test_wrappers_refuse_bad_operands(dev):
     meta = torch.zeros((8, 4), dtype=torch.int32, device=dev)
     slab = torch.zeros((8, 4), dtype=torch.int32, device=dev)

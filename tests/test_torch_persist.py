@@ -2,7 +2,7 @@
 reference's ``reach.save_index`` loads in the port and the reverse, with
 the spec, build stats, packed slabs and ELL layout intact and identical
 answers; ``QuerySession.load`` serves what the saving session served; and
-an artifact with a delta log (live updates, not ported) is refused."""
+an artifact's delta log replays in the port as in the reference."""
 import json
 
 import numpy as np
@@ -131,20 +131,24 @@ def test_wavefront_artifact_round_trips(tmp_path):
         np.testing.assert_array_equal(sess.query(qs, qt), want)
 
 
-def test_delta_log_is_refused(saved, tmp_path):
-    root, *_ = saved
+def test_delta_log_replays(saved, tmp_path):
+    """An artifact with a delta log for its epoch loads, and
+    ``QuerySession.load`` replays the log into the overlay as the
+    reference's does; a log of another epoch is not this artifact's."""
+    root, qs, qt, _, _ = saved
     import shutil
-    shutil.copytree(root / "ref", tmp_path / "a")
-    reach.load_index(tmp_path / "a")                  # no log: loads
-    append_delta(tmp_path / "a", 0, [1, 2], [3, 4])
-    with pytest.raises(NotImplementedError, match="delta log"):
-        reach.load_index(tmp_path / "a")
-    with pytest.raises(NotImplementedError, match="delta log"):
-        reach.QuerySession.load(tmp_path / "a", device="cpu")
-    # a log of another epoch is not this artifact's
+    for name in ("port", "ref"):
+        shutil.copytree(root / "ref", tmp_path / name)
+        append_delta(tmp_path / name, 0, [1, 2, 7], [3, 4, 900])
+    reach.load_index(tmp_path / "port")
+    sess = reach.QuerySession.load(tmp_path / "port", device="cpu")
+    ref = ref_reach.QuerySession.load(tmp_path / "ref")
+    assert sess.stats.overlay_edges == ref.stats.overlay_edges > 0
+    np.testing.assert_array_equal(sess.query(qs, qt), ref.query(qs, qt))
     shutil.copytree(root / "port", tmp_path / "b")
     append_delta(tmp_path / "b", 7, [1], [2])
-    reach.load_index(tmp_path / "b")
+    assert reach.QuerySession.load(tmp_path / "b",
+                                   device="cpu").stats.overlay_edges == 0
 
 
 def test_load_without_a_card_raises(saved, monkeypatch):
