@@ -94,6 +94,29 @@ training on the card:
            timed beside SDPA; a profiled step; then the same widths cut to
            2 layers in float32 (batch 2 x seq 512, 2 microbatches), two
            steps, card against CPU.
+  ferrari  ferrari-web (the paper's own system) at its published n =
+           16,777,216, after every other phase is driven and timed and
+           the card's cache emptied: a condensed DAG
+           (scale_free_digraph(2^24, 4.0, back_p=0)) indexed at the arch's
+           widths (IndexSpec.from_config, precondensed) through
+           reach.build with the device builder (kernel 5; the host
+           builder's sweep takes longer than the run may at this n),
+           stage seconds from its trace spans, then a QuerySession over
+           it; the classify_16m and classify_100k cells (kernel 1 on the
+           fused tables, one launch each) held against the engine's
+           classify of the same ids, 2^16 of them against kernel 1's plain
+           version on the CPU and the host DFS (every POS reachable, every
+           NEG not); kernel 1 timed at the classify_16m call; then 2^20
+           pairs through the async frontend (8 tenants, 64-pair requests,
+           the default deadline; one request in 16 of forward-walk pairs)
+           over the session with tracing on (kernels 1, 3, 4): every
+           ticket against QuerySession.query, every phase-2 answer and
+           2,000 others against the host DFS, kernels 3 and 4 word for
+           word on every step of the frontend's largest, smallest and
+           first overflowing expansion calls, one slab span a slab in the
+           Chrome trace under build/, the registry's reach_frontend,
+           reach_session and reach_engine samples equal to their stats
+           objects.
 
 Every phase sets the launch counters to 0 just before it is driven and
 reads them just after; the reachability phases hold their answers against
@@ -102,17 +125,20 @@ against their plain versions on each phase's largest and smallest calls;
 the model phases against the CPU (rtol 1e-4, atol 1e-5 times the output's
 largest magnitude, at least 1). Kernels 3 and 4 are held word for word
 (the whole step state) against their plain versions on a random step of
-2^20 candidates, on every step of the phase2 and seeds64 phases' largest
-and smallest expansion calls and first overflowing one (each replayed
-step by step with the kernels' own wrappers, its answers equal to the
-served call's), and on a call whose sources are the phase2 index's hubs
-(the COO tail swept). Any mismatch or exception exits non-zero.
+2^20 candidates, on every step of the phase2, seeds64 and ferrari
+frontend's largest and smallest expansion calls and first overflowing
+one (each replayed step by step with the kernels' own wrappers, its
+answers equal to the served call's), and on a call whose sources are the
+phase2 index's hubs (the COO tail swept). Any mismatch or exception exits non-zero.
 The main phase also splits one micro-batch of ``QuerySession.query`` by
 part on host clocks. Each kernel is timed at its path's largest call
 (kernels 3 and 4 at the phase2 step of most candidates); kernels 1 and 2
 also at the 2^20-query parity calls (K 1, 8, 32) and kernel 1 at the
 dense phase's largest call, and kernels 1 to 4 beside their launch floor
 (``zero_()`` of an output as large, timed the same way).
+``--ferrari-only`` runs the kernels' build and the ferrari phase alone
+and prints no result lines; only with it, ``--ferrari-nodes`` cuts the
+phase's graph.
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -123,6 +149,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import gc
 import json
 import shutil
 import subprocess
@@ -1428,9 +1455,11 @@ def host_split(sess, s, t, reps: int = 101) -> dict:
     """One batch of ``QuerySession.query`` (``s``, ``t``: original ids, one
     full micro-batch) split by part on host clocks, with a
     ``torch.cuda.synchronize()`` at each boundary: each part is run on its
-    own as the path runs it, median and quartiles of ``reps``; the rest is
-    the whole call's median less the parts'. Nothing on the served path
-    changes."""
+    own as the path runs it (the ids written into one of the engine's
+    reused pinned buffers and copied, the ``comp`` gather, kernel 1, the
+    verdict's copy back), median and quartiles of
+    ``reps``; the rest is the whole call's median less the parts'.
+    Nothing on the served path changes."""
     import torch
 
     from repro_torch.kernels import interval_stab as st
@@ -1446,19 +1475,22 @@ def host_split(sess, s, t, reps: int = 101) -> dict:
         t1 = clock()
         ps, pt = sess._pad(s, t, sess._bucket(s.size))
         t2 = clock()
-        cs = eng.comp[eng._tensor(ps, torch.int64)]
-        ct = eng.comp[eng._tensor(pt, torch.int64)]
+        staged = eng._ids_to_device(ps, pt)
         t3 = clock()
-        verdict = st.stab_packed(eng.dev["meta"], eng.dev["slab"], cs, ct)
-        t4 = time.perf_counter()          # the launch is queued, not done
-        t5 = clock()
-        verdict.cpu().numpy()
+        c = eng.comp[staged.ids]
+        t4 = clock()
+        verdict = st.stab_packed(eng.dev["meta"], eng.dev["slab"], c[0], c[1])
+        t5 = time.perf_counter()          # the launch is queued, not done
         t6 = clock()
+        verdict.cpu().numpy()
+        t7 = clock()
+        eng._pinned.give(staged.buf)
         for key, dt in (("whole", t1 - t0), ("pad and bucket", t2 - t1),
-                        ("ids to the card + comp gather", t3 - t2),
+                        ("ids into a pinned buffer + copy", t3 - t2),
+                        ("comp gather", t4 - t3),
                         ("kernel-1 wrapper (checks, empty, ctypes)",
-                         t4 - t3), ("kernel-1 wait", t5 - t4),
-                        ("verdict to the host + sync", t6 - t5)):
+                         t5 - t4), ("kernel-1 wait", t6 - t5),
+                        ("verdict to the host + sync", t7 - t6)):
             times[key].append(dt * 1e3)
     q1, med, q3 = ({key: float(np.percentile(v, p))
                     for key, v in times.items()} for p in (25, 50, 75))
@@ -1831,8 +1863,9 @@ def churn_phase(dev, rec, err, wf):
     eng = sess.engine
     ix0 = sess.index
     ell, tsrc, _, _ = eng._ell()
-    q, cap, w = eng._phase2_chunk_size(), eng.frontier_cap, ell.shape[1]
+    w, cap = ell.shape[1], eng.frontier_cap
     m_u = tsrc.shape[0] + eng.overlay_cap
+    q = eng._phase2_chunk_size(w, m_u)
     worst = cap * w + q * m_u
     print(f"churn: {CHURN_BATCHES} insert batches of {CHURN_EDGES} edges "
           f"on the wavefront phase's loaded session ({eng.packed.n} "
@@ -3034,11 +3067,360 @@ def train_phase(dev, seed: int):
     return counts, timing
 
 
+# ---------------------------------------------------------- ferrari ----
+FERRARI_ARCH = "ferrari-web"
+FERRARI_NODES = 1 << 24        # ferrari-web's published n
+FERRARI_SAMPLE = 1 << 16       # verdicts held against plain and the host DFS
+FERRARI_POSITIVE = 1 << 15     # of them, pairs from forward walks (positive)
+FERRARI_CELL_REPS = 10         # timed classify_16m steps
+FERRARI_TENANTS = 8
+FERRARI_REQUEST = 64           # query pairs a frontend request
+FERRARI_PAIRS = 1 << 20        # random pairs through the frontend
+FERRARI_HOST_SAMPLE = 2000     # frontend answers, beside every phase-2 one,
+                               # held against the host DFS
+FERRARI_LABEL = "stab_packed (ferrari classify_16m call)"
+
+
+def _ferrari_graph(n: int, seed: int):
+    from repro_torch.graphs.generators import scale_free_digraph
+    return scale_free_digraph(n, 4.0, seed=seed, back_p=0.0)
+
+
+def _spans(tracer) -> dict:
+    """Seconds of each span name, summed."""
+    out = collections.defaultdict(float)
+    for e in tracer.events():
+        out[e["name"]] += e["dur"]
+    return out
+
+
+def ferrari_spec():
+    """ferrari-web's spec (``IndexSpec.from_config``, a condensed graph),
+    built by the device builder: the host builder's sweep takes longer
+    than this run may at n = 2^24 (a Python step a node)."""
+    from repro_torch.configs import get_config
+    from repro_torch.reach import IndexSpec
+    return IndexSpec.from_config(get_config(FERRARI_ARCH), precondensed=True,
+                                 builder="wavefront", cover_method="topgap")
+
+
+def ferrari_build(dev, n: int, seed: int):
+    """ferrari-web's graph at ``n`` nodes, its index through the port's
+    entry point (``reach.build``: the device builder, kernel 5), packed at
+    k_max 8 with its ELL layout; the stages' seconds from the tracer's
+    spans. Returns (index, spec, packed, ell)."""
+    from repro_torch import obs, reach
+    from repro_torch.configs import get_config
+    from repro_torch.core.packed import pack_index
+    cfg = get_config(FERRARI_ARCH)
+    spec = ferrari_spec()
+    tracer = obs.enable_tracing()
+    tracer.clear()
+    try:
+        with obs.span("smoke.graph", n=n):
+            g = _ferrari_graph(n, seed)
+        reset_counters()
+        with obs.span("smoke.build"):
+            ix = reach.build(g, spec, device=dev)
+        build_counts = read_counters()
+        with obs.span("smoke.pack", k_max=cfg.k_max):
+            pk = pack_index(ix, k_max=cfg.k_max)
+        with obs.span("smoke.ell_layout"):
+            ell = pk.ell_layout(width=spec.ell_width)
+        spans = _spans(tracer)
+    finally:
+        obs.enable_tracing(False)
+        tracer.clear()
+    parts = ("build.condense", "build.tree", "build.plan", "build.waves",
+             "build.drain", "build.seeds")
+    st = ix.stats
+    print(f"ferrari: {FERRARI_ARCH} (k_max {cfg.k_max}, {cfg.seed_words} "
+          f"seed word) over scale_free_digraph({n}, 4.0, back_p=0), "
+          "condensed, reach.build (device builder)", flush=True)
+    print(f"  graph {spans['smoke.graph']:.2f} s, build "
+          f"{spans['smoke.build']:.2f} s (tracer spans, host clock): "
+          + ", ".join(f"{p.split('.', 1)[1]} {spans[p]:.2f} s"
+                      for p in parts)
+          + f", labels and the rest "
+          f"{spans['smoke.build'] - sum(spans[p] for p in parts):.2f} s; "
+          f"pack {spans['smoke.pack']:.2f} s, ELL "
+          f"{spans['smoke.ell_layout']:.2f} s; {st.hub_nodes} hub nodes, "
+          f"{st.merge_rounds} merge rounds, {st.host_fallbacks} host "
+          f"fallbacks, {st.total_intervals} intervals; kernel 5 launched "
+          f"{build_counts['merge_cover']} times", flush=True)
+    check(build_counts["merge_cover"] > 0,
+          "ferrari: the build did not launch kernel 5")
+    return ix, spec, pk, ell
+
+
+def _instance(owner) -> str:
+    """The registry's instance label of ``owner``'s stats view."""
+    from repro_torch import obs
+    labels = [c.labels["instance"] for c in obs.get_registry()._collectors
+              if c.ref() is owner]
+    check(len(labels) == 1, f"{type(owner).__name__} has {len(labels)} "
+          "registry views, not 1")
+    return labels[0]
+
+
+def _scalars(obj) -> dict:
+    from dataclasses import fields
+    out = {}
+    for f in fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, (bool, int, float)):
+            out[f.name] = int(v) if isinstance(v, bool) else v
+    return out
+
+
+def hold_registry(fe, sess) -> None:
+    """The registry's export holds ``reach_frontend``, ``reach_session``
+    and ``reach_engine``, each sample equal to its stats object."""
+    from repro_torch import obs
+    snap = obs.metrics_snapshot()["stats"]
+    n_keys = 0
+    for prefix, owner, values in (
+            ("reach_frontend", fe, fe._flat_stats()),
+            ("reach_session", sess, _scalars(sess.stats)),
+            ("reach_engine", sess.engine, _scalars(sess.engine.stats))):
+        inst = _instance(owner)
+        for key, v in values.items():
+            got = [s["value"] for s in snap.get(f"{prefix}_{key}", [])
+                   if s["labels"]["instance"] == inst]
+            check(got == [v], f"registry {prefix}_{key} {got} != {v}")
+            n_keys += 1
+    print(f"  registry export: reach_frontend, reach_session, reach_engine "
+          f"present, {n_keys} samples equal to their stats objects",
+          flush=True)
+
+
+def ferrari_phase(dev, rec, err, n: int, seed: int):
+    """ferrari-web at ``n`` condensed nodes (the published 16,777,216
+    unless cut for a quick check): the index (``ferrari_build``), a
+    ``QuerySession`` over it; the classify_16m and classify_100k cells on
+    its fused tables (kernel 1), held against the engine's classify,
+    kernel 1's plain version on the CPU and the host DFS; then the async
+    frontend over the session with tracing on (kernels 1, 3, 4)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.query import QueryEngine
+    from repro_torch.core.workload import positive_queries
+    from repro_torch.kernels import interval_stab as st
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_cell
+    from repro_torch.reach import QuerySession
+    from dataclasses import replace
+    cfg = replace(get_config(FERRARI_ARCH), n_nodes=n)
+    ix, spec, pk, ell = ferrari_build(dev, n, seed)
+    t0 = time.perf_counter()
+    sess = QuerySession(ix, spec, packed=pk, ell=ell, device=dev)
+    load_s = time.perf_counter() - t0
+    eng = sess.engine
+    m_t, width = int(ell[1].shape[0]), int(ell[0].shape[1])
+    chunk = eng._phase2_chunk_size(width, m_t)
+    print(f"  index: {pk.n} nodes, k_max {pk.k_max}, fused layout "
+          f"{'slab' in eng.dev}, ELL width {width}, COO tail m_t {m_t}, "
+          f"max level {int(pk.blevel.max())}, π up to {int(pk.pi.max())} "
+          f"(bit 23 set on {int((pk.pi >= 1 << 23).sum())} nodes), phase 2 "
+          f"{eng.phase2_mode}, chunk {chunk} (key packing "
+          f"{min(eng.phase2_chunk, 2 ** (31 - max(1, (n - 1).bit_length())) - 1)}); "
+          f"session on the card in {load_s:.1f} s", flush=True)
+    check(pk.n == n and "slab" in eng.dev and pk.k_max == cfg.k_max,
+          "ferrari: the index must take the fused layout at k_max 8")
+    check(np.array_equal(ix.cond.comp, np.arange(n)),
+          "ferrari: a condensed graph's ids are its own")
+
+    # ------------------------------------------------- the cell (kernel 1)
+    state = {"slab": eng.dev["slab"], "meta": eng.dev["meta"]}
+    cell = build_cell(cfg, "classify_16m", device=dev)
+    small = build_cell(cfg, "classify_100k", device=dev)
+    check({k: (tuple(v.shape), v.dtype) for k, v in state.items()}
+          == cell.state_shapes, "ferrari: state shapes differ from the cell's")
+    (q,), _ = cell.batch_shapes["cs"]
+    (q_small,), _ = small.batch_shapes["cs"]
+    rng = np.random.default_rng(seed + 22)
+    qs = rng.integers(0, n, q).astype(np.int32)
+    qt = rng.integers(0, n, q).astype(np.int32)
+    ps, pt = positive_queries(ix.cond.dag, FERRARI_POSITIVE, seed=seed + 23)
+    qs[:FERRARI_POSITIVE], qt[:FERRARI_POSITIVE] = ps, pt
+    batch = {"cs": torch.from_numpy(qs).to(dev),
+             "ct": torch.from_numpy(qt).to(dev)}
+    reset_counters()
+    rec.reset()
+    _, verdict = cell.step(state, batch)
+    _, v_small = small.step(state, {k: v[:q_small] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    counts, calls = read_counters(), dict(rec.calls)
+    check(counts["stab_packed"] == 2 and calls["stab_packed"][0] == q,
+          f"ferrari: the cells launched kernel 1 {counts['stab_packed']} "
+          "times, not 2")
+    check(bool((v_small == verdict[:q_small]).all()),
+          "ferrari: classify_100k differs from classify_16m's rows")
+    walls = []
+    for _ in range(FERRARI_CELL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cell.step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    v_eng, _, _ = eng.classify(qs, qt)
+    n_bad = int((v_eng != verdict).sum())
+    mix = torch.bincount(verdict, minlength=3).tolist()
+    print(f"  cell classify_16m: {q} queries, step {wall * 1e3:.3f} ms "
+          f"(wall to a sync, median of {FERRARI_CELL_REPS}; "
+          f"{q / wall:.4g} queries/s); NEG/POS/UNKNOWN {mix}; "
+          f"classify_100k ({q_small}) = its first rows; the engine's "
+          f"classify of the same ids: {n_bad} mismatches", flush=True)
+    check(n_bad == 0, "ferrari: the cell's verdicts differ from the "
+          "engine's classify")
+    idx = np.concatenate([np.arange(FERRARI_POSITIVE), FERRARI_POSITIVE
+                          + rng.choice(q - FERRARI_POSITIVE,
+                                       FERRARI_SAMPLE - FERRARI_POSITIVE,
+                                       replace=False)])
+    v = verdict[torch.from_numpy(idx).to(dev)].cpu()
+    t_idx = torch.from_numpy(idx)
+    plain = st.stab_packed(state["meta"].cpu(), state["slab"].cpu(),
+                           batch["cs"].cpu()[t_idx], batch["ct"].cpu()[t_idx])
+    _tally(err, "stab_packed", _compare(
+        f"stab_packed on the ferrari sample of {idx.size} (plain on the "
+        "CPU)", v, plain))
+    t0 = time.perf_counter()
+    want = QueryEngine(ix).batch(qs[idx], qt[idx])
+    dfs_s = time.perf_counter() - t0
+    v = v.numpy()
+    bad_pos = int(((v == ops.POS) & ~want).sum())
+    bad_neg = int(((v == ops.NEG) & want).sum())
+    print(f"  sample of {idx.size} ({FERRARI_POSITIVE} forward-walk pairs) "
+          f"against the host DFS ({dfs_s:.1f} s): POS "
+          f"{int((v == ops.POS).sum())}, "
+          f"{bad_pos} not reachable; NEG {int((v == ops.NEG).sum())}, "
+          f"{bad_neg} reachable; UNKNOWN {int((v == ops.UNKNOWN).sum())}",
+          flush=True)
+    check(bad_pos == 0 and bad_neg == 0,
+          "ferrari: the sample's verdicts differ from the host DFS")
+    del v_eng, v_small, verdict
+    fe_counts, fe_out = ferrari_frontend(sess, rec, err, rng, n, chunk,
+                                         seed)
+    return dict(counts=counts, frontend_counts=fe_counts,
+                call=calls["stab_packed"], cell_ms=wall * 1e3, qps=q / wall,
+                m_t=m_t, chunk=chunk, **fe_out)
+
+
+def ferrari_frontend(sess, rec, err, rng, n: int, chunk: int, seed: int):
+    """``FERRARI_PAIRS`` random pairs through a ``Frontend`` on ``sess``
+    (``FERRARI_TENANTS`` tenants, ``FERRARI_REQUEST``-pair requests, the
+    spec's deadline), tracing on; one request in 16 holds forward-walk
+    pairs, so positives are served too (random pairs over 2^24 nodes are
+    all but never reachable). Every ticket's answers are held against
+    ``sess.query`` on the same pairs, the trace's slab spans against the
+    slabs, the registry's export against the stats objects. Kernels 3
+    and 4 are held word for word against their plain versions on every
+    step of the frontend's largest, smallest and first overflowing
+    expansion calls, and every phase-2 answer (with a sample of the
+    rest) against the host DFS."""
+    from repro_torch import obs
+    from repro_torch.core.workload import positive_queries
+    from repro_torch.reach import Frontend, Rejected
+    qs = rng.integers(0, n, FERRARI_PAIRS)
+    qt = rng.integers(0, n, FERRARI_PAIRS)
+    walks = (np.arange(FERRARI_PAIRS) // FERRARI_REQUEST) % 16 == 0
+    qs[walks], qt[walks] = positive_queries(
+        sess.index.cond.dag, int(walks.sum()), seed=seed + 24)
+    tracer = obs.enable_tracing(capacity=1 << 20)
+    tracer.clear()
+    sess.reset_stats()
+    reset_counters()
+    rec.reset()
+    fe = Frontend(sess)
+    tickets, stalls = {}, 0
+    t0 = time.perf_counter()
+    for i, lo in enumerate(range(0, FERRARI_PAIRS, FERRARI_REQUEST)):
+        hi = lo + FERRARI_REQUEST
+        while True:
+            try:
+                tickets[fe.submit(f"tenant-{i % FERRARI_TENANTS}",
+                                  qs[lo:hi], qt[lo:hi])] = lo
+                break
+            except Rejected as e:
+                check(e.reason == "queue_full", f"frontend: {e}")
+                stalls += 1
+                fe.poll()
+    got = fe.drain()
+    dt = time.perf_counter() - t0
+    obs.enable_tracing(False)
+    counts = read_counters()
+    calls = len(rec.expansions)
+    st, ss = fe.stats, sess.stats
+    print(f"  frontend: {FERRARI_PAIRS} pairs over {FERRARI_TENANTS} "
+          f"tenants ({FERRARI_REQUEST}/request, deadline "
+          f"{sess.spec.deadline_us} us) in {dt * 1e3:.1f} ms "
+          f"({dt / FERRARI_PAIRS * 1e9:.0f} ns/pair, tracing on), {stalls} "
+          f"backpressure stalls; {st.n_batches} slabs, occupancy "
+          f"{st.occupancy:.3f}, flushes deadline/full/forced "
+          f"{st.deadline_flushes}/{st.full_flushes}/{st.forced_flushes}, "
+          f"{st.deadline_misses} deadline misses; occupancy histogram "
+          f"{dict(sorted(st.occupancy_hist.items()))}", flush=True)
+    for name in sorted(st.tenants):
+        t = st.tenants[name]
+        print(f"    {name}: {t.completed}/{t.requests} requests, p50 "
+              f"{t.p50_us:.0f} us, p99 {t.p99_us:.0f} us, misses "
+              f"{t.deadline_misses}", flush=True)
+    c = st.cache
+    print(f"    cache: hit rate {c['hit_rate']:.4f} ({c['hits']} hits, "
+          f"{c['misses']} misses); phase 2: {ss.phase2_queries} queries "
+          f"(sparse {ss.phase2_sparse}, host {ss.phase2_host}), {calls} "
+          f"expansion calls of chunk {chunk}, {ss.sparse_retries} retries; "
+          f"launches {counts}", flush=True)
+    print("    " + fe.slowlog.format_report().replace("\n", "\n    "),
+          flush=True)
+    hold_registry(fe, sess)
+    trace = BUILD_DIR / "ferrari_frontend_trace.json"
+    obs.export_chrome_trace(str(trace))
+    slabs = sum(1 for e in json.loads(trace.read_text())["traceEvents"]
+                if e.get("ph") == "X" and e["name"] == "slab")
+    print(f"  trace {trace.relative_to(ROOT)}: {len(tracer.events())} "
+          f"spans, {tracer.n_dropped} dropped, {slabs} slab spans for "
+          f"{st.n_batches} slabs (spans are host time)", flush=True)
+    check(slabs == st.n_batches and tracer.n_dropped == 0,
+          "frontend: one slab span a slab")
+    tracer.clear()
+    check(set(got) == set(tickets), "frontend: a ticket was not answered")
+    hold_step_calls(rec, "ferrari frontend", err, {})
+    want = sess.query(qs, qt)
+    bad = sum(not np.array_equal(a, want[tickets[t]:
+                                         tickets[t] + FERRARI_REQUEST])
+              for t, a in got.items())
+    print(f"  frontend answers vs sess.query on the same pairs: {bad} of "
+          f"{len(got)} tickets differ ({int(want.sum())} positive)",
+          flush=True)
+    check(bad == 0, "frontend: answers differ from QuerySession.query")
+    hold_to_host(sess.index, sess, qs, qt, want, FERRARI_HOST_SAMPLE,
+                 "ferrari frontend")
+    check(counts["stab_packed"] > 0, "frontend: kernel 1 not launched")
+    if ss.phase2_sparse:
+        check(counts["probe"] > 0 and counts["classify_emit"] > 0,
+              "frontend: kernels 3 and 4 not launched")
+    return counts, dict(frontend_s=dt, slabs=st.n_batches,
+                        occupancy=st.occupancy)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the model phases' data and weights")
+    parser.add_argument("--ferrari-only", action="store_true",
+                        help="build the kernels and run the ferrari phase "
+                             "alone (a quick check; no result lines)")
+    parser.add_argument("--ferrari-nodes", type=int, default=FERRARI_NODES,
+                        help="with --ferrari-only: the ferrari phase's "
+                             "graph (default: ferrari-web's published "
+                             "16,777,216 nodes)")
     args = parser.parse_args()
+    if args.ferrari_nodes != FERRARI_NODES and not args.ferrari_only:
+        parser.error("--ferrari-nodes cuts the ferrari phase's width: "
+                     "only with --ferrari-only")
     try:
         import torch
     except ImportError:
@@ -3051,8 +3433,31 @@ def main() -> int:
         print(f"chip_smoke: no port sources under {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return run(args, time.perf_counter())
+
+
+def run_ferrari(dev, err: dict, n: int, seed: int) -> dict:
+    """The ferrari phase (``ferrari_phase``) with a recorder of its own,
+    then kernel 1 timed at its classify_16m call; its counts, rates and
+    that time (``"time"``, its parity tallied into ``err``)."""
+    rec = Recorder()
+    try:
+        out = ferrari_phase(dev, rec, err, n, seed)
+        times = time_kernels({}, extra=(
+            ("stab_packed", FERRARI_LABEL, out.pop("call")),))
+    finally:
+        rec.close()
+    out["time"] = times[FERRARI_LABEL]
+    _tally(err, "stab_packed", out["time"]["err"])
+    return out
+
+
+def run(args, t_start: float) -> int:
+    """Every phase after the kernels' build, then the result lines."""
+    import torch
+
     from repro_torch.kernels import _lib
-    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -3072,17 +3477,25 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
-    print("parity (kernel vs plain; integer kernels bit for bit):",
-          flush=True)
-    err, stab_calls = kernel_parity(dev)
-
     def done(phase):
         print(f"  [{phase} done at {time.perf_counter() - t_start:.0f} s]",
               flush=True)
 
+    if args.ferrari_only:
+        err = {name: (0, 0, 0.0) for name in KERNELS}
+        run_ferrari(dev, err, args.ferrari_nodes, args.seed)
+        done("ferrari")
+        print("kernels: " + ", ".join(f"{k} {v[1]} mismatches"
+                                      for k, v in err.items()), flush=True)
+        check(all(v[1] == 0 for v in err.values()), "ferrari: mismatches")
+        print(card_line(), flush=True)
+        return 0
+
+    print("parity (kernel vs plain; integer kernels bit for bit):",
+          flush=True)
+    err, stab_calls = kernel_parity(dev)
     done("parity")
     rec = Recorder()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))   # the 4M artifact
     try:
         main_counts, main_calls, main_out = main_phase(dev, rec)
@@ -3170,6 +3583,26 @@ def main() -> int:
         train_time[kname]["err"] = (max(a[0], b[0]), a[1] + b[1],
                                     max(a[2], b[2]))
     times.update(train_time)              # kernels 7 and 8: the train phase
+    # every other phase is done and timed: let go of the inputs kept for
+    # the timings and of the allocator's cache before the ferrari phase
+    # (its device build peaks near 40 GB)
+    del (rec, recorded, largest, smallest, stab_calls, main_calls, wf_call,
+         p2_calls, p2_kept, s64_calls, dense_calls, rs_calls, gnn_calls,
+         churn_kept)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  left on the card here before the ferrari phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved",
+          flush=True)
+    fr = run_ferrari(dev, err, FERRARI_NODES, args.seed)
+    done("ferrari")
+    fr_counts, fe_counts = fr["counts"], fr["frontend_counts"]
+    print(f"  launches on the ferrari phase: cells {fr_counts}; frontend "
+          f"{fe_counts}", flush=True)
+    check(fr_counts["stab_packed"] == 2 and fe_counts["stab_packed"] > 0,
+          "ferrari: kernel 1 was not launched by the cells and the frontend")
+    times[FERRARI_LABEL] = fr["time"]
     if times["batched_mp"]["route"] == "tiled":
         KERNELS["batched_mp"]["source"] = "src/repro_torch/csrc/batched_mp.cu"
     rows = []
@@ -3210,6 +3643,17 @@ def main() -> int:
             rows[-1]["launches_on_churn"] = churn_counts[kname]
         if kname == "merge_cover":
             rows[-1]["launches_on_churn_compact"] = churn_counts[kname]
+        if kname == "stab_packed":
+            # ferrari-web's classify_16m cell call, at the published n
+            t = times[FERRARI_LABEL]
+            rows[-1]["at_ferrari_classify_16m"] = {
+                "rows": t["rows"], "launches": fr_counts[kname],
+                "launches_on_frontend": fe_counts[kname],
+                **{key: t[key] for key in ("ms", "warm_ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "floor_ms", "floor_warm_ms")},
+                "cell_queries_per_s": fr["qps"],
+                "frontend_s": fr["frontend_s"]}
     bad = {k: err[k][1] + times[k]["err"][1] for k in KERNELS}
     print("kernels: " + ", ".join(f"{r['name']} {bad[r['name']]} "
                                   f"mismatches, {r['launches']} launches"

@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution for the archs the
-port can run. The reference's other archs (the two MoE LMs, ferrari-web as
-a model cell) are not ported yet; asking for one raises ``KeyError``."""
+port can run, ferrari-web (the paper's own system as a servable cell)
+included. The reference's two MoE LMs are not ported yet; asking for one
+raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -15,9 +16,11 @@ _MODULES: Dict[str, str] = {
     "gatedgcn": "gatedgcn",
     "gin-tu": "gin_tu",
     "mind": "mind",
+    "ferrari-web": "ferrari_web",
 }
 
 ARCHS = tuple(_MODULES)
+ASSIGNED_ARCHS = tuple(a for a in ARCHS if a != "ferrari-web")
 
 
 def _module(arch: str):

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ...graphs.csr import CSR
+from ...obs import register_stats, span
 from ..tree_cover import TreeLabels, build_tree_labels, wavefront_schedule
 from .merge_kernels import INVALID, merge_cover_rows, slab_bytes
 from .tree_merge import MergeStats, _pow2, ragged, reduce_wave
@@ -125,12 +126,13 @@ def build_wavefront(dag: CSR, tl: Optional[TreeLabels] = None, k: int = 2,
     dev = resolve_device(device)
     t0 = time.perf_counter()
     n = dag.n
-    if tl is None:
-        tl = build_tree_labels(dag)
-    w_out = k if variant == "L" else c * k
-    m_cap, chunk = effective_widths(w_out, merge_chunk, m_cap)
-    order, bounds = wavefront_schedule(tl.blevel[:n])
-    deg = dag.degrees()
+    with span("build.plan", n=int(n)):
+        if tl is None:
+            tl = build_tree_labels(dag)
+        w_out = k if variant == "L" else c * k
+        m_cap, chunk = effective_widths(w_out, merge_chunk, m_cap)
+        order, bounds = wavefront_schedule(tl.blevel[:n])
+        deg = dag.degrees()
     stats = MergeStats()
 
     i32 = dict(dtype=torch.int32, device=dev)
@@ -142,12 +144,15 @@ def build_wavefront(dag: CSR, tl: Optional[TreeLabels] = None, k: int = 2,
     tree_b_all = tl.tbegin[:n].astype(np.int32)
     tree_e_all = tl.pi[:n].astype(np.int32)
     n_levels = len(bounds) - 1
-    for lv in range(n_levels):
-        nodes = order[bounds[lv]: bounds[lv + 1]]
-        if nodes.size:
-            _merge_wave(begins, ends, exact, counts, nodes, deg[nodes],
-                        m_cap, chunk, dag.indptr, dag.indices, tree_b_all,
-                        tree_e_all, w_out, stats)
+    with span("build.waves", levels=int(n_levels)):
+        for lv in range(n_levels):
+            nodes = order[bounds[lv]: bounds[lv + 1]]
+            if nodes.size == 0:
+                continue
+            with span("build.wave", level=int(lv), nodes=int(nodes.size)):
+                _merge_wave(begins, ends, exact, counts, nodes, deg[nodes],
+                            m_cap, chunk, dag.indptr, dag.indices,
+                            tree_b_all, tree_e_all, w_out, stats)
 
     ix = WavefrontIndex(begins=begins.cpu().numpy(), ends=ends.cpu().numpy(),
                         exact=exact.cpu().numpy() != 0, counts=counts,
@@ -157,7 +162,8 @@ def build_wavefront(dag: CSR, tl: Optional[TreeLabels] = None, k: int = 2,
                         host_fallbacks=stats.host_fallbacks,
                         peak_slab_bytes=stats.peak_slab_bytes)
     if variant == "G":
-        ix.drain_order = _drain_to_budget(ix, dag, k, budget or k * n)
+        with span("build.drain", budget=int(budget or k * n)):
+            ix.drain_order = _drain_to_budget(ix, dag, k, budget or k * n)
     ix.seconds = time.perf_counter() - t0
     return ix
 
@@ -322,15 +328,17 @@ def rebuild_affected(dag: CSR, tl: TreeLabels, affected: np.ndarray,
     order, bounds = wavefront_schedule(tl.blevel[:n])
     n_levels = len(bounds) - 1
     waves_touched = 0
-    for lv in range(n_levels):
-        nodes = order[bounds[lv]: bounds[lv + 1]]
-        nodes = nodes[affected[nodes]]
-        if nodes.size == 0:
-            continue
-        waves_touched += 1
-        _merge_wave(begins, ends, exact, counts, nodes, deg[nodes], m_cap,
-                    chunk, dag.indptr, dag.indices, tree_b_all, tree_e_all,
-                    w_out, stats)
+    with span("build.waves", levels=int(n_levels), affected=True):
+        for lv in range(n_levels):
+            nodes = order[bounds[lv]: bounds[lv + 1]]
+            nodes = nodes[affected[nodes]]
+            if nodes.size == 0:
+                continue
+            waves_touched += 1
+            with span("build.wave", level=int(lv), nodes=int(nodes.size)):
+                _merge_wave(begins, ends, exact, counts, nodes, deg[nodes],
+                            m_cap, chunk, dag.indptr, dag.indices,
+                            tree_b_all, tree_e_all, w_out, stats)
 
     wf = WavefrontIndex(begins=begins.cpu().numpy(), ends=ends.cpu().numpy(),
                         exact=exact.cpu().numpy() != 0, counts=counts,
@@ -364,14 +372,20 @@ def rebuild_affected(dag: CSR, tl: TreeLabels, affected: np.ndarray,
 
 
 def labels_from_wavefront(ix: WavefrontIndex):
-    """Per-node IntervalSets (for equivalence tests vs the host build)."""
-    from .. import intervals as iv
-    out = []
-    for v in range(ix.tl.n):
-        c = int(ix.counts[v])
-        out.append(iv.make_set(ix.begins[v, :c], ix.ends[v, :c],
-                               ix.exact[v, :c]))
-    return out
+    """Per-node IntervalSets: views of the rows of the build's tables
+    (int32 begins and ends, bool exact), held to ``intervals.make_set``'s
+    rules (begin <= end, sorted and disjoint) in one pass over the
+    tables."""
+    n = ix.tl.n
+    b, e, x = ix.begins[:n], ix.ends[:n], ix.exact[:n]
+    counts = ix.counts[:n]
+    live = np.arange(b.shape[1])[None, :] < counts[:, None]
+    if np.any((b > e) & live):
+        raise ValueError("interval with begin > end")
+    if np.any((b[:, 1:] <= e[:, :-1]) & live[:, 1:]):
+        raise ValueError("intervals must be sorted and disjoint")
+    return [(b[v, :c], e[v, :c], x[v, :c])
+            for v, c in enumerate(counts.tolist())]
 
 
 def build_index_device(g: CSR, k: int = 2, variant: str = "G", c: int = 4,
@@ -402,19 +416,22 @@ def build_index_device(g: CSR, k: int = 2, variant: str = "G", c: int = 4,
                          f"(got cover_method={cover_method!r})")
     dev = resolve_device(device)
     st = BuildStats(n=g.n, m=g.m, budget=k * g.n, builder="wavefront")
+    register_stats("reach_build", st)
 
     t0 = time.perf_counter()
-    if precondensed:
-        cond = Condensation(comp=np.arange(g.n, dtype=np.int32),
-                            n_comp=g.n, dag=g,
-                            comp_size=np.ones(g.n, dtype=np.int64))
-    else:
-        cond = condense(g)
+    with span("build.condense", n=int(g.n), m=int(g.m)):
+        if precondensed:
+            cond = Condensation(comp=np.arange(g.n, dtype=np.int32),
+                                n_comp=g.n, dag=g,
+                                comp_size=np.ones(g.n, dtype=np.int64))
+        else:
+            cond = condense(g)
     st.seconds_condense = time.perf_counter() - t0
     st.n_comp = cond.n_comp
 
     t0 = time.perf_counter()
-    tl = build_tree_labels(cond.dag)
+    with span("build.tree"):
+        tl = build_tree_labels(cond.dag)
     st.seconds_tree = time.perf_counter() - t0
 
     wf = build_wavefront(cond.dag, tl, k=k, c=c, variant=variant,
@@ -431,12 +448,16 @@ def build_index_device(g: CSR, k: int = 2, variant: str = "G", c: int = 4,
     labels = labels_from_wavefront(wf)
     labels.append(iv.single(1, n_aug, True))        # virtual root
     st.total_intervals = int(wf.counts[:-1].sum()) + 1
-    st.exact_intervals = sum(int(np.sum(s[2])) for s in labels)
+    # the exact flags within each row's count, and the root's
+    w = wf.exact.shape[1]
+    st.exact_intervals = int((wf.exact[:tl.n] & (
+        np.arange(w)[None, :] < wf.counts[:tl.n, None])).sum()) + 1
 
     seeds = None
     if use_seeds:
         t0 = time.perf_counter()
-        seeds = build_seed_labels(cond.dag, n_seeds=n_seeds)
+        with span("build.seeds", n_seeds=int(n_seeds)):
+            seeds = build_seed_labels(cond.dag, n_seeds=n_seeds)
         st.seconds_seeds = time.perf_counter() - t0
 
     return FerrariIndex(cond=cond, tl=tl, labels=labels, seeds=seeds, k=k,

@@ -166,25 +166,30 @@ def build_index(g: CSR, k: Optional[int] = 2, variant: str = "G", c: int = 4,
     ``precondensed=True`` skips Tarjan when the input is already a DAG (the
     paper also excludes condensation from its measurements, §7.2).
     """
+    from ..obs import register_stats, span
     st = BuildStats(n=g.n, m=g.m, budget=(0 if k is None else k * g.n))
+    register_stats("reach_build", st)
 
     t0 = time.perf_counter()
-    if precondensed:
-        cond = Condensation(comp=np.arange(g.n, dtype=np.int32),
-                            n_comp=g.n, dag=g,
-                            comp_size=np.ones(g.n, dtype=np.int64))
-    else:
-        cond = condense(g)
+    with span("build.condense", n=int(g.n), m=int(g.m)):
+        if precondensed:
+            cond = Condensation(comp=np.arange(g.n, dtype=np.int32),
+                                n_comp=g.n, dag=g,
+                                comp_size=np.ones(g.n, dtype=np.int64))
+        else:
+            cond = condense(g)
     st.seconds_condense = time.perf_counter() - t0
     st.n_comp = cond.n_comp
 
     t0 = time.perf_counter()
-    tl = build_tree_labels(cond.dag)
+    with span("build.tree"):
+        tl = build_tree_labels(cond.dag)
     st.seconds_tree = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    labels, recovered, total = assign_intervals(
-        cond.dag, tl, k, variant=variant, c=c, cover_method=cover_method)
+    with span("build.assign", variant=variant):
+        labels, recovered, total = assign_intervals(
+            cond.dag, tl, k, variant=variant, c=c, cover_method=cover_method)
     st.seconds_assign = time.perf_counter() - t0
     st.heap_recover_count = recovered
     st.total_intervals = total
@@ -193,7 +198,8 @@ def build_index(g: CSR, k: Optional[int] = 2, variant: str = "G", c: int = 4,
     seeds = None
     if use_seeds:
         t0 = time.perf_counter()
-        seeds = build_seed_labels(cond.dag, n_seeds=n_seeds)
+        with span("build.seeds", n_seeds=int(n_seeds)):
+            seeds = build_seed_labels(cond.dag, n_seeds=n_seeds)
         st.seconds_seeds = time.perf_counter() - t0
 
     return FerrariIndex(cond=cond, tl=tl, labels=labels, seeds=seeds, k=k,

@@ -53,6 +53,8 @@ class QueryEngine:
         self.use_seeds = use_seeds and index.seeds is not None
         self.use_filters = use_filters
         self.stats = QueryStats()
+        from ..obs import register_stats
+        register_stats("reach_host", self, provider=lambda e: e.stats)
 
     # ------------------------------------------------------------------ API
     def reachable(self, s: int, t: int) -> bool:

@@ -34,6 +34,14 @@ sparse loop keeps one state (and CUDA graph) across batches.
 The engine lives on one ``device``: "cuda" (the default) runs the
 hand-written kernels; "cpu" runs their plain PyTorch versions and must be
 asked for explicitly. Without a CUDA device, the default raises.
+
+On a card a batch's ids are written into one of two reused pinned host
+buffers (``PinnedIds``) and copied from there on the compute stream,
+without waiting: ``stage_queries`` returns while the copy is queued, so
+the host goes on with the batch in flight. (A copy stream with an event
+showed no gain over this in the frontend, measured in turns.) A buffer
+returns to the pool when ``finish_answer`` is done with its batch, so a
+third batch staged while two are alive gets a buffer of its own.
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels import _lib, frontier, ops
+from ..kernels import _lib, frontier, frontier_fused, ops
+from ..obs import get_tracer, register_stats, span
 from .ferrari import FerrariIndex
 from .packed import PackedIndex, pack_index
 from .query import QueryEngine, ResettableStats
@@ -69,6 +78,47 @@ class ServeStats(ResettableStats):
 # the dense phase 2's BFS steps and device-to-host syncs (one a step on a
 # card: the stop test)
 DENSE = _lib.Counters(steps=0, syncs=0)
+
+
+class PinnedIds:
+    """Reused pinned host buffers for query ids (flat int64, a batch's
+    sources then its targets, so a batch's [2, b] view is contiguous).
+
+    ``take(b)`` hands out a free buffer holding at least ``b`` pairs, or
+    allocates one of max(b, ``MIN_PAIRS``) when every buffer is held by a
+    live batch: a held buffer is never overwritten. ``give`` returns one
+    to the pool, which keeps the ``KEEP`` largest (the double buffer's
+    two). ``pin=False`` keeps the same rules in pageable memory (the tests
+    on a machine without a card)."""
+    KEEP = 2
+    MIN_PAIRS = 1 << 14            # the session's default max_batch
+
+    def __init__(self, pin: bool = True):
+        self.pin = pin
+        self.free = []
+        self.n_allocated = 0
+
+    def take(self, b: int) -> torch.Tensor:
+        for i, buf in enumerate(self.free):
+            if buf.numel() >= 2 * b:
+                return self.free.pop(i)
+        self.n_allocated += 1
+        return torch.empty(2 * max(b, self.MIN_PAIRS), dtype=torch.int64,
+                           pin_memory=self.pin)
+
+    def give(self, buf: torch.Tensor) -> None:
+        self.free.append(buf)
+        self.free.sort(key=lambda t: -t.numel())
+        del self.free[self.KEEP:]
+
+
+@dataclass
+class StagedIds:
+    """A batch's original ids on the engine's device ([2, b] int64, rows
+    srcs and dsts). On a card ``buf`` is the pinned buffer the copy reads,
+    held until the batch is finished; on the CPU it is None."""
+    ids: torch.Tensor
+    buf: Optional[torch.Tensor] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -138,6 +188,7 @@ class DeviceQueryEngine:
         self.frontier_cap = frontier_cap
         self.frontier_cap_max = frontier_cap_max
         self.stats = ServeStats()
+        register_stats("reach_engine", self, provider=lambda e: e.stats)
         # wall-clock of the LAST finish_answer's two phases
         self.last_phase1_s = 0.0
         self.last_phase2_s = 0.0
@@ -167,6 +218,8 @@ class DeviceQueryEngine:
         self._union = None            # sparse: (tsrc_u, tdst_u, hub_u, crt)
         self._union_adj = None        # dense: (adj_u [n, n], crt)
         self._union_version = {}      # "sparse"/"dense" -> overlay version
+        # the staging path's pinned buffers (a card only)
+        self._pinned = PinnedIds()
 
     # ------------------------------------------------------ lazy structures
     @property
@@ -203,22 +256,43 @@ class DeviceQueryEngine:
         return len(self._batch_shapes)
 
     def classify(self, srcs, dsts):
-        cs = self.comp[self._tensor(srcs, torch.int64)]
-        ct = self.comp[self._tensor(dsts, torch.int64)]
-        self._batch_shapes.add(int(cs.shape[0]))
-        return ops.classify_queries(self.dev, cs, ct), cs, ct
+        """Phase 1 of original-id batches ``srcs``, ``dsts`` ([Q], numpy
+        or tensors): (verdict, cs, ct) on the device, the kernel launched
+        and not waited for. The batch's pinned buffer is dropped, not
+        pooled: the caching host allocator keeps it until the copy is
+        done."""
+        return self.start_answer(self._ids_to_device(srcs, dsts))[:3]
 
-    def stage_queries(self, srcs, dsts):
-        """Start the host→device transfer of a query batch and return
-        tensors ``classify`` accepts: int64 ids copied from pinned host
-        buffers with ``non_blocking`` on the current stream."""
-        out = []
-        for a in (srcs, dsts):
-            t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out.append(t)
-        return tuple(out)
+    def stage_queries(self, srcs, dsts) -> StagedIds:
+        """Start the host→device transfer of a query batch: on a card the
+        ids are written into a pinned buffer of the pool and copied on the
+        compute stream without waiting (the buffer is held until the batch
+        is finished); on the CPU they are wrapped as they are."""
+        return self._ids_to_device(srcs, dsts)
+
+    def _ids_to_device(self, srcs, dsts):
+        b = len(srcs)
+        if self.device.type != "cuda":
+            return StagedIds(torch.stack([
+                torch.as_tensor(np.asarray(a), dtype=torch.int64)
+                for a in (srcs, dsts)]))
+        buf = self._pinned.take(b)
+        host = buf.numpy()
+        np.copyto(host[:b], np.asarray(srcs), casting="unsafe")
+        np.copyto(host[b:2 * b], np.asarray(dsts), casting="unsafe")
+        pinned = buf[:2 * b].view(2, b)
+        return StagedIds(pinned.to(self.device, non_blocking=True), buf)
+
+    def start_answer(self, staged: StagedIds):
+        """Launch phase 1 on a staged batch without waiting for its
+        result: after the batch's copy, on the same stream, it gathers
+        the condensed ids and launches the classify kernel. The caller may
+        overlap host work (staging the next batch) before
+        ``finish_answer``."""
+        c = self.comp[staged.ids]
+        cs, ct = c[0], c[1]
+        self._batch_shapes.add(int(cs.shape[0]))
+        return ops.classify_queries(self.dev, cs, ct), cs, ct, staged
 
     # ------------------------------------------------------- live updates
     def apply_updates(self, csrc, cdst) -> int:
@@ -261,61 +335,74 @@ class DeviceQueryEngine:
 
     # ------------------------------------------------------------------ API
     def answer(self, srcs, dsts) -> np.ndarray:
-        return self.finish_answer(self.start_answer(srcs, dsts))
-
-    def start_answer(self, srcs, dsts):
-        """Launch phase 1 without waiting for its result: the caller may
-        overlap host work (staging the next batch) before
-        ``finish_answer``."""
-        return self.classify(srcs, dsts)
+        return self.finish_answer(self.start_answer(
+            self._ids_to_device(srcs, dsts)))
 
     def finish_answer(self, handle) -> np.ndarray:
         """Wait for a ``start_answer`` handle and run phase 2 on the
-        UNKNOWN residue. ``answer()`` is exactly start + finish; the two
-        phases' wall-clock lands in ``last_phase1_s``/``last_phase2_s``."""
-        verdict, cs, ct = handle
+        UNKNOWN residue; the batch's pinned buffer returns to the pool.
+        ``answer()`` is the ids' copy + start + finish.
+
+        The ``phase1`` span covers waiting for the classify verdict (the
+        device work start_answer launched) plus the residue bookkeeping;
+        ``phase2`` covers the residue driver. Their wall-clock also lands
+        in ``last_phase1_s``/``last_phase2_s`` regardless of tracing (the
+        frontend's slow-slab log reads them)."""
+        verdict, cs, ct, staged = handle
+        try:
+            return self._finish(verdict, cs, ct)
+        finally:
+            if staged.buf is not None:
+                self._pinned.give(staged.buf)
+                staged.buf = None
+
+    def _finish(self, verdict, cs, ct) -> np.ndarray:
         t0 = time.perf_counter()
-        verdict = verdict.cpu().numpy()
-        out = verdict == ops.POS
-        neg_mask = verdict == ops.NEG
-        unknown = np.flatnonzero(verdict == ops.UNKNOWN)
-        self.stats.n_queries += len(verdict)
-        self.stats.phase1_pos += int(out.sum())
-        overlay = self._overlay_live
-        if overlay:
-            # base-NEG is no longer final when the source can reach a
-            # delta tail: those queries join the union-graph expansion
-            # (and leave the phase-1 mix, which stays a partition)
-            cs_h = cs.cpu().numpy()
-            reopened = np.flatnonzero(
-                neg_mask & self.overlay.can_reach_tail[cs_h])
-            residue = np.union1d(unknown, reopened)
-            self.stats.phase1_neg += int(neg_mask.sum()) - reopened.size
-        else:
-            residue = unknown
-            self.stats.phase1_neg += int(neg_mask.sum())
-        self.stats.phase2_queries += residue.size
+        with span("phase1", q=int(verdict.shape[0])):
+            verdict = verdict.cpu().numpy()
+            out = verdict == ops.POS
+            neg_mask = verdict == ops.NEG
+            unknown = np.flatnonzero(verdict == ops.UNKNOWN)
+            self.stats.n_queries += len(verdict)
+            self.stats.phase1_pos += int(out.sum())
+            overlay = self._overlay_live
+            if overlay:
+                # base-NEG is no longer final when the source can reach a
+                # delta tail: those queries join the union-graph expansion
+                # (and leave the phase-1 mix, which stays a partition)
+                cs_h = cs.cpu().numpy()
+                reopened = np.flatnonzero(
+                    neg_mask & self.overlay.can_reach_tail[cs_h])
+                residue = np.union1d(unknown, reopened)
+                self.stats.phase1_neg += int(neg_mask.sum()) - reopened.size
+            else:
+                residue = unknown
+                self.stats.phase1_neg += int(neg_mask.sum())
+            self.stats.phase2_queries += residue.size
         t1 = time.perf_counter()
         self.last_phase1_s = t1 - t0
         self.last_phase2_s = 0.0
         if residue.size == 0:
             return out
-        cs_u = (cs_h if overlay else cs.cpu().numpy())[residue]
-        ct_u = ct.cpu().numpy()[residue]
-        if self.phase2_mode == "dense":
-            self.stats.phase2_dense += residue.size
-            res = (self._phase2_dense_overlay(cs_u, ct_u) if overlay
-                   else self._phase2_dense(cs_u, ct_u))
-        elif self.phase2_mode == "sparse":
-            res = (self._phase2_sparse_overlay(cs_u, ct_u) if overlay
-                   else self._phase2_sparse(cs_u, ct_u))
-        else:
-            self.stats.phase2_host += residue.size
-            res = (self._phase2_host_overlay(cs_u, ct_u) if overlay
-                   else self._phase2_host(cs_u, ct_u))
-        out[residue] = res
-        if overlay:
-            self.stats.n_overlay_hits += int((res & neg_mask[residue]).sum())
+        with span("phase2", mode=self.phase2_mode,
+                  residue=int(residue.size)):
+            cs_u = (cs_h if overlay else cs.cpu().numpy())[residue]
+            ct_u = ct.cpu().numpy()[residue]
+            if self.phase2_mode == "dense":
+                self.stats.phase2_dense += residue.size
+                res = (self._phase2_dense_overlay(cs_u, ct_u) if overlay
+                       else self._phase2_dense(cs_u, ct_u))
+            elif self.phase2_mode == "sparse":
+                res = (self._phase2_sparse_overlay(cs_u, ct_u) if overlay
+                       else self._phase2_sparse(cs_u, ct_u))
+            else:
+                self.stats.phase2_host += residue.size
+                res = (self._phase2_host_overlay(cs_u, ct_u) if overlay
+                       else self._phase2_host(cs_u, ct_u))
+            out[residue] = res
+            if overlay:
+                self.stats.n_overlay_hits += int(
+                    (res & neg_mask[residue]).sum())
         self.last_phase2_s = time.perf_counter() - t1
         return out
 
@@ -380,9 +467,24 @@ class DeviceQueryEngine:
         return self._dense_driver(cs_u, ct_u, adj, self.packed.n,
                                   can_reach_tail=crt)
 
-    def _phase2_chunk_size(self) -> int:
-        """Queries per sparse expansion call (key packing bounds it)."""
-        return min(self.phase2_chunk, frontier.max_batch(self.packed.n))
+    def _phase2_chunk_size(self, width: int, m_t: int) -> int:
+        """Queries per sparse expansion call. Key packing bounds it, and
+        so does kernel 3's candidates a step, cap x ``width`` + q x
+        ``m_t`` (``m_t``: the COO tail swept, the delta slab included),
+        below ``frontier_fused.MAX_CANDIDATES`` at the largest cap a retry
+        reaches. The reference has no such bound; a smaller chunk changes
+        no answer."""
+        chunk = min(self.phase2_chunk, frontier.max_batch(self.packed.n))
+        if m_t:
+            cap = max(self.frontier_cap_max, self.frontier_cap, chunk)
+            room = frontier_fused.MAX_CANDIDATES - 1 - cap * width
+            chunk = min(chunk, room // m_t)
+        if chunk < 1:
+            raise ValueError(
+                f"a COO tail of {m_t} edges leaves no query a step below "
+                f"kernel 3's {frontier_fused.MAX_CANDIDATES} candidates at "
+                f"cap {self.frontier_cap_max} x ELL width {width}")
+        return chunk
 
     def _expand_chunk(self, cs_t, ct_t, pad: np.ndarray, cap: int):
         """One frontier expansion: (pos [chunk] np.bool_, overflow bool)."""
@@ -413,7 +515,9 @@ class DeviceQueryEngine:
         ``host_fn(cs, ct)`` resolves queries past ``frontier_cap_max``
         (the base guided DFS, or the union-graph BFS when an overlay is
         live)."""
-        chunk = self._phase2_chunk_size()
+        ell, tsrc = self._ell()[:2]
+        m_t = tsrc.shape[0] + (self.overlay_cap if self._overlay_live else 0)
+        chunk = self._phase2_chunk_size(ell.shape[1], m_t)
         res = np.zeros(cs_u.size, dtype=bool)
         self.stats.phase2_sparse += cs_u.size
         for lo in range(0, cs_u.size, chunk):
@@ -438,12 +542,15 @@ class DeviceQueryEngine:
                 # the retry — mask them out and rerun with 4x the capacity
                 cap *= 4
                 self.stats.sparse_retries += 1
+                get_tracer().instant("phase2.overflow_retry", cap=cap)
                 if cap > self.frontier_cap_max:
                     unresolved = np.flatnonzero(~pos & ~pad)
                     self.stats.phase2_host += unresolved.size
                     self.stats.phase2_sparse -= unresolved.size
-                    pos[unresolved] = host_fn(cs[unresolved],
-                                              ct[unresolved])
+                    with span("phase2.host_fallback",
+                              q=int(unresolved.size)):
+                        pos[unresolved] = host_fn(cs[unresolved],
+                                                  ct[unresolved])
                     break
                 pad = pad | pos
                 if pad.all():

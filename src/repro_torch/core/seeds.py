@@ -21,7 +21,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..graphs.csr import CSR, in_degrees, reverse_csr
+from ..graphs.csr import CSR, concat_rows, in_degrees
 
 
 @dataclass
@@ -38,37 +38,40 @@ class SeedLabels:
         return self.s_plus.nbytes + self.s_minus.nbytes + self.seed_ids.nbytes
 
 
-def _propagate(dag: CSR, tau: np.ndarray, init: np.ndarray,
+def _propagate(dag: CSR, fronts: list, init: np.ndarray,
                direction: str) -> np.ndarray:
-    """OR-propagate seed bits along edges.
+    """OR-propagate seed bits along edges, a Kahn front at a time
+    (``tree_cover.kahn_fronts``: every edge goes to a later front).
 
-    direction='up': S+ — node inherits from successors; sweep descending tau.
-    direction='down': S- — node inherits from predecessors; sweep ascending
-    tau over the reverse graph's successors (= predecessors).
+    direction='up': S+ — node inherits from successors; fronts from the
+    last, each node ORing its successors' rows.
+    direction='down': S- — node inherits from predecessors; fronts from
+    the first, each front's rows ORed into its successors.
     """
-    n = dag.n
     out = init.copy()
-    if direction == "up":
-        order = np.argsort(-tau[:n], kind="stable")
-        g = dag
-    else:
-        order = np.argsort(tau[:n], kind="stable")
-        g = reverse_csr(dag)
-    indptr, indices = g.indptr, g.indices
-    for v in order:
-        v = int(v)
-        row = indices[indptr[v]: indptr[v + 1]]
-        if row.size:
-            out[v] |= np.bitwise_or.reduce(out[row], axis=0)
+    indptr, indices = dag.indptr, dag.indices
+    for front in (reversed(fronts) if direction == "up" else fronts):
+        lens = indptr[front + 1] - indptr[front]
+        nodes, lens = front[lens > 0], lens[lens > 0]
+        if not nodes.size:
+            continue
+        succ = concat_rows(indptr, indices, nodes)
+        if direction == "up":
+            out[nodes] |= np.bitwise_or.reduceat(
+                out[succ], np.cumsum(lens) - lens, axis=0)
+            continue
+        order = np.argsort(succ, kind="stable")
+        succ = succ[order]
+        first = np.flatnonzero(np.r_[True, succ[1:] != succ[:-1]])
+        out[succ[first]] |= np.bitwise_or.reduceat(
+            out[np.repeat(nodes, lens)[order]], first, axis=0)
     return out
 
 
-def build_seed_labels(dag: CSR, n_seeds: int = 32,
-                      tau: np.ndarray | None = None) -> SeedLabels:
+def build_seed_labels(dag: CSR, n_seeds: int = 32) -> SeedLabels:
+    from .tree_cover import kahn_fronts
     n = dag.n
-    if tau is None:
-        from .tree_cover import topological_order
-        tau = topological_order(dag)
+    fronts = kahn_fronts(dag)
     deg = dag.degrees() + in_degrees(dag)
     n_seeds = min(n_seeds, int(np.sum(deg >= 1)))
     # top-degree nodes, deterministic tie-break by id
@@ -81,8 +84,8 @@ def build_seed_labels(dag: CSR, n_seeds: int = 32,
     b = np.arange(n_seeds) % 32
     init[seed_ids, w] |= (np.uint32(1) << b.astype(np.uint32))
 
-    s_plus = _propagate(dag, tau, init, "up")
-    s_minus = _propagate(dag, tau, init, "down")
+    s_plus = _propagate(dag, fronts, init, "up")
+    s_minus = _propagate(dag, fronts, init, "down")
     return SeedLabels(seed_ids=seed_ids, s_plus=s_plus, s_minus=s_minus)
 
 

@@ -13,12 +13,11 @@ Outputs (all over the augmented node set, root included at index n):
 """
 from __future__ import annotations
 
-from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..graphs.csr import CSR, build_csr, in_degrees
+from ..graphs.csr import CSR, build_csr, concat_rows, in_degrees
 
 
 @dataclass
@@ -32,42 +31,69 @@ class TreeLabels:
     tree_children: CSR     # children lists of the tree cover (over n+1 nodes)
 
 
-def topological_order(g: CSR) -> np.ndarray:
-    """Kahn's algorithm; deterministic FIFO tie-break. tau in 1..n."""
+def kahn_fronts(g: CSR) -> list:
+    """Kahn's algorithm with a FIFO queue, one front at a time: the
+    queue's pops are the sources in id order, then the nodes each front
+    releases, in the order the queue took them (the last of a node's
+    in-edges in the front's rows, read in pop order). A node's front is
+    its longest path from a source, so every edge goes to a later front.
+    Returns the fronts ([k] int64 arrays) in pop order."""
     n = g.n
     indeg = in_degrees(g)
-    q = deque(int(v) for v in np.flatnonzero(indeg == 0))
-    tau = np.zeros(n, dtype=np.int64)
-    nxt = 1
     indptr, indices = g.indptr, g.indices
-    while q:
-        v = q.popleft()
-        tau[v] = nxt
-        nxt += 1
-        for w in indices[indptr[v]: indptr[v + 1]]:
-            w = int(w)
-            indeg[w] -= 1
-            if indeg[w] == 0:
-                q.append(w)
-    if nxt != n + 1:
+    front = np.flatnonzero(indeg == 0)
+    fronts, done = [], 0
+    while front.size:
+        fronts.append(front)
+        done += front.size
+        seq = concat_rows(indptr, indices, front)    # in-edges in pop order
+        if not seq.size:
+            break
+        order = np.argsort(seq, kind="stable")
+        s = seq[order]
+        first = np.flatnonzero(np.r_[True, s[1:] != s[:-1]])
+        last = order[np.r_[first[1:], s.size] - 1]   # a node's last in-edge
+        nodes = s[first].astype(np.int64)
+        indeg[nodes] -= np.diff(np.r_[first, s.size])
+        ready = indeg[nodes] == 0
+        front = nodes[ready][np.argsort(last[ready], kind="stable")]
+    if done != n:
         raise ValueError("graph is not a DAG (topological sort incomplete)")
+    return fronts
+
+
+def _tau(fronts: list, n: int) -> np.ndarray:
+    tau = np.zeros(n, dtype=np.int64)
+    if fronts:
+        tau[np.concatenate(fronts)] = np.arange(1, n + 1)
     return tau
 
 
-def backward_levels(g: CSR, tau: np.ndarray) -> np.ndarray:
+def topological_order(g: CSR) -> np.ndarray:
+    """Kahn's algorithm; deterministic FIFO tie-break. tau in 1..n."""
+    return _tau(kahn_fronts(g), g.n)
+
+
+def _blevels(g: CSR, fronts: list) -> np.ndarray:
+    """Longest path to a sink, one front at a time from the last: a
+    node's successors all lie in later fronts."""
+    blevel = np.zeros(g.n, dtype=np.int64)
+    indptr, indices = g.indptr, g.indices
+    for front in reversed(fronts):
+        lens = indptr[front + 1] - indptr[front]
+        nodes, lens = front[lens > 0], lens[lens > 0]
+        if nodes.size:
+            rows = blevel[concat_rows(indptr, indices, nodes)]
+            blevel[nodes] = np.maximum.reduceat(
+                rows, np.cumsum(lens) - lens) + 1
+    return blevel
+
+
+def backward_levels(g: CSR) -> np.ndarray:
     """blevel(v) = longest path from v to a sink. s~>t => blevel[s] > blevel[t]
     (for s != t), giving the pruning rule: blevel[s] <= blevel[t] => negative.
-    Linear sweep in descending tau order."""
-    n = g.n
-    order = np.argsort(-tau, kind="stable")
-    blevel = np.zeros(n, dtype=np.int64)
-    indptr, indices = g.indptr, g.indices
-    for v in order:
-        v = int(v)
-        row = indices[indptr[v]: indptr[v + 1]]
-        if row.size:
-            blevel[v] = int(blevel[row].max()) + 1
-    return blevel
+    A sweep over Kahn's fronts from the last."""
+    return _blevels(g, kahn_fronts(g))
 
 
 def tree_cover(g: CSR, tau: np.ndarray) -> np.ndarray:
@@ -91,7 +117,9 @@ def tree_cover(g: CSR, tau: np.ndarray) -> np.ndarray:
 
 
 def post_order(parent: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray, CSR]:
-    """DFS post-order over the tree cover (children in ascending id order).
+    """DFS post-order over the tree cover (children in ascending id order),
+    computed a tree level at a time: subtree sizes from the leaves up,
+    first numbers from the root down.
 
     Returns (pi, tbegin, tree_children). pi in 1..n+1; subtree identifiers are
     contiguous so tbegin[v] = pi[v] - subtree_size[v] + 1 (Eq. 8).
@@ -101,24 +129,29 @@ def post_order(parent: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray, CSR]
     tree = build_csr(n_aug, child_src, np.arange(n, dtype=np.int64),
                      dedup=False)
     indptr, indices = tree.indptr, tree.indices
-    pi = np.zeros(n_aug, dtype=np.int64)
+    # the tree's levels from the root down
+    levels = [np.array([n], dtype=np.int64)]
+    while True:
+        kids = concat_rows(indptr, indices, levels[-1]).astype(np.int64)
+        if not kids.size:
+            break
+        levels.append(kids)
     sz = np.ones(n_aug, dtype=np.int64)
-    counter = 1
-    # iterative DFS with edge cursors
-    work = [(n, int(indptr[n]))]
-    while work:
-        v, ei = work[-1]
-        if ei < indptr[v + 1]:
-            work[-1] = (v, ei + 1)
-            w = int(indices[ei])
-            work.append((w, int(indptr[w])))
-        else:
-            work.pop()
-            pi[v] = counter
-            counter += 1
-            if work:
-                sz[work[-1][0]] += sz[v]
-    tbegin = pi - sz + 1
+    for lv in reversed(levels[1:]):
+        np.add.at(sz, parent[lv], sz[lv])
+    # the DFS enters a child after its earlier siblings' subtrees: its
+    # first post-order number is its parent's plus their sizes
+    ksz = sz[indices]
+    before = np.cumsum(ksz) - ksz     # a prefix over all rows, less
+    lens = np.diff(indptr)
+    before -= np.repeat(before[indptr[:-1][lens > 0]], lens[lens > 0])
+    # ... the prefix at its row's start
+    offset = np.zeros(n_aug, dtype=np.int64)
+    offset[indices] = before
+    tbegin = np.ones(n_aug, dtype=np.int64)
+    for lv in levels[1:]:
+        tbegin[lv] = tbegin[parent[lv]] + offset[lv]
+    pi = tbegin + sz - 1
     return pi, tbegin, tree
 
 
@@ -139,8 +172,9 @@ def wavefront_schedule(blevel: np.ndarray):
 def build_tree_labels(g: CSR) -> TreeLabels:
     """Full §2/§4.2.1 pipeline over a condensed DAG ``g``."""
     n = g.n
-    tau = topological_order(g)
-    blevel = backward_levels(g, tau)
+    fronts = kahn_fronts(g)
+    tau = _tau(fronts, n)
+    blevel = _blevels(g, fronts)
     parent = tree_cover(g, tau)
     pi, tbegin, tree = post_order(parent, n)
     # augment tau/blevel with the root (tau 0 = before everyone; blevel above all)

@@ -40,8 +40,10 @@ def build_csr(n: int, src, dst, dedup: bool = True) -> CSR:
         assert src.min() >= 0 and src.max() < n, "src out of range"
         assert dst.min() >= 0 and dst.max() < n, "dst out of range"
     if dedup and src.size:
-        key = src * np.int64(n) + dst
-        key = np.unique(key)
+        # sorted unique keys by a sort: np.unique may hash instead (numpy
+        # 2.3), far slower on tens of millions of edges
+        key = np.sort(src * np.int64(n) + dst)
+        key = key[np.r_[True, key[1:] != key[:-1]]]
         src = key // n
         dst = key % n
     else:

@@ -71,6 +71,7 @@ LAUNCH_WORDS = slice(L_SETUP, L_CLEANUP + 1)
 SORT_MAX_CAP = 16384
 PROBE_TILE = 1024           # kernel 3's candidates a tile
 MAX_CANDIDATES = 1 << 30    # kernel 3's look-back words hold 30-bit counts
+TAIL_BLOCK = 1 << 26        # the plain tail sweep's candidates a block
 # keys the log holds beyond a call's sources; a call that marks more has
 # its whole visited bitset zeroed by the clean-up instead (the union-graph
 # loop runs up to n steps, so cap x max_steps bounds nothing there)
@@ -343,21 +344,27 @@ def expand_probe_plain(st, ell, tail_src, tail_dst, *,
     cq = fq[:, None].expand(-1, w).reshape(-1)
     cv = nbr.reshape(-1)
     ok = (fvalid[:, None] & (nbr >= 0)).reshape(-1)
-    if ctl[HUB] and st.fbits is not None:
-        # heavy tail: edge-parallel sweep gated by the frontier bitset
-        qi = torch.arange(q, dtype=torch.int32, device=cq.device)
-        act = (st.fbits[:, (tail_src >> 5).long()]
-               >> (tail_src & 31)[None, :]) & 1
-        cq = torch.cat([cq, qi[:, None].expand(q, st.m_t).reshape(-1)])
-        cv = torch.cat([cv, tail_dst[None, :].expand(q, -1).reshape(-1)])
-        ok = torch.cat([ok, (act != 0).reshape(-1)])
     keys = probe_plain(cq.contiguous(), cv.contiguous(), ok.to(torch.int32),
                        st.visited, st.pos, vbits)
-    emit = keys != SENTINEL
-    slot = torch.cumsum(emit, 0) - 1
-    kept = emit & (slot < st.slots.shape[0])
-    st.slots[slot[kept]] = keys[kept]
-    st.ctl[RAW] = int(emit.sum())
+    found = [keys[keys != SENTINEL]]
+    if ctl[HUB] and st.fbits is not None:
+        # heavy tail: edge-parallel sweep gated by the frontier bitset, in
+        # query order, a block of queries at a time (q x m_t candidates)
+        word, bit = (tail_src >> 5).long(), (tail_src & 31)[None, :]
+        block = max(1, TAIL_BLOCK // max(1, st.m_t))
+        for q0 in range(0, q, block):
+            qi = torch.arange(q0, min(q, q0 + block), dtype=torch.int32,
+                              device=cq.device)
+            act = (st.fbits[qi.long()][:, word] >> bit) & 1
+            keys = probe_plain(
+                qi[:, None].expand(-1, st.m_t).reshape(-1),
+                tail_dst[None, :].expand(qi.numel(), -1).reshape(-1),
+                act.reshape(-1), st.visited, st.pos, vbits)
+            found.append(keys[keys != SENTINEL])
+    found = torch.cat(found)
+    kept = min(found.numel(), st.slots.shape[0])
+    st.slots[:kept] = found[:kept]
+    st.ctl[RAW] = found.numel()
 
 
 def expand_probe(st, tables: dict, *, gather_rows=_take) -> None:

@@ -12,7 +12,12 @@ device: phase 1 and the sparse phase 2 run the CUDA kernels on a card.
 
 ``--index-dir DIR`` loads the artifact committed there, or builds and
 saves one (first run builds, reruns load). ``--device cpu`` runs the
-kernels' plain PyTorch versions instead.
+kernels' plain PyTorch versions instead. ``--tenants N`` re-serves the
+stream through the async frontend (``reach.frontend``) in
+``--request-size`` requests over N tenants and prints its ``frontend:``
+block; ``--metrics-dump`` writes the telemetry registry's snapshot and
+``--trace-out`` a Chrome trace of the run's spans (host time: a span
+around a kernel launch covers the launch, not the kernel).
 
 ``--mode lm`` prefills random prompts, then decodes greedily, with random
 weights from ``--seed``: on a card at the arch's published widths, on the
@@ -25,20 +30,22 @@ dims 16 and 32 are below the flash kernel's 64):
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from dataclasses import replace
 from pathlib import Path
 
 import torch
 
+from .. import obs
 from ..configs import get_config, get_smoke
 from ..core.packed import pack_index
 from ..core.query_torch import resolve_device
 from ..core.workload import positive_queries, random_queries
 from ..graphs.generators import scale_free_digraph
 from ..models import transformer as tf
-from ..reach import (IndexSpec, QuerySession, build, load_manifest,
-                     save_index)
+from ..reach import (Frontend, IndexSpec, QuerySession, Rejected, build,
+                     load_manifest, save_index)
 from ..reach.spec import BUILD_FIELDS
 
 
@@ -81,10 +88,26 @@ def _load_session(index_dir, spec: IndexSpec, graph_meta: dict, n: int,
 def serve_reachability(n_nodes: int, avg_deg: float, n_queries: int,
                        spec: IndexSpec, *, seed: int = 0,
                        workload: str = "random", device="cuda",
-                       index_dir=None) -> dict:
+                       index_dir=None, n_tenants: int = 0,
+                       request_size: int = 64,
+                       metrics_dump: str | None = None,
+                       trace_out: str | None = None) -> dict:
     """Build (or load from ``index_dir``), warm up, then serve
     ``n_queries`` of ``workload`` once, timed. Returns the wall time,
-    ns/query, positives and SessionStats."""
+    ns/query, positives and SessionStats.
+
+    ``n_tenants > 0`` re-serves the stream through the async frontend:
+    chopped into ``request_size``-pair requests spread round-robin over
+    the tenants, pushed through the deadline-aware coalescing loop (a
+    ``queue_full`` rejection polls the loop instead of growing a queue);
+    its FrontendStats are printed and returned. ``metrics_dump``: write
+    the metrics registry's snapshot (and the frontend's slow-slab log)
+    there as JSON; ``trace_out``: record spans from the start and write
+    them there as a Chrome trace."""
+    if trace_out is not None:
+        # spans record from here on: build stages, every slab's lifecycle,
+        # phase-1/phase-2 splits — exported Perfetto-loadable at the end
+        obs.enable_tracing()
     print(f"building graph n={n_nodes} avg_deg={avg_deg} ...", flush=True)
     g = scale_free_digraph(n_nodes, avg_deg, seed=seed)
     graph_meta = {"generator": "scale_free_digraph", "n_nodes": n_nodes,
@@ -119,10 +142,86 @@ def serve_reachability(n_nodes: int, avg_deg: float, n_queries: int,
           f"({dt / n_queries * 1e9:.0f} ns/query), {pos} positive, "
           f"{sess.trace_count} phase-1 batch shapes")
     print(f"phase stats: {stats}")
+    fe = None
+    if n_tenants > 0:
+        fe = _serve_frontend(sess, spec, qs, qt, n_tenants, request_size)
+    if metrics_dump is not None:
+        snap = obs.metrics_snapshot()
+        if fe is not None:
+            snap["slowlog"] = fe.slowlog.as_dict()
+        with open(metrics_dump, "w") as f:
+            json.dump(snap, f, indent=2, default=str)
+        print(f"metrics snapshot written to {metrics_dump}", flush=True)
+    if trace_out is not None:
+        tr = obs.get_tracer()
+        obs.export_chrome_trace(trace_out)
+        print(f"trace written to {trace_out} "
+              f"({len(tr.events())} spans, {tr.n_dropped} dropped; host "
+              "time) — load it at https://ui.perfetto.dev", flush=True)
     return {"seconds": dt, "ns_per_query": dt / n_queries * 1e9,
             "positive": pos, "stats": stats, "build_seconds": t_build,
             "trace_count": sess.trace_count, "spec": spec,
-            "loaded": loaded}
+            "loaded": loaded,
+            "frontend_stats": None if fe is None else fe.stats}
+
+
+def _serve_frontend(sess, spec: IndexSpec, qs, qt, n_tenants: int,
+                    request_size: int) -> Frontend:
+    """The stream through a ``Frontend`` on ``sess``, closed loop;
+    prints the ``frontend:`` block and returns the frontend."""
+    # a request larger than min(queue_cap, max_batch) is rejected
+    # "too_large" on EVERY submit — no amount of polling makes it
+    # admissible, so validate up front instead of spinning forever
+    admissible = min(spec.tenant_queue_cap, spec.max_batch)
+    if request_size > admissible:
+        raise ValueError(
+            f"--request-size {request_size} exceeds the admissible "
+            f"bound min(tenant_queue_cap={spec.tenant_queue_cap}, "
+            f"max_batch={spec.max_batch}) = {admissible}; shrink the "
+            "request or raise --tenant-queue-cap/--max-batch")
+    fe = Frontend(sess)
+    backpressure = 0
+    n_queries = qs.size
+    t0 = time.perf_counter()
+    for i, lo in enumerate(range(0, n_queries, request_size)):
+        tenant = f"tenant-{i % n_tenants}"
+        s, d = qs[lo:lo + request_size], qt[lo:lo + request_size]
+        while True:
+            try:
+                fe.submit(tenant, s, d)
+                break
+            except Rejected as e:
+                if e.reason != "queue_full":
+                    raise      # permanent: polling can't fix it
+                # bounded queues: drain the loop instead of growing
+                backpressure += 1
+                fe.poll()
+    served = sum(a.size for a in fe.drain().values())
+    dt_f = time.perf_counter() - t0
+    st = fe.stats
+    print(f"frontend: {served} queries over {n_tenants} tenants "
+          f"({request_size}/request) in {dt_f * 1e3:.1f} ms "
+          f"({dt_f / max(served, 1) * 1e9:.0f} ns/query), "
+          f"{backpressure} backpressure stalls, "
+          f"occupancy {st.occupancy:.3f}, "
+          f"{st.deadline_misses} deadline misses")
+    for name in sorted(st.tenants):
+        t = st.tenants[name]
+        # percentiles are None until a tenant completes a request
+        p50 = "n/a" if t.p50_us is None else f"{t.p50_us:.0f}us"
+        p99 = "n/a" if t.p99_us is None else f"{t.p99_us:.0f}us"
+        print(f"  {name}: {t.completed}/{t.requests} requests "
+              f"p50={p50} p99={p99} "
+              f"misses={t.deadline_misses} "
+              f"cache_hits={t.cache_short_circuits}")
+    print(fe.slowlog.format_report())
+    if st.cache is not None:
+        c = st.cache
+        print(f"  cache: {c['entries']}/{c['capacity']} entries, "
+              f"hit_rate={c['hit_rate']:.3f}, "
+              f"{c['evictions']} evictions, "
+              f"{c['invalidations']} invalidations")
+    return fe
 
 
 def _build_session(g, spec: IndexSpec, device, index_dir, graph_meta):
@@ -232,6 +331,20 @@ def main(argv=None):
     ap.add_argument("--index-dir", default=None,
                     help="load the index artifact committed here, or "
                          "build and save one")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="also serve the stream through the async "
+                         "frontend spread over this many tenants "
+                         "(0 = skip)")
+    ap.add_argument("--request-size", type=int, default=64,
+                    help="query pairs per frontend request")
+    ap.add_argument("--metrics-dump", default=None, metavar="PATH",
+                    help="write the obs metrics-registry snapshot (JSON: "
+                         "all counters/histograms/stat views + the "
+                         "frontend slow-slab log) here on exit")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable trace spans and write a Chrome "
+                         "trace-event JSON here on exit (load at "
+                         "ui.perfetto.dev)")
     IndexSpec.add_cli_args(ap)       # --k --variant --phase2 --max-batch ...
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--batch", type=int, default=4,
@@ -247,7 +360,11 @@ def main(argv=None):
     return serve_reachability(args.nodes, args.avg_deg, args.queries,
                               IndexSpec.from_args(args), seed=args.seed,
                               workload=args.workload, device=args.device,
-                              index_dir=args.index_dir)
+                              index_dir=args.index_dir,
+                              n_tenants=args.tenants,
+                              request_size=args.request_size,
+                              metrics_dump=args.metrics_dump,
+                              trace_out=args.trace_out)
 
 
 if __name__ == "__main__":

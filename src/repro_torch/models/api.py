@@ -7,22 +7,25 @@ serves.
 
 over tensors on the cell's device, plus the batch's shapes and dtypes.
 Kinds: serve and retrieval (recsys), train, prefill and decode (the dense
-LMs). The LM train step accumulates float32 gradients over
+LMs), classify (ferrari-web, the paper's own system: phase-1 verdicts over
+the fused index layout, kernel 1 on a card). The LM train step accumulates float32 gradients over
 ``cfg.microbatches`` microbatches, then takes one AdamW step in place.
 The recsys ``train`` kind and the GNN's cells are not ported (ROADMAP.md,
 Queue 1 item 8) and raise ``NotImplementedError``; the GNN dense-batch
 forward is reached through ``models.gnn.forward_dense``.
 Unlike the reference there is no mesh and no sharding: a cell runs on one
-device.
+device (the ferrari cell's ``index_placement="sharded"`` runs replicated,
+as the reference's cell does without a mesh).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..configs.base import LMConfig, RecsysConfig, shapes_for_family
+from ..configs.base import (FerrariServeConfig, LMConfig, RecsysConfig,
+                            shapes_for_family)
 from ..core.query_torch import resolve_device
 from ..optim.optimizer import OptConfig, adamw_init, adamw_update
 from . import recsys as rec_mod
@@ -44,6 +47,9 @@ class CellSpec:
     batch_shapes: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
     device: torch.device
     shape: Any = None
+    state_shapes: Optional[Dict[str, Tuple[Tuple[int, ...],
+                                           torch.dtype]]] = None
+    model_flops_fn: Optional[Callable] = None
 
 
 _NOT_PORTED = ("{what} is not ported to repro_torch yet (ROADMAP.md, "
@@ -181,7 +187,29 @@ def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig):
         _NOT_PORTED.format(what=f"the LM {shape.kind!r} cell"))
 
 
-_CELLS = {"recsys": _recsys_cell, "lm": _lm_cell}
+def _ferrari_cell(cfg: FerrariServeConfig, shape, opt_cfg: OptConfig):
+    """Phase-1 classification over the gather-fused layout: state ``slab``
+    [n, 2K] (begins with exact flags in the sign bits, then ends) and
+    ``meta`` [n, 4] (π | blevel << 24, τ, s⁺, s⁻) int32, from
+    ``PackedIndex.to_torch(device, fused=True)``; batch ``cs``, ``ct`` [Q]
+    int32 condensed ids. Kernel 1 on a card, its plain version on the
+    CPU (the reference's cell runs its plain rules, ``use_pallas=False``)."""
+    from ..kernels import ops
+    n, K = cfg.n_nodes, cfg.k_max
+    i32 = torch.int32
+    Q = _pad(shape.n_queries)
+    state_shapes = {"slab": ((n, 2 * K), i32), "meta": ((n, 4), i32)}
+    batch_shapes = {"cs": ((Q,), i32), "ct": ((Q,), i32)}
+
+    def step(state, batch):
+        return state, ops.classify_queries(state, batch["cs"], batch["ct"])
+
+    # ~54 int/cmp ops per query lane over the K-slab + filters
+    flops_fn = lambda: Q * (6 * cfg.k_max + 16)   # noqa: E731
+    return step, batch_shapes, state_shapes, flops_fn
+
+
+_CELLS = {"recsys": _recsys_cell, "lm": _lm_cell, "ferrari": _ferrari_cell}
 
 
 def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
@@ -191,11 +219,13 @@ def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
         raise NotImplementedError(_NOT_PORTED.format(
             what=f"the {cfg.family} {shape.kind!r} cell"))
     dev = resolve_device(device)
-    step, batch_shapes = _CELLS[cfg.family](cfg, shape,
-                                            opt_cfg or OptConfig())
+    step, batch_shapes, *extra = _CELLS[cfg.family](cfg, shape,
+                                                    opt_cfg or OptConfig())
+    state_shapes, flops_fn = extra if extra else (None, None)
     return CellSpec(arch=cfg.arch_id, shape_name=shape_name, kind=shape.kind,
                     step=step, batch_shapes=batch_shapes, device=dev,
-                    shape=shape)
+                    shape=shape, state_shapes=state_shapes,
+                    model_flops_fn=flops_fn)
 
 
 def materialize_state(cell: CellSpec, cfg, shape_name: str,
@@ -213,5 +243,7 @@ def materialize_state(cell: CellSpec, cfg, shape_name: str,
                                                cell.shape.seq_len,
                                                cell.device)
         return state
+    if cfg.family == "ferrari":
+        raise ValueError("use core.packed.PackedIndex for real ferrari state")
     raise NotImplementedError(_NOT_PORTED.format(
         what=f"state for the {cfg.family} family"))

@@ -104,7 +104,7 @@ def _compact_incremental(index: FerrariIndex, union: CSR, tails: np.ndarray,
                          "relabel under; compact needs a full rebuild")
     t0 = time.perf_counter()
     tau = topological_order(union)        # raises ValueError on a cycle
-    blevel = backward_levels(union, tau)
+    blevel = backward_levels(union)
     tl_new = TreeLabels(
         n=n,
         tau=np.concatenate([tau, [0]]),
@@ -124,8 +124,7 @@ def _compact_incremental(index: FerrariIndex, union: CSR, tails: np.ndarray,
     seeds = None
     t0 = time.perf_counter()
     if index.seeds is not None:
-        seeds = build_seed_labels(union, n_seeds=index.seeds.seed_ids.size,
-                                  tau=tau)
+        seeds = build_seed_labels(union, n_seeds=index.seeds.seed_ids.size)
     t_seeds = time.perf_counter() - t0
 
     old = index.stats

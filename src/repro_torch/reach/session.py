@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.query import ResettableStats
+from ..obs import register_stats, span
 from .spec import IndexSpec, make_engine
 
 
@@ -71,8 +72,7 @@ class _StagedBatch:
     """A padded batch whose host→device transfer is in flight."""
     q: int                  # real (unpadded) query count
     bucket: int             # padded power-of-two bucket
-    srcs: object            # staged tensors (engine.stage_queries)
-    dsts: object
+    ids: object             # engine.stage_queries' StagedIds
 
 
 @dataclass
@@ -113,6 +113,9 @@ class QuerySession:
         self._replay_tail = None
         self._next_delta_seq = None   # per-epoch log cursor (lazy-listed)
         self.reset_stats()
+        # snapshot-time provider: the padded-query subtraction stays in
+        # the ``stats`` property, the registry just reads through it
+        register_stats("reach_session", self, provider=lambda s: s.stats)
 
     # ------------------------------------------------------------- loading
     @classmethod
@@ -242,15 +245,17 @@ class QuerySession:
             raise ValueError(f"staged batch of {q} exceeds max_batch="
                              f"{self.spec.max_batch}; chop it first")
         b = self._bucket(max(q, 1))
-        cs, ct = self.engine.stage_queries(*self._pad(srcs, dsts, b))
-        return _StagedBatch(q=q, bucket=b, srcs=cs, dsts=ct)
+        with span("stage", q=q, bucket=b):
+            ids = self.engine.stage_queries(*self._pad(srcs, dsts, b))
+        return _StagedBatch(q=q, bucket=b, ids=ids)
 
     def begin(self, staged: "_StagedBatch") -> "_InflightBatch":
         """Launch phase 1 on a staged batch without waiting for it. The
         handle is bound to the CURRENT engine: ``compact()`` refuses to
         run while any handle is outstanding."""
         t0 = time.perf_counter()
-        handle = self.engine.start_answer(staged.srcs, staged.dsts)
+        with span("dispatch", bucket=staged.bucket):
+            handle = self.engine.start_answer(staged.ids)
         self._n_inflight += 1
         return _InflightBatch(staged=staged, handle=handle, t0=t0)
 
@@ -261,7 +266,8 @@ class QuerySession:
         begin→finish wall time."""
         st = inflight.staged
         try:
-            ans = self.engine.finish_answer(inflight.handle)[: st.q]
+            with span("finish", q=st.q, bucket=st.bucket):
+                ans = self.engine.finish_answer(inflight.handle)[: st.q]
         finally:
             self._n_inflight -= 1
         self._seconds += time.perf_counter() - inflight.t0

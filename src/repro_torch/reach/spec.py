@@ -216,6 +216,23 @@ class IndexSpec:
             raise ValueError(f"unknown IndexSpec fields: {sorted(unknown)}")
         return cls(**d)
 
+    @classmethod
+    def from_config(cls, cfg, **overrides) -> "IndexSpec":
+        """Derive a spec from a ``configs.base.FerrariServeConfig``.
+
+        ``k_max`` is the packed slab width ≈ c·k under FERRARI-G slack, so
+        k = max(1, k_max // c); ``seed_words`` (uint32 words per direction)
+        gives n_seeds = 32·words. Any kwarg overrides the derived value.
+        """
+        c = overrides.get("c", cls.c)
+        derived = {}
+        if getattr(cfg, "k_max", None) is not None:
+            derived["k"] = max(1, int(cfg.k_max) // c)
+        if getattr(cfg, "seed_words", None) is not None:
+            derived["n_seeds"] = 32 * int(cfg.seed_words)
+        derived.update(overrides)
+        return cls(**derived)
+
     # --------------------------------------------------- CLI serialization
     @staticmethod
     def add_cli_args(ap: argparse.ArgumentParser) -> None:

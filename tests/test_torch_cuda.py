@@ -522,6 +522,100 @@ def test_session_on_card_goes_through_kernels(dev):
         QuerySession(ix, IndexSpec(kernel_impl="xla"))
 
 
+def _frontend_index():
+    g = scale_free_digraph(20_000, 4.0, seed=5)
+    spec = IndexSpec(k=1, use_seeds=False, phase2_mode="sparse",
+                     phase2_chunk=64, frontier_cap=64, max_batch=4096,
+                     min_bucket=256, tenant_queue_cap=4096)
+    return g, spec, build(g, spec)
+
+
+def test_frontend_on_card_matches_session(dev):
+    """The async frontend on the card (pinned staging,
+    kernels 1, 3, 4) answers every ticket as the session does, on the
+    card and on the CPU."""
+    from repro_torch.reach import Frontend, Rejected
+    g, spec, ix = _frontend_index()
+    qs, qt = random_queries(g, 30_000, seed=4)
+    want = QuerySession(ix, spec, device="cpu").query(qs, qt)
+    sess = QuerySession(ix, spec)
+    _lib.LAUNCHES.reset()
+    fe = Frontend(sess)
+    tickets = {}
+    for i, lo in enumerate(range(0, qs.size, 64)):
+        while True:
+            try:
+                tickets[fe.submit(f"t{i % 8}", qs[lo:lo + 64],
+                                  qt[lo:lo + 64])] = lo
+                break
+            except Rejected as e:
+                assert e.reason == "queue_full"
+                fe.poll()
+    got = fe.drain()
+    assert got.keys() == tickets.keys()
+    for t, lo in tickets.items():
+        np.testing.assert_array_equal(got[t], want[lo:lo + 64])
+    np.testing.assert_array_equal(sess.query(qs, qt), want)
+    assert all(_lib.LAUNCHES[k] > 0
+               for k in ("stab_packed", "probe", "classify_emit"))
+    assert fe.stats.n_batches > 1
+    # two pinned buffers serve the whole double-buffered stream
+    assert sess.engine._pinned.n_allocated <= 2
+
+
+def test_staged_buffers_not_overwritten_with_two_batches_alive(dev):
+    """Two staged batches hold two pinned buffers; a third stage while
+    both are alive allocates a buffer of its own; each batch answers for
+    its own ids; a finished batch's buffer is reused."""
+    g, spec, ix = _frontend_index()
+    sess = QuerySession(ix, spec)
+    pool = sess.engine._pinned
+    rng = np.random.default_rng(3)
+    qs, qt = rng.integers(0, g.n, (2, 3 * 4096))
+    want = QuerySession(ix, spec, device="cpu").query(qs, qt)
+    parts = [slice(i * 4096, (i + 1) * 4096) for i in range(3)]
+    a = sess.stage(qs[parts[0]], qt[parts[0]])
+    b = sess.stage(qs[parts[1]], qt[parts[1]])
+    ha = sess.begin(a)
+    c = sess.stage(qs[parts[2]], qt[parts[2]])        # a and b alive
+    bufs = {x.ids.buf.data_ptr() for x in (a, b, c)}
+    assert len(bufs) == 3 and pool.n_allocated == 3
+    got_a = sess.finish(ha)
+    d = sess.stage(qs[parts[0]], qt[parts[0]])        # a's buffer, reused
+    assert d.ids.buf.data_ptr() in bufs and pool.n_allocated == 3
+    got_c = sess.finish(sess.begin(c))
+    got_b = sess.finish(sess.begin(b))
+    got_d = sess.finish(sess.begin(d))
+    np.testing.assert_array_equal(got_a, want[parts[0]])
+    np.testing.assert_array_equal(got_b, want[parts[1]])
+    np.testing.assert_array_equal(got_c, want[parts[2]])
+    np.testing.assert_array_equal(got_d, want[parts[0]])
+
+
+def test_ferrari_cell_on_card_matches_cpu(dev):
+    """ferrari-web's SMOKE cell: kernel 1 over the fused tables equals
+    the plain version's verdicts, one launch a step."""
+    from repro_torch.core.packed import pack_index
+    cfg = get_smoke("ferrari-web")
+    g = scale_free_digraph(cfg.n_nodes, 4.0, seed=3, back_p=0.0)
+    ix = build(g, IndexSpec.from_config(cfg, precondensed=True))
+    pk = pack_index(ix, k_max=cfg.k_max)
+    cell = api.build_cell(cfg, "classify_100k", device=dev)
+    cpu_cell = api.build_cell(cfg, "classify_100k", device="cpu")
+    (q,), _ = cell.batch_shapes["cs"]
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.n_nodes, q).astype(
+        np.int32)) for k in ("cs", "ct")}
+    tables = pk.to_torch("cpu")
+    state = {k: tables[k] for k in ("slab", "meta")}
+    _, want = cpu_cell.step(state, batch)
+    _lib.LAUNCHES.reset()
+    _, got = cell.step({k: v.to(dev) for k, v in state.items()},
+                       {k: v.to(dev) for k, v in batch.items()})
+    assert _lib.LAUNCHES["stab_packed"] == 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
 def test_naive_layout_sparse_on_card_matches_cpu(dev):
     """64 seeds: the 12-array layout, whose sparse phase 2 classifies
     survivors with kernel 2 inside the BFS loop."""

@@ -263,6 +263,15 @@ def test_step_tail_sweep():
     assert sum(s["hub"] for s in seen) >= 2
 
 
+@pytest.mark.parametrize("block", [1, 3 * 257])
+def test_step_tail_sweep_in_blocks(block, monkeypatch):
+    """The plain tail sweep cut into blocks of one query and of a few
+    (``TAIL_BLOCK``, which bounds its memory at large q x m_t) steps as
+    the reference does."""
+    monkeypatch.setattr(ff, "TAIL_BLOCK", block)
+    test_step_tail_sweep()
+
+
 def test_step_padded_queries():
     ix = _index("tail")
     cs, ct = ix.queries(200, 56, seed=5)

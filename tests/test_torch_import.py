@@ -22,7 +22,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "repro" or k.startswith("repro."))
-print(len(mods), bad)
+print(len(mods), bad, " ".join(mods))
 assert not bad, bad
 """
 
@@ -34,6 +34,14 @@ def test_import_pulls_in_neither_jax_nor_reference():
     assert r.returncode == 0, r.stdout + r.stderr
     n_mods = int(r.stdout.split()[0])
     assert n_mods >= 20          # every module of the port was imported
+    # the telemetry and the async frontend among them
+    mods = set(r.stdout.split("]", 1)[1].split())
+    assert {"repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.trace", "repro_torch.obs.slowlog",
+            "repro_torch.reach.frontend", "repro_torch.reach.frontend.loop",
+            "repro_torch.reach.frontend.router",
+            "repro_torch.reach.frontend.cache",
+            "repro_torch.reach.frontend.stats"} <= mods
 
 
 def test_no_source_file_imports_jax_or_reference():
