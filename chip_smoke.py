@@ -26,6 +26,13 @@ training on the card:
            plain version, then save_index → QuerySession.load and the
            main phase's queries, whose answers must equal the main
            phase's (kernel 1).
+  distributed (gloo pair)  two gloo ranks sharing cuda:0 (subprocesses,
+           a FileStore under build/) load the wavefront phase's artifact
+           as a sharded 1x2 and then a replicated 2x1 ``QuerySession``
+           (``IndexSpec(placement=..., mesh=...)``) and serve 2^17 random
+           and 2^14 forward-walk pairs: every rank's answers and phase mix
+           equal the one-device session's (the sharded one through kernel
+           1's owned-rows entry and kernel 3's exchanged-rows entry).
   phase2   a weak index (k=1, no seeds) over 1M nodes with the sparse
            phase 2, at the default frontier cap and at cap 256, which
            forces the overflow retry (kernels 1, 3, 4). At the default
@@ -116,7 +123,17 @@ training on the card:
            first overflowing expansion calls, one slab span a slab in the
            Chrome trace under build/, the registry's reach_frontend,
            reach_session and reach_engine samples equal to their stats
-           objects.
+           objects. Before the frontend, the distributed phase on this
+           index: world 1 over NCCL (mesh 1x1, a FileStore under build/),
+           the classify_16m cell's sharded step (kernel 1's owned-rows
+           entry, one launch) against the replicated cell's verdicts and
+           timed, a sharded QuerySession over 2^15 random pairs (phase 2
+           stepped from the host: kernel 3's exchanged-rows entry, kernel
+           4 as mark and emit) against the one-device session's answers
+           and phase mix, with its steps, syncs and launches; the owned
+           entry on the 2^16 sample against its plain version on the CPU;
+           2^12 of the pairs served again with every exchanged-rows step
+           held word for word against its plain version.
 
 Every phase sets the launch counters to 0 just before it is driven and
 reads them just after; the reachability phases hold their answers against
@@ -261,6 +278,16 @@ KERNELS = {
         source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:172",
         call="src/repro/kernels/flash_attention.py:224", phase="train"),
+    # the sharded placement's entries of kernels 1 and 3: the reference's
+    # kernels on gathered rows inside its shard_map
+    "stab_packed_owned": dict(
+        source="src/repro_torch/csrc/interval_stab.cu",
+        replaces="src/repro/kernels/interval_stab.py:117",
+        call="src/repro/core/distributed.py:132", phase="distributed"),
+    "probe_rows": dict(
+        source="src/repro_torch/csrc/frontier.cu",
+        replaces="src/repro/kernels/frontier_fused.py:60",
+        call="src/repro/core/distributed.py:204", phase="distributed"),
 }
 
 
@@ -788,6 +815,18 @@ def work_of(name, args):
         q, s, t = cs.shape[0], cs[live], ct[live]
         nbytes = q * 12 + _distinct(s, t) * 16 + _distinct(s) * 8 * k
         return nbytes, int(live.sum()) * (6 * k + 25) + q
+    if name == "stab_packed_owned":
+        # t's meta row by query position (16 B a live query), the owned
+        # sources' meta and slab rows, the ids and the verdicts
+        meta_t, meta, slab, cs, ct, base = args
+        k = slab.shape[1] // 2
+        rel = cs.long() - base
+        own = (rel >= 0) & (rel < meta.shape[0])
+        live = own & (cs != ct)
+        q = cs.shape[0]
+        nbytes = (q * 12 + int(live.sum()) * 16
+                  + _distinct(cs[live]) * (16 + 8 * k))
+        return nbytes, int(live.sum()) * (6 * k + 25) + q
     if name == "stab_naive":
         pi, tau, lvl, b, e, x, sp, sm, cs, ct = args
         k, w = b.shape[1], sp.shape[1]
@@ -863,7 +902,8 @@ LIBRARY_PAIRS = {
 
 # kernels timed beside their launch floor: the verdict kernels and the
 # BFS step's two, whose path's calls move well under a microsecond of bytes
-FLOOR_KERNELS = ("stab_packed", "stab_naive", "probe", "classify_emit")
+FLOOR_KERNELS = ("stab_packed", "stab_naive", "probe", "classify_emit",
+                 "stab_packed_owned", "probe_rows")
 
 
 def launch_floor(rows: int) -> tuple:
@@ -886,11 +926,14 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
     from repro_torch.kernels import merge_cover as mc
     from repro_torch.kernels import retrieval_score as rs
     plain = {"stab_packed": st.stab_packed_plain,
+             "stab_packed_owned": st.stab_packed_owned_plain,
              "stab_naive": st.stab_naive_plain,
              "merge_cover": mc.merge_cover_plain,
              "retrieval_score": rs.retrieval_score_plain,
              "batched_mp": bm.batched_mp_plain}
-    kernel = {"stab_packed": st.stab_packed, "stab_naive": st.stab_naive,
+    kernel = {"stab_packed": st.stab_packed,
+              "stab_packed_owned": st.stab_packed_owned,
+              "stab_naive": st.stab_naive,
               "merge_cover": mc.merge_cover,
               "retrieval_score": rs.retrieval_score,
               "batched_mp": bm.batched_mp}
@@ -1250,34 +1293,13 @@ def step_work(call):
     front; n log2 n ops to sort, ~(6K + 30) a key."""
     import math
 
-    import torch
-
     from repro_torch.kernels import frontier_fused as ff
     st, tables, classify, distinct = call
     ctl = st.ctl.tolist()
     vbits, vmask = st.vbits, (1 << st.vbits) - 1
-    front = st.front[:ctl[ff.N_FRONT]]
-    front = front[front != 2**31 - 1]
-    fq, fv = front >> vbits, front & vmask
-    nbr = tables["ell"][fv.long()]
-    ok = nbr >= 0
-    cq = fq[:, None].expand_as(nbr)[ok].long()
-    cv = nbr[ok].long()
-    b3 = 4 * front.numel() + _distinct(fv) * 4 * st.w
-    if ctl[ff.HUB] and st.fbits is not None:
-        tsrc = tables["tail_src"].long()
-        gate = ((st.fbits[:, tsrc >> 5] >> (tsrc & 31)) & 1) != 0
-        qq, ee = gate.nonzero(as_tuple=True)
-        cq = torch.cat([cq, qq])
-        cv = torch.cat([cv, tables["tail_dst"].long()[ee]])
-        b3 += 8 * _distinct(ee)
-    probe = st.clone()
-    ff.expand_probe_plain(probe, tables["ell"], tables["tail_src"],
-                          tables["tail_dst"])
+    b3, probe = probe_work(st, tables, distinct)
     pctl = probe.ctl.tolist()
     n = pctl[ff.RAW] if distinct else min(pctl[ff.RAW], st.cap + 1)
-    b3 += (_distinct(cq * st.n_words + (cv >> 5)) * 4
-           + _distinct(cq) * 4 + n * 4 + 32)
     done = probe.clone()
     _plain_dedup(done, tables, classify, distinct)
     dctl = done.ctl.tolist()
@@ -1302,6 +1324,46 @@ def step_work(call):
         b4 += 4 * m
     ops4 = n * max(1, math.ceil(math.log2(max(n, 2)))) + m * (6 * k + 30)
     return (b3, 10 * _candidates(st, tables)), (b4, ops4)
+
+
+def probe_work(st, tables, distinct: bool = False, rows=None):
+    """Kernel 3's bytes on a step (``step_work``), and the state after its
+    plain version. ``rows``: the exchanged-rows entry's [n_front, W]
+    buffer, read once a front entry where the in-place kernel reads each
+    distinct node's ELL row once."""
+    import torch
+
+    from repro_torch.kernels import frontier_fused as ff
+    ctl = st.ctl.tolist()
+    vbits, vmask = st.vbits, (1 << st.vbits) - 1
+    front = st.front[:ctl[ff.N_FRONT]]
+    front = front[front != 2**31 - 1]
+    fq, fv = front >> vbits, front & vmask
+    nbr = tables["ell"][fv.long()] if rows is None else rows
+    ok = nbr >= 0
+    cq = fq[:, None].expand_as(nbr)[ok].long()
+    cv = nbr[ok].long()
+    b3 = 4 * front.numel() + (_distinct(fv) if rows is None
+                              else front.numel()) * 4 * st.w
+    if ctl[ff.HUB] and st.fbits is not None:
+        tsrc = tables["tail_src"].long()
+        gate = ((st.fbits[:, tsrc >> 5] >> (tsrc & 31)) & 1) != 0
+        qq, ee = gate.nonzero(as_tuple=True)
+        cq = torch.cat([cq, qq])
+        cv = torch.cat([cv, tables["tail_dst"].long()[ee]])
+        b3 += 8 * _distinct(ee)
+    probe = st.clone()
+    if rows is None:
+        ff.expand_probe_plain(probe, tables["ell"], tables["tail_src"],
+                              tables["tail_dst"])
+    else:
+        ff.expand_probe_rows_plain(probe, rows, tables["tail_src"],
+                                   tables["tail_dst"])
+    pctl = probe.ctl.tolist()
+    n = pctl[ff.RAW] if distinct else min(pctl[ff.RAW], st.cap + 1)
+    b3 += (_distinct(cq * st.n_words + (cv >> 5)) * 4
+           + _distinct(cq) * 4 + n * 4 + 32)
+    return b3, probe
 
 
 def time_step_kernels(kept: dict) -> dict:
@@ -2136,11 +2198,15 @@ def hub_call(sess, q: int, cap: int):
                 kw=dict(max_steps=1, cap=cap))
 
 
-def phase2_phase(dev, rec, err):
+def phase2_phase(dev, rec, err, gloo_work):
+    """The weak 1M index's sparse phase 2 at the default cap and at 256
+    (the overflow retry); the index at the default cap is also saved under
+    ``gloo_work``, with 2^16 of the pairs, for the gloo pair
+    (``gloo_artifact``)."""
     from repro_torch.core.workload import random_queries
     from repro_torch.kernels import frontier_fused as ff
     from repro_torch.graphs.generators import scale_free_digraph
-    from repro_torch.reach import IndexSpec
+    from repro_torch.reach import IndexSpec, save_index
     print(f"phase2: scale_free_digraph({SIDE_NODES}, 4.0), k=1, no seeds, "
           "sparse phase 2", flush=True)
     g = scale_free_digraph(SIDE_NODES, 4.0, seed=3)
@@ -2188,12 +2254,18 @@ def phase2_phase(dev, rec, err):
             del states
         profile_launch_counts(lambda: sess.query(qs, qt),
                               f"cap={cap}, {qs.size} queries")
+        if cap == IndexSpec.frontier_cap:
+            path = gloo_work / "phase2"
+            save_index(path, ix, spec, packed=built[1], ell=built[2])
+            out["gloo"] = gloo_artifact(
+                GLOO_WEAK, sess, path, qs[:GLOO_WEAK_PAIRS],
+                qt[:GLOO_WEAK_PAIRS], gloo_work / "pairs_phase2.npz", True)
         out.setdefault("counts", counts)
         out.setdefault("calls", calls)
         out.setdefault("answers", ans)
         check(np.array_equal(out["answers"], ans),
               "phase2: answers differ between the two caps")
-    return out["counts"], out["calls"], kept
+    return out["counts"], out["calls"], kept, out["gloo"]
 
 
 def seeds64_phase(dev, rec, err):
@@ -3079,6 +3151,7 @@ FERRARI_PAIRS = 1 << 20        # random pairs through the frontend
 FERRARI_HOST_SAMPLE = 2000     # frontend answers, beside every phase-2 one,
                                # held against the host DFS
 FERRARI_LABEL = "stab_packed (ferrari classify_16m call)"
+OWNED_LABEL = "stab_packed_owned (sharded classify_16m call, mesh 1x1)"
 
 
 def _ferrari_graph(n: int, seed: int):
@@ -3300,12 +3373,14 @@ def ferrari_phase(dev, rec, err, n: int, seed: int):
           flush=True)
     check(bad_pos == 0 and bad_neg == 0,
           "ferrari: the sample's verdicts differ from the host DFS")
+    dist_out = ferrari_distributed(dev, sess, cfg, state, batch, verdict,
+                                   idx, err, seed)
     del v_eng, v_small, verdict
     fe_counts, fe_out = ferrari_frontend(sess, rec, err, rng, n, chunk,
                                          seed)
     return dict(counts=counts, frontend_counts=fe_counts,
                 call=calls["stab_packed"], cell_ms=wall * 1e3, qps=q / wall,
-                m_t=m_t, chunk=chunk, **fe_out)
+                m_t=m_t, chunk=chunk, distributed=dist_out, **fe_out)
 
 
 def ferrari_frontend(sess, rec, err, rng, n: int, chunk: int, seed: int):
@@ -3406,6 +3481,395 @@ def ferrari_frontend(sess, rec, err, rng, n: int, chunk: int, seed: int):
                         occupancy=st.occupancy)
 
 
+# ------------------------------------------------------- distributed ----
+DIST_PAIRS = 1 << 15           # random pairs through the sharded 1x1 session
+DIST_HOLD_PAIRS = 1 << 12      # of them, served again with every step held
+DIST_CELL_REPS = 10
+GLOO_PAIRS = 1 << 17           # random pairs through the two gloo ranks
+GLOO_POSITIVE = 1 << 14        # and forward-walk pairs (4M artifact)
+GLOO_WEAK_PAIRS = 1 << 16      # random pairs (phase2's weak 1M artifact)
+GLOO_WAVEFRONT = "the wavefront phase's 4M artifact"
+GLOO_WEAK = "the phase2 phase's 1M k=1 artifact"
+GLOO_TIMEOUT = 400             # seconds, each gloo rank
+
+# One rank of the gloo pair that shares cuda:0: loads each artifact as a
+# sharded 1x2 session, then as a replicated 2x1 one, and serves that
+# artifact's pairs through each; every rank writes its answers, and its
+# stats, launch counts and seconds.
+GLOO_RANK = r"""
+import json, sys, time
+from dataclasses import replace
+cfg = json.loads(sys.argv[1])
+rank = int(sys.argv[2])
+sys.path.insert(0, cfg["src"])
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", rank=rank, world_size=2,
+                        store=dist.FileStore(cfg["store"], 2))
+from repro_torch.kernels import _lib
+from repro_torch.kernels import frontier_fused as ff
+from repro_torch.reach import IndexSpec, QuerySession, load_manifest
+out = {}
+for i, art in enumerate(cfg["artifacts"]):
+    base = IndexSpec.from_dict(load_manifest(art["path"])["extra"]["spec"])
+    pairs = np.load(art["pairs"])
+    qs, qt = pairs["qs"], pairs["qt"]
+    for placement, mesh in (("sharded", "1x2"), ("replicated", "2x1")):
+        t0 = time.perf_counter()
+        sess = QuerySession.load(art["path"], replace(
+            base, placement=placement, mesh=mesh), device="cuda:0")
+        load_s = time.perf_counter() - t0
+        sess.query(qs[:base.max_batch], qt[:base.max_batch])   # warm up
+        sess.reset_stats()
+        _lib.LAUNCHES.reset()
+        ff.STEPS.reset()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ans = sess.query(qs, qt)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        st = sess.stats.as_dict()
+        out[f"{i} {placement}"] = dict(
+            mesh=mesh, seconds=seconds, load_s=load_s,
+            stats={k: v for k, v in st.items() if isinstance(v, int)},
+            launches=dict(_lib.LAUNCHES), steps=dict(ff.STEPS),
+            mesh_of=repr(sess.engine.mesh))
+        np.save(cfg["out"] % (rank, f"{i}_{placement}"), ans)
+        del sess
+        torch.cuda.empty_cache()
+with open(cfg["out"] % (rank, "json"), "w") as f:
+    json.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def gloo_artifact(label, sess, path, qs, qt, pairs_file,
+                  phase2: bool) -> dict:
+    """An artifact for the gloo pair: its pairs (saved to ``pairs_file``)
+    and the one-device session's answers and phase mix on them.
+    ``phase2``: the pairs must reach the sparse phase 2."""
+    sess.reset_stats()
+    want = sess.query(qs, qt)
+    mix = {k: sess.stats.as_dict()[k] for k in PHASE_MIX}
+    np.savez(pairs_file, qs=qs, qt=qt)
+    return dict(label=label, path=str(path), pairs=str(pairs_file),
+                want=want, mix=mix, phase2=phase2)
+
+
+def gloo_phase(arts, work) -> dict:
+    """Artifacts served by two gloo ranks that share cuda:0
+    (subprocesses, a FileStore under ``work`` in ``build/``): a sharded
+    1x2 and a replicated 2x1 ``QuerySession.load`` of each serve its
+    pairs; every rank's answers must equal the one-device session's,
+    with its phase mix. Returns the ranks' stats, launches and seconds
+    by "artifact placement"."""
+    cfg = {"src": str(SRC), "store": str(work / "store"),
+           "artifacts": [{k: a[k] for k in ("path", "pairs")}
+                         for a in arts],
+           "out": str(work / "rank%d_%s")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_RANK, json.dumps(cfg), str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=GLOO_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0,
+              f"gloo rank {r} exited {proc.returncode}:\n{log[-4000:]}")
+    ranks = [json.loads((work / f"rank{r}_json").read_text())
+             for r in range(2)]
+    out = {}
+    for i, art in enumerate(arts):
+        for placement in ("sharded", "replicated"):
+            key = f"{i} {placement}"
+            bad = [int((np.load(work / f"rank{r}_{i}_{placement}.npy")
+                        != art["want"]).sum()) for r in range(2)]
+            got = ranks[0][key]
+            mix = {k: got["stats"][k] for k in PHASE_MIX}
+            n = got["stats"]["n_queries"]
+            print(f"  gloo {placement} {got['mesh']}, {art['label']} (two "
+                  f"ranks sharing cuda:0; {got['mesh_of']}): {n} pairs in "
+                  f"{got['seconds'] * 1e3:.1f} ms "
+                  f"({got['seconds'] / n * 1e9:.0f} ns/query), load "
+                  f"{got['load_s']:.1f} s; answers against the one-device "
+                  f"session: {bad[0]} / {bad[1]} differ (rank 0 / 1); mix "
+                  f"{mix}; launches {got['launches']}; sparse "
+                  f"{got['steps']}", flush=True)
+            check(bad == [0, 0], f"gloo {placement}, {art['label']}: "
+                  "answers differ from the one-device session's")
+            check(mix == art["mix"]
+                  and ranks[1][key]["stats"] == got["stats"],
+                  f"gloo {placement}, {art['label']}: phase mix differs")
+            own = placement == "sharded"
+            check((got["launches"]["stab_packed_owned"] > 0) == own
+                  and (got["launches"]["stab_packed"] > 0) != own,
+                  f"gloo {placement}: phase 1 did not take its kernel")
+            if art["phase2"]:
+                check(got["stats"]["phase2_sparse"] > 0 and got["launches"][
+                      "probe_rows" if own else "probe"] > 0,
+                      f"gloo {placement}, {art['label']}: kernel 3 not "
+                      "launched")
+            out[f"{art['label']} {placement}"] = got
+    print(f"  gloo pair: {wall:.1f} s for both processes (start, "
+          f"{2 * len(arts)} loads and warm-ups each, serving)", flush=True)
+    return out
+
+
+PHASE_MIX = ("n_queries", "n_positive", "phase1_pos", "phase1_neg",
+             "phase2_queries", "phase2_sparse", "phase2_host")
+
+
+class RowsHolder:
+    """Wraps ``frontier_fused.expand_probe`` while a sharded session
+    serves: each launch of kernel 3's exchanged-rows entry is held word for
+    word against its plain version on a copy of the state taken before it
+    (``err``), and the step of most swept pairs is kept (state before, the
+    tables and its exchanged rows) for timing."""
+
+    def __init__(self, err):
+        from repro_torch.kernels import frontier_fused as ff
+        self.ff, self.err, self.kept, self.held = ff, err, {}, 0
+        self.orig = ff.expand_probe
+        ff.expand_probe = self.wrapped
+
+    def wrapped(self, st, tables, *, gather_rows=None, n_front=None):
+        ff = self.ff
+        if gather_rows is None or gather_rows is ff._take \
+                or st.device.type != "cuda":
+            return self.orig(st, tables, gather_rows=gather_rows or ff._take,
+                             n_front=n_front)
+        before = st.clone()
+        self.orig(st, tables, gather_rows=gather_rows, n_front=n_front)
+        rows = ff.front_rows(before, tables["ell"], n_front, gather_rows)
+        want = before.clone()
+        ff.expand_probe_rows_plain(want, rows, tables["tail_src"],
+                                   tables["tail_dst"])
+        _tally(self.err, "probe_rows", _compare(
+            f"probe_rows step {self.held} (front {n_front}, raw "
+            f"{int(want.ctl[ff.RAW])}, hub {int(before.ctl[ff.HUB])})",
+            _state_words(st, True), _state_words(want, True)))
+        self.held += 1
+        swept = _swept(before)
+        if swept > self.kept.get("rows", -1):
+            self.kept = dict(rows=swept, state=before, tables=tables,
+                             exchanged=rows)
+
+    def close(self):
+        self.ff.expand_probe = self.orig
+
+
+def time_probe_rows(kept) -> dict:
+    """Kernel 3's exchanged-rows entry on the kept step: cold and warm
+    beside the in-place kernel on the same step (at mesh 1x1 the rank's
+    ELL is the whole slab), its plain version, the bound
+    (``probe_work`` with the exchanged rows) and the launch floor."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import frontier_fused as ff
+    st, tables, rows = kept["state"], kept["tables"], kept["exchanged"]
+    nbytes, _ = probe_work(st, tables, rows=rows)
+    ops = 10 * _candidates(st, tables)
+    runs = {}
+    for name, extra in (("rows", dict(rows=rows.data_ptr())),
+                        ("in place", {})):
+        probe_st = st.clone()
+        args = probe_st.args(tables, **extra)
+        entry = "reach_expand_probe_rows" if extra else "reach_expand_probe"
+
+        def prep(t=probe_st):
+            t.state[ff.TILE].zero_()
+            t.state[ff.EPOCH].add_(1)
+
+        def kernel(a=args, e=entry, t=probe_st):
+            _lib.launch(None, e, t.device, ctypes.addressof(a))
+        runs[name] = (device_ms(kernel, prep=prep),
+                      device_ms(kernel, cold=False, prep=prep))
+    plain_st = st.clone()
+    plain_ms = device_ms(lambda: ff.expand_probe_rows_plain(
+        plain_st, rows, tables["tail_src"], tables["tail_dst"]), reps=3)
+    swept = _swept(st)
+    floor = launch_floor(max(swept, 1))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU_OPS_PER_S * 1e3
+    (ms, warm_ms), (in_ms, in_warm) = runs["rows"], runs["in place"]
+    out = dict(rows=swept, ms=ms, warm_ms=warm_ms, plain_ms=plain_ms,
+               library=None, library_ms=None, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, ops=ops, err=(0, 0, 0.0), floor_ms=floor[0],
+               floor_warm_ms=floor[1], in_place_ms=in_ms,
+               in_place_warm_ms=in_warm)
+    print(f"  time probe_rows (the sharded session's step of {swept} swept "
+          f"pairs, front {int(st.ctl[ff.N_FRONT])}, hub "
+          f"{int(st.ctl[ff.HUB])}, cap {st.cap}): kernel {ms:.6f} ms (L2 "
+          f"cold; {warm_ms:.6f} warm), the in-place kernel 3 on the same "
+          f"step {in_ms:.6f} ms ({in_warm:.6f} warm), plain {plain_ms:.4f} "
+          f"ms, launch floor {floor[0]:.6f} ms cold, bound "
+          f"{out['bound_ms']:.7f} ms ({nbytes} B, {ops} ops; "
+          f"{out['bound_by']})", flush=True)
+    torch.cuda.synchronize()
+    return out
+
+
+def ferrari_distributed(dev, sess, cfg, state, batch, verdict, idx, err,
+                        seed: int) -> dict:
+    """World 1 over NCCL on ferrari-web's index (mesh 1x1, a FileStore under
+    ``build/``): the classify_16m cell's sharded step (kernel 1's owned-rows
+    entry) against the replicated cell's verdicts, timed; a sharded
+    ``QuerySession`` over the same index serving random pairs, its phase 2
+    stepped from the host (kernel 3's exchanged-rows entry, kernel 4 as
+    mark and emit), against the one-device session's answers and phase mix;
+    then the owned entry on a sample against its plain version, the first
+    pairs again with every exchanged-rows step held. Returns the counts of
+    the cell and the session (set to 0 just before, read just after) and
+    the calls kept for timing."""
+    import torch
+    import torch.distributed as dist
+
+    from dataclasses import replace
+
+    from repro_torch.core.distributed import ServingMesh
+    from repro_torch.kernels import frontier_fused as ff
+    from repro_torch.kernels import interval_stab as st
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_cell
+    from repro_torch.reach import QuerySession
+    t_part = time.perf_counter()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(work / "store"), 1))
+    owned_calls = []
+    owned = ops.stab_packed_owned
+
+    def recorded(*args):
+        if args[3].shape[0] > (owned_calls[0][0] if owned_calls else -1):
+            owned_calls[:] = [(args[3].shape[0], args)]
+        return owned(*args)
+    try:
+        mesh = ServingMesh("sharded", (1, 1), dev)
+        cell = build_cell(cfg, "classify_16m", mesh=mesh)
+        # rank 0 of 1 holds every row: its shard is the replicated state
+        check({k: (tuple(v.shape), v.dtype) for k, v in state.items()}
+              == cell.state_shapes, "distributed: the 1x1 shard's shapes")
+        eng = sess.engine
+        spec = replace(sess.spec, placement="sharded", mesh="1x1")
+        t0 = time.perf_counter()
+        dsess = QuerySession(sess.index, spec, packed=eng.packed,
+                             ell=eng._ell_host, device=dev)
+        dsess.engine._ell()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 25)
+        n = eng.packed.n
+        qs, qt = rng.integers(0, n, DIST_PAIRS), rng.integers(0, n, DIST_PAIRS)
+        sess.reset_stats()
+        want = sess.query(qs, qt)
+        want_st = sess.stats.as_dict()
+        dsess.warmup(DIST_PAIRS)
+        ops.stab_packed_owned = recorded
+        reset_counters()
+        _, v_sh = cell.step(state, batch)
+        torch.cuda.synchronize()
+        cell_counts = read_counters()
+        dsess.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dsess.query(qs, qt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counters()
+        ops.stab_packed_owned = owned
+        n_bad = int((v_sh != verdict).sum())
+        walls = []
+        for _ in range(DIST_CELL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cell.step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls))
+        print(f"distributed: world 1 over NCCL ({mesh}), ferrari-web's "
+              f"index ({n} nodes); the sharded session built in "
+              f"{load_s:.1f} s", flush=True)
+        print(f"  cell classify_16m sharded: step {wall * 1e3:.3f} ms (wall "
+              f"to a sync, median of {DIST_CELL_REPS}; "
+              f"{verdict.shape[0] / wall:.4g} queries/s); against the "
+              f"replicated cell's verdicts: {n_bad} mismatches; launches "
+              f"owned {cell_counts['stab_packed_owned']}, in place "
+              f"{cell_counts['stab_packed']}", flush=True)
+        check(n_bad == 0, "distributed: the sharded cell's verdicts differ")
+        check(cell_counts["stab_packed_owned"] == 1
+              and cell_counts["stab_packed"] == 0,
+              "distributed: the sharded cell did not take the owned entry")
+        ss = dsess.stats.as_dict()
+        mix = {k: ss[k] for k in PHASE_MIX}
+        d_bad = int((got != want).sum())
+        steps = counts["sparse_steps"]
+        print(f"  sharded session (1x1, stepped from the host): {qs.size} "
+              f"random pairs in {dt * 1e3:.1f} ms ({dt / qs.size * 1e9:.0f} "
+              f"ns/query), {int(got.sum())} positive; mix {mix}, retries "
+              f"{ss['sparse_retries']} (one device: "
+              f"{want_st['sparse_retries']}); steps / syncs / launches "
+              f"{steps} / {counts['sparse_syncs']} / "
+              f"{counts['sparse_launches']} "
+              f"({counts['sparse_syncs'] / max(steps, 1):.2f} syncs a step); "
+              f"launches owned {counts['stab_packed_owned']}, rows "
+              f"{counts['probe_rows']}, kernel 4 {counts['classify_emit']}; "
+              f"against the one-device session: {d_bad} answers differ",
+              flush=True)
+        check(d_bad == 0 and mix == {k: want_st[k] for k in PHASE_MIX},
+              "distributed: the sharded session differs from the one-device"
+              " session")
+        check(counts["stab_packed_owned"] > 0 and counts["stab_packed"] == 0,
+              "distributed: phase 1 did not take the owned entry")
+        if ss["phase2_sparse"]:
+            check(counts["probe_rows"] > 0 and counts["probe"] == 0
+                  and counts["classify_emit"] > 0,
+                  "distributed: phase 2 did not take the exchanged rows")
+        # the owned entry on the sample against its plain version (CPU)
+        rows, args = owned_calls[0]
+        meta_t, meta, slab, cs, ct, base = args
+        t_idx = torch.from_numpy(idx)
+        sample = st.stab_packed_owned(meta_t[t_idx.to(dev)].contiguous(),
+                                      meta, slab, cs[t_idx.to(dev)],
+                                      ct[t_idx.to(dev)], base).cpu()
+        _tally(err, "stab_packed_owned", _compare(
+            f"stab_packed_owned on the ferrari sample of {idx.size} (plain "
+            "on the CPU)", sample, st.stab_packed_owned_plain(
+                meta_t.cpu()[t_idx], meta.cpu(), slab.cpu(), cs.cpu()[t_idx],
+                ct.cpu()[t_idx], base)))
+        holder = RowsHolder(err)
+        try:
+            again = dsess.query(qs[:DIST_HOLD_PAIRS], qt[:DIST_HOLD_PAIRS])
+        finally:
+            holder.close()
+        print(f"  probe_rows held on {holder.held} steps ({DIST_HOLD_PAIRS} "
+              f"pairs served again); the distributed part took "
+              f"{time.perf_counter() - t_part:.1f} s", flush=True)
+        check(np.array_equal(again, got[:DIST_HOLD_PAIRS]),
+              "distributed: the held run's answers differ")
+        return dict(counts=counts, cell_ms=wall * 1e3,
+                    ns_per_query=dt / qs.size * 1e9,
+                    owned_call=(rows, args), rows_kept=holder.kept,
+                    cell_owned=cell_counts["stab_packed_owned"])
+    finally:
+        ops.stab_packed_owned = owned
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3444,12 +3908,20 @@ def run_ferrari(dev, err: dict, n: int, seed: int) -> dict:
     rec = Recorder()
     try:
         out = ferrari_phase(dev, rec, err, n, seed)
+        dist_out = out["distributed"]
         times = time_kernels({}, extra=(
-            ("stab_packed", FERRARI_LABEL, out.pop("call")),))
+            ("stab_packed", FERRARI_LABEL, out.pop("call")),
+            ("stab_packed_owned", OWNED_LABEL,
+             dist_out.pop("owned_call"))))
+        check(bool(dist_out["rows_kept"]),
+              "distributed: no step of kernel 3's exchanged-rows entry")
+        out["time_rows"] = time_probe_rows(dist_out.pop("rows_kept"))
     finally:
         rec.close()
     out["time"] = times[FERRARI_LABEL]
+    out["time_owned"] = times[OWNED_LABEL]
     _tally(err, "stab_packed", out["time"]["err"])
+    _tally(err, "stab_packed_owned", out["time_owned"]["err"])
     return out
 
 
@@ -3457,6 +3929,7 @@ def run(args, t_start: float) -> int:
     """Every phase after the kernels' build, then the result lines."""
     import torch
 
+    from repro_torch.core.workload import positive_queries
     from repro_torch.kernels import _lib
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -3497,6 +3970,7 @@ def run(args, t_start: float) -> int:
     done("parity")
     rec = Recorder()
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))   # the 4M artifact
+    gloo_work = Path(tempfile.mkdtemp(dir=BUILD_DIR))  # the gloo pair's
     try:
         main_counts, main_calls, main_out = main_phase(dev, rec)
         hold_stab_calls(rec, "main", err)
@@ -3506,12 +3980,27 @@ def run(args, t_start: float) -> int:
         hold_stab_calls(rec, "wavefront (loaded index)", err)
         del main_out
         done("wavefront")
+        # the 4M artifact for the gloo pair, before churn logs to it
+        shutil.copytree(work, gloo_work / "wavefront")
+        g4 = wf_out["g"]
+        rng = np.random.default_rng(args.seed + 31)
+        ps, pt = positive_queries(g4, GLOO_POSITIVE, seed=args.seed + 32)
+        gloo_arts = [gloo_artifact(
+            GLOO_WAVEFRONT, wf_out["session"], gloo_work / "wavefront",
+            np.concatenate([rng.integers(0, g4.n, GLOO_PAIRS), ps]),
+            np.concatenate([rng.integers(0, g4.n, GLOO_PAIRS), pt]),
+            gloo_work / "pairs_wavefront.npz", False)]
+        del g4, ps, pt
         churn_counts, churn_kept = churn_phase(dev, rec, err, wf_out)
         del wf_out
         done("churn")
         shutil.rmtree(work)
-        p2_counts, p2_calls, p2_kept = phase2_phase(dev, rec, err)
+        p2_counts, p2_calls, p2_kept, weak = phase2_phase(dev, rec, err,
+                                                          gloo_work)
         hold_stab_calls(rec, "phase2 (cap 256)", err)
+        gloo_out = gloo_phase(gloo_arts + [weak], gloo_work)
+        shutil.rmtree(gloo_work)
+        done("distributed (gloo pair)")
         s64_counts, s64_calls = seeds64_phase(dev, rec, err)
         hold_stab_calls(rec, "seeds64", err)
         dense_counts, dense_calls = dense_phase(dev, rec)
@@ -3527,12 +4016,15 @@ def run(args, t_start: float) -> int:
     finally:
         rec.close()
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(gloo_work, ignore_errors=True)
     phase_counts = {"main": main_counts, "wavefront": wf_counts,
                     "phase2": p2_counts, "seeds64": s64_counts,
                     "dense": dense_counts, "recsys": rs_counts,
                     "gnn": gnn_counts, "lm": lm_counts,
                     "train": train_counts}
     for kname, meta in KERNELS.items():
+        if meta["phase"] == "distributed":
+            continue                      # on the ferrari index, below
         n = phase_counts[meta["phase"]][kname]
         print(f"  launches {kname} on its phase ({meta['phase']}): {n}",
               flush=True)
@@ -3598,6 +4090,14 @@ def run(args, t_start: float) -> int:
     fr = run_ferrari(dev, err, FERRARI_NODES, args.seed)
     done("ferrari")
     fr_counts, fe_counts = fr["counts"], fr["frontend_counts"]
+    phase_counts["distributed"] = fr["distributed"]["counts"]
+    for kname in ("stab_packed_owned", "probe_rows"):
+        n = phase_counts["distributed"][kname]
+        print(f"  launches {kname} on its phase (distributed, world 1 on "
+              f"the ferrari index): {n}", flush=True)
+        check(n > 0, f"{kname} was not launched on the distributed phase")
+    times["stab_packed_owned"] = fr["time_owned"]
+    times["probe_rows"] = fr["time_rows"]
     print(f"  launches on the ferrari phase: cells {fr_counts}; frontend "
           f"{fe_counts}", flush=True)
     check(fr_counts["stab_packed"] == 2 and fe_counts["stab_packed"] > 0,
@@ -3621,8 +4121,15 @@ def run(args, t_start: float) -> int:
             **{key: t[key] for key in ("plain_at", "ms_at_plain_shape",
                                        "library_expanded_ms", "warm_ms",
                                        "floor_ms", "floor_warm_ms",
-                                       "at_once_ms")
+                                       "at_once_ms", "in_place_ms",
+                                       "in_place_warm_ms")
                if key in t}})
+        if meta["phase"] == "distributed":
+            # the same entry in the gloo pair's sharded 1x2 session
+            gloo = gloo_out[f"{GLOO_WEAK} sharded"]
+            rows[-1]["launches_on_gloo_1x2"] = gloo["launches"][kname]
+            rows[-1]["gloo_1x2_ns_per_query"] = (
+                gloo["seconds"] / gloo["stats"]["n_queries"] * 1e9)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_expanded_ms", "plain_at", "ms_at_plain_shape")
         if kname == "flash_fwd":

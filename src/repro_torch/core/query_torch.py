@@ -181,8 +181,8 @@ class DeviceQueryEngine:
         self.device = resolve_device(device)
         self.index = index
         self.packed: PackedIndex = pack_index(index) if packed is None else packed
-        self.dev = self.packed.to_torch(self.device)
-        self.comp = self.dev["comp"]
+        self.dev = self._device_tables()
+        self.comp = self.dev.get("comp")
         self.phase2_chunk = phase2_chunk
         self.ell_width = ell_width
         self.frontier_cap = frontier_cap
@@ -220,6 +220,11 @@ class DeviceQueryEngine:
         self._union_version = {}      # "sparse"/"dense" -> overlay version
         # the staging path's pinned buffers (a card only)
         self._pinned = PinnedIds()
+
+    def _device_tables(self) -> dict:
+        """The index's tables on the engine's device
+        (``PackedIndex.to_torch``)."""
+        return self.packed.to_torch(self.device)
 
     # ------------------------------------------------------ lazy structures
     @property
@@ -467,16 +472,20 @@ class DeviceQueryEngine:
         return self._dense_driver(cs_u, ct_u, adj, self.packed.n,
                                   can_reach_tail=crt)
 
-    def _phase2_chunk_size(self, width: int, m_t: int) -> int:
-        """Queries per sparse expansion call. Key packing bounds it, and
-        so does kernel 3's candidates a step, cap x ``width`` + q x
-        ``m_t`` (``m_t``: the COO tail swept, the delta slab included),
-        below ``frontier_fused.MAX_CANDIDATES`` at the largest cap a retry
-        reaches. The reference has no such bound; a smaller chunk changes
-        no answer."""
-        chunk = min(self.phase2_chunk, frontier.max_batch(self.packed.n))
+    def _phase2_chunk_size(self, width: int, m_t: int, n_nodes=None,
+                           n_blocks: int = 1) -> int:
+        """Queries per sparse expansion call. Key packing over ``n_nodes``
+        (the index's) bounds it, and so does kernel 3's candidates a step,
+        cap x ``width`` + q x ``m_t`` (``m_t``: the COO tail swept, the
+        delta slab included), below ``frontier_fused.MAX_CANDIDATES`` at
+        the largest cap a retry reaches (a call of ``n_blocks`` such chunks
+        starts at a cap of at least their sum). The reference has no such
+        bound; a smaller chunk changes no answer."""
+        n = self.packed.n if n_nodes is None else n_nodes
+        chunk = min(self.phase2_chunk, frontier.max_batch(n))
         if m_t:
-            cap = max(self.frontier_cap_max, self.frontier_cap, chunk)
+            cap = max(self.frontier_cap_max, self.frontier_cap,
+                      chunk * n_blocks)
             room = frontier_fused.MAX_CANDIDATES - 1 - cap * width
             chunk = min(chunk, room // m_t)
         if chunk < 1:
@@ -507,6 +516,23 @@ class DeviceQueryEngine:
             workspaces=self._sparse_state)
         return p.numpy(), ovf
 
+    def _sparse_widths(self):
+        """(ELL width, COO tail edges a step sweeps: the delta slab too
+        under a live overlay)."""
+        ell, tsrc = self._ell()[:2]
+        return ell.shape[1], tsrc.shape[0] + (
+            self.overlay_cap if self._overlay_live else 0)
+
+    def _residue_perm(self, q: int):
+        """A permutation of the residue before it is chunked (None: as it
+        is); the multi-device engine balances its data ranks with it."""
+        return None
+
+    def _agree(self, flag: bool) -> bool:
+        """An overflow flag as every process serving the call sees it (one
+        device: as it is)."""
+        return flag
+
     def _sparse_driver(self, cs_u: np.ndarray, ct_u: np.ndarray,
                        expand_fn, host_fn) -> np.ndarray:
         """Chunked expansion with the overflow-retry / terminal-host-
@@ -514,10 +540,13 @@ class DeviceQueryEngine:
         ``expand_fn(cs_t, ct_t, pad, cap)`` runs one frontier expansion;
         ``host_fn(cs, ct)`` resolves queries past ``frontier_cap_max``
         (the base guided DFS, or the union-graph BFS when an overlay is
-        live)."""
-        ell, tsrc = self._ell()[:2]
-        m_t = tsrc.shape[0] + (self.overlay_cap if self._overlay_live else 0)
-        chunk = self._phase2_chunk_size(ell.shape[1], m_t)
+        live). Every process of a multi-device engine takes the same
+        branch: the overflow flag is agreed (``_agree``) before the
+        retry."""
+        perm = self._residue_perm(cs_u.size)
+        if perm is not None:
+            cs_u, ct_u = cs_u[perm], ct_u[perm]
+        chunk = self._phase2_chunk_size(*self._sparse_widths())
         res = np.zeros(cs_u.size, dtype=bool)
         self.stats.phase2_sparse += cs_u.size
         for lo in range(0, cs_u.size, chunk):
@@ -536,7 +565,7 @@ class DeviceQueryEngine:
             while True:
                 p, ovf = expand_fn(cs_t, ct_t, pad, cap)
                 pos |= p
-                if not ovf:
+                if not self._agree(ovf):
                     break
                 # overflow: POS answers are sound, only non-positives need
                 # the retry — mask them out and rerun with 4x the capacity
@@ -556,6 +585,10 @@ class DeviceQueryEngine:
                 if pad.all():
                     break       # every live query already proved positive
             res[lo:hi] = pos[:q]
+        if perm is not None:
+            out = np.empty_like(res)
+            out[perm] = res
+            return out
         return res
 
     def _phase2_sparse(self, cs_u: np.ndarray, ct_u: np.ndarray) -> np.ndarray:

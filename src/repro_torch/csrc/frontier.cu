@@ -37,6 +37,13 @@
 // single-pass scan with decoupled look-back (status words tagged by a step
 // epoch, so they need no reset), into cap + 1 slots; the survivor count is
 // kept, and decides overflow.
+// Kernel 3's exchanged-rows entry (reach_expand_probe_rows) serves the
+// sharded placement (core/distributed.py::expand_frontier_sharded): a
+// rank holds only its shard of the ELL slab, so the front's rows arrive
+// from the owned-rows exchange as an [n_front, W] buffer in front order,
+// and ELL slot j of front entry i is rows[i * W + j]; the rest of the
+// step (the tail sweep, the probe, the ordered compaction) is the same.
+// Kernel 4 then runs as mark and emit on the verdicts of the exchange.
 // Kernel 4: one block of 1024 threads. It sorts the live slots in shared
 // memory (a rank a thread up to 1024 survivors, else bitonic; cap + 1 <=
 // 16,385 keys: 128 KB and the uniques' 64 KB; at the phase-2 path's step
@@ -90,7 +97,7 @@ enum Arg {
   A_CTL, A_FRONT, A_SLOTS, A_STATUS, A_VISITED, A_FBITS, A_LOG, A_ELL,
   A_TSRC, A_TDST, A_IS_HUB, A_META, A_SLAB, A_CS, A_CT, A_PAD, A_UNIQ,
   A_VERDICT_IN, A_VERDICT, A_CRT, A_N_WORDS, A_SLOT_CAP, A_LOG_CAP, A_MAX_TILES,
-  A_Q, A_W, A_M_T, A_K, A_CAP, A_VBITS, A_MAX_STEPS, A_COUNT
+  A_Q, A_W, A_M_T, A_K, A_CAP, A_VBITS, A_MAX_STEPS, A_ROWS, A_COUNT
 };
 
 struct Step {
@@ -115,6 +122,7 @@ struct Step {
   const int32_t* verdict_in;  // mark: kernel 2's verdicts [cap], or null
   int32_t* verdict;          // mark -> emit: verdicts [cap]
   const uint8_t* can_reach_tail;  // [n], the live overlay's; else null
+  const int32_t* rows;       // the front's ELL rows [n_front, W], or null
   int64_t n_words, slot_cap, log_cap, max_tiles;
   int32_t q, w, m_t, k, cap, vbits, max_steps;
   cudaGraphConditionalHandle cond;   // 0 outside the graph
@@ -143,6 +151,7 @@ Step step_of(const int64_t* a) {
   s.verdict_in = reinterpret_cast<const int32_t*>(a[A_VERDICT_IN]);
   s.verdict = reinterpret_cast<int32_t*>(a[A_VERDICT]);
   s.can_reach_tail = reinterpret_cast<const uint8_t*>(a[A_CRT]);
+  s.rows = reinterpret_cast<const int32_t*>(a[A_ROWS]);
   s.n_words = a[A_N_WORDS];
   s.slot_cap = a[A_SLOT_CAP];
   s.log_cap = a[A_LOG_CAP];
@@ -264,7 +273,9 @@ __device__ __forceinline__ int32_t candidate_key(const Step& s, int64_t c,
     const int32_t f = __ldg(s.front + i);
     if (f == reach::SENTINEL) return reach::SENTINEL;
     q = f >> s.vbits;
-    v = __ldg(s.ell + static_cast<int64_t>(f & vmask) * s.w + j);
+    // the ELL row by node id, or the exchanged row by front position
+    const int64_t r = s.rows ? i : static_cast<int64_t>(f & vmask);
+    v = __ldg((s.rows ? s.rows : s.ell) + r * s.w + j);
     if (v < 0) return reach::SENTINEL;
   } else {
     const int64_t t = c - n_ell;
@@ -713,6 +724,14 @@ extern "C" int reach_frontier_setup(const int64_t* a, cudaStream_t stream) {
 
 extern "C" int reach_expand_probe(const int64_t* a, cudaStream_t stream) {
   const Step s = step_of(a);
+  expand_probe_kernel<<<probe_grid(s), kThreads, 0, stream>>>(s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 3 on the front's exchanged ELL rows (A_ROWS, [n_front, W]).
+extern "C" int reach_expand_probe_rows(const int64_t* a, cudaStream_t stream) {
+  const Step s = step_of(a);
+  if (s.rows == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   expand_probe_kernel<<<probe_grid(s), kThreads, 0, stream>>>(s);
   return static_cast<int>(cudaGetLastError());
 }

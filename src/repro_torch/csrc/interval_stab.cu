@@ -43,6 +43,18 @@
 // faster at 2^20 queries. (Table loads through ld.global.nc.L1::
 // no_allocate were slower at the path's call than __ldg, and are not
 // used.)
+//
+// Kernel 1's owned-rows entry (reach_stab_packed_owned) serves the sharded
+// placement (core/distributed.py::classify_sharded, compute-at-owner): each
+// rank holds rows [base, base + n_loc) of meta and slab, t's meta row
+// arrives by query position from the exchange ([Q, 4], the owned rows
+// summed over the model group), and the rank computes the whole verdict of
+// every query whose source row it owns, reading meta and slab at s - base,
+// and writes 0 for the others, so one sum over the model group gives each
+// query's verdict once. It is the same kernel on another row source (the
+// ``Owned`` template flag), as the TPU kernel, which takes gathered rows
+// (the reference's ``_prefetched`` form of ops.classify_queries), serves
+// both placements.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -90,49 +102,87 @@ struct Group {
   }
 };
 
+// Where kernel 1 finds a query's rows: by node id in the whole tables, or
+// (``Owned``, the sharded placement) t's meta row at the query's position
+// in ``meta_t`` and the source's rows at s - base in this rank's shard of
+// n_loc rows, for a source the shard owns.
+struct Rows {
+  const int32_t* meta_t;
+  int64_t base, n_loc;
+};
+
+// The row of source s in the tables, and whether this rank owns it.
+template <bool Owned>
+__device__ __forceinline__ int64_t source_row(const Rows& rows, int32_t s,
+                                              bool& own) {
+  if constexpr (Owned) {
+    const int64_t r = static_cast<int64_t>(s) - rows.base;
+    own = r >= 0 && r < rows.n_loc;
+    return r;
+  }
+  own = true;
+  return s;
+}
+
+template <bool Owned>
+__device__ __forceinline__ int4 target_meta(const int32_t* meta,
+                                            const Rows& rows, int64_t i,
+                                            int32_t t) {
+  return Owned ? reach::load_row4(rows.meta_t, i) : reach::load_row4(meta, t);
+}
+
 // A group of one lane (K 1, 2 or 4) has nothing to vote on: one thread a
 // query over its whole slab row. Compiled, it waits for t's meta row
 // (pi(t)) before it issues the slab loads; at 2^20 queries over 2^22 rows
 // that beats issuing all of a query's loads at once.
+template <bool Owned>
 __global__ void stab_packed_one(const int32_t* __restrict__ meta,
                                 const int32_t* __restrict__ slab,
                                 const int32_t* __restrict__ cs,
                                 const int32_t* __restrict__ ct,
-                                int32_t* __restrict__ out, int64_t q, int k) {
+                                int32_t* __restrict__ out, int64_t q, int k,
+                                Rows rows) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= q) return;
   const int32_t s = __ldg(cs + i);
   const int32_t t = __ldg(ct + i);
+  bool own;
+  const int64_t rs = source_row<Owned>(rows, s, own);
+  if (!own) {
+    out[i] = 0;
+    return;
+  }
   if (s == t) {
     out[i] = reach::POS;
     return;
   }
-  out[i] = reach::packed_verdict(reach::load_row4(meta, s),
-                                 reach::load_row4(meta, t),
-                                 slab + static_cast<int64_t>(s) * 2 * k, k);
+  out[i] = reach::packed_verdict(reach::load_row4(meta, rs),
+                                 target_meta<Owned>(meta, rows, i, t),
+                                 slab + rs * 2 * k, k);
 }
 
-template <int V>
+template <int V, bool Owned>
 __global__ void stab_packed_kernel(const int32_t* __restrict__ meta,
                                    const int32_t* __restrict__ slab,
                                    const int32_t* __restrict__ cs,
                                    const int32_t* __restrict__ ct,
                                    int32_t* __restrict__ out, int64_t q,
-                                   int k, int lanes) {
+                                   int k, int lanes, Rows rows) {
   const Group g(lanes);
   const int pieces = k / V;
-  bool live = false, hit_any = false, hit_exact = false;
+  bool live = false, own = true, hit_any = false, hit_exact = false;
   int4 ms = make_int4(0, 0, 0, 0), mt = ms;
   if (g.i < q) {
     const int32_t s = __ldg(cs + g.i);
     const int32_t t = __ldg(ct + g.i);
-    live = s != t;
+    const int64_t rs = source_row<Owned>(rows, s, own);
+    live = own && s != t;
     if (live) {
-      const int32_t* row = slab + static_cast<int64_t>(s) * 2 * k;
+      const int32_t* row = slab + rs * 2 * k;
       // every load of the query before any test
-      mt = reach::load_row4(meta, t);
-      if (g.r == 0) ms = reach::load_row4(meta, s);
+      mt = target_meta<Owned>(meta, rows, g.i, t);
+      if (g.r == 0) ms = reach::load_row4(meta, rs);
       int32_t b[V], e[V];
       if (g.r < pieces) {
         load_row<V>(row + g.r * V, b);
@@ -156,8 +206,9 @@ __global__ void stab_packed_kernel(const int32_t* __restrict__ meta,
   hit_any = g.any(hit_any);
   hit_exact = g.any(hit_exact);
   if (g.i < q && g.r == 0)
-    out[g.i] = live ? reach::packed_combine(hit_any, hit_exact, ms, mt)
-                    : reach::POS;
+    out[g.i] = !own  ? 0
+               : live ? reach::packed_combine(hit_any, hit_exact, ms, mt)
+                      : reach::POS;
 }
 
 template <int V>
@@ -256,6 +307,30 @@ bool shape_ok(int64_t q, int k, int vec, int lanes, int threads,
          blocks <= INT_MAX && blocks * threads >= q * lanes;
 }
 
+
+template <bool Owned>
+int launch_packed(const int32_t* meta, const int32_t* slab, const int32_t* cs,
+                  const int32_t* ct, int32_t* out, int64_t q, int k, int vec,
+                  int lanes, int threads, int64_t blocks, Rows rows,
+                  cudaStream_t stream) {
+  if (!shape_ok(q, k, vec, lanes, threads, blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto grid = static_cast<unsigned>(blocks);
+  if (lanes == 1)
+    stab_packed_one<Owned><<<grid, threads, 0, stream>>>(meta, slab, cs, ct,
+                                                         out, q, k, rows);
+  else if (vec == 4)
+    stab_packed_kernel<4, Owned><<<grid, threads, 0, stream>>>(
+        meta, slab, cs, ct, out, q, k, lanes, rows);
+  else if (vec == 2)
+    stab_packed_kernel<2, Owned><<<grid, threads, 0, stream>>>(
+        meta, slab, cs, ct, out, q, k, lanes, rows);
+  else
+    stab_packed_kernel<1, Owned><<<grid, threads, 0, stream>>>(
+        meta, slab, cs, ct, out, q, k, lanes, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int reach_stab_packed(const int32_t* meta, const int32_t* slab,
@@ -263,22 +338,25 @@ extern "C" int reach_stab_packed(const int32_t* meta, const int32_t* slab,
                                  int32_t* out, int64_t q, int k, int vec,
                                  int lanes, int threads, int64_t blocks,
                                  cudaStream_t stream) {
-  if (!shape_ok(q, k, vec, lanes, threads, blocks))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto grid = static_cast<unsigned>(blocks);
-  if (lanes == 1)
-    stab_packed_one<<<grid, threads, 0, stream>>>(meta, slab, cs, ct, out, q,
-                                                  k);
-  else if (vec == 4)
-    stab_packed_kernel<4><<<grid, threads, 0, stream>>>(meta, slab, cs, ct,
-                                                        out, q, k, lanes);
-  else if (vec == 2)
-    stab_packed_kernel<2><<<grid, threads, 0, stream>>>(meta, slab, cs, ct,
-                                                        out, q, k, lanes);
-  else
-    stab_packed_kernel<1><<<grid, threads, 0, stream>>>(meta, slab, cs, ct,
-                                                        out, q, k, lanes);
-  return static_cast<int>(cudaGetLastError());
+  return launch_packed<false>(meta, slab, cs, ct, out, q, k, vec, lanes,
+                              threads, blocks, Rows{nullptr, 0, 0}, stream);
+}
+
+// meta_t: [q, 4] t's exchanged meta rows by query position; meta, slab:
+// this rank's n_loc rows from node id base on; out: 0 where the rank does
+// not own the source.
+extern "C" int reach_stab_packed_owned(const int32_t* meta_t,
+                                       const int32_t* meta,
+                                       const int32_t* slab, const int32_t* cs,
+                                       const int32_t* ct, int32_t* out,
+                                       int64_t q, int k, int vec, int lanes,
+                                       int threads, int64_t blocks,
+                                       int64_t base, int64_t n_loc,
+                                       cudaStream_t stream) {
+  if (base < 0 || n_loc < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_packed<true>(meta, slab, cs, ct, out, q, k, vec, lanes,
+                             threads, blocks, Rows{meta_t, base, n_loc},
+                             stream);
 }
 
 extern "C" int reach_stab_naive(const int32_t* pi, const int32_t* tau,

@@ -40,11 +40,14 @@ _I64 = ctypes.c_int64
 SIGNATURES = {
     # C entry point: pointers, then sizes, then the stream
     "reach_stab_packed": [_P] * 5 + [_I64] + [_I32] * 4 + [_I64, _P],
+    "reach_stab_packed_owned": ([_P] * 6 + [_I64] + [_I32] * 4
+                                + [_I64] * 3 + [_P]),
     "reach_stab_naive": [_P] * 11 + [_I64] + [_I32] * 5 + [_I64, _P],
     # kernels 3 and 4 and their helpers take one int64 argument vector
     # (kernels/frontier_fused.py::ARG_FIELDS)
     "reach_frontier_setup": [_P, _P],
     "reach_expand_probe": [_P, _P],
+    "reach_expand_probe_rows": [_P, _P],
     "reach_dedup_classify_emit": [_P, _P],
     "reach_frontier_mark": [_P, _I32, _P],
     "reach_frontier_emit": [_P, _P],
@@ -78,7 +81,8 @@ class Counters(dict):
 
 LAUNCHES = Counters(stab_packed=0, stab_naive=0, probe=0, classify_emit=0,
                     merge_cover=0, retrieval_score=0, batched_mp=0,
-                    flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0)
+                    flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+                    stab_packed_owned=0, probe_rows=0)
 
 
 class _Library:

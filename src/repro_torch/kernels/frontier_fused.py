@@ -14,6 +14,11 @@ reference's ``expand_frontier_loop_fused``. One step is two kernels
       survivors compacted in that order into cap + 1 slots, with their
       raw count. Replaces the reference's ``_probe_kernel`` and the
       gathers and compaction around it.
+  kernel 3's exchanged-rows entry, expand_probe_rows — the same step with
+      the front's ELL rows read from an [n_front, W] buffer in front
+      order: the sharded placement (``core.distributed``), where a rank
+      holds only its shard of the slab and the rows come from the owned-
+      rows exchange (``gather_rows``).
   kernel 4, dedup_classify_emit — the sorted unique of the slots
       (SENTINEL-filled), the overflow rule (raw > cap + 1, or a live key
       in slot cap), the phase-1 packed verdict with the s == t positive,
@@ -82,7 +87,7 @@ ARG_FIELDS = ("ctl", "front", "slots", "status", "visited", "fbits", "log",
               "ct", "pad", "uniq", "verdict_in", "verdict", "can_reach_tail",
               "n_words",
               "slot_cap", "log_cap", "max_tiles", "q", "w", "m_t", "k",
-              "cap", "vbits", "max_steps")
+              "cap", "vbits", "max_steps", "rows")
 
 
 # ------------------------------------------------------- element pieces
@@ -367,16 +372,45 @@ def expand_probe_plain(st, ell, tail_src, tail_dst, *,
     st.ctl[RAW] = found.numel()
 
 
-def expand_probe(st, tables: dict, *, gather_rows=_take) -> None:
+def expand_probe_rows_plain(st, rows, tail_src, tail_dst) -> None:
+    """The exchanged-rows entry's plain version: ``expand_probe_plain``
+    with the front's ELL rows taken from ``rows`` [n_front, W]."""
+    expand_probe_plain(st, None, tail_src, tail_dst,
+                       gather_rows=lambda table, ids: rows)
+
+
+def front_rows(st, ell, n_front: int, gather_rows):
+    """The ELL rows [n_front, W] int32 of the front's nodes, in front
+    order, through ``gather_rows(ell, node ids)``."""
+    f = st.front[:n_front]
+    fv = torch.where(f != SENTINEL, f & ((1 << st.vbits) - 1), 0)
+    return gather_rows(ell, fv).to(torch.int32).contiguous()
+
+
+def expand_probe(st, tables: dict, *, gather_rows=_take,
+                 n_front=None) -> None:
     """Kernel 3 on ``st``: the step's survivors in ``st.slots``, their
     count in ``ctl[RAW]``. ``tables`` holds ell, tail_src, tail_dst,
-    is_hub (and the rest kernel 4 reads). ``gather_rows``: the plain
-    version's hook (a card's kernel reads the ELL rows in place)."""
+    is_hub (and the rest kernel 4 reads). ``gather_rows(ell, ids)``: the
+    ELL rows by global node id. The default reads the table in place (the
+    kernel on a card); any other hook (the sharded placement's exchange)
+    is called on the front's ``n_front`` nodes, and on a card the
+    exchanged-rows entry reads its result."""
     if on_cpu(st.state):
         return expand_probe_plain(st, tables["ell"], tables["tail_src"],
                                   tables["tail_dst"], gather_rows=gather_rows)
     st.slots.fill_(SENTINEL)
-    _args_launch("probe", "reach_expand_probe", st, tables)
+    if gather_rows is _take:
+        _args_launch("probe", "reach_expand_probe", st, tables)
+    else:
+        if n_front is None:
+            raise ValueError("expand_probe with a gather_rows hook needs "
+                             "the front's length")
+        rows = front_rows(st, tables["ell"], n_front, gather_rows)
+        _lib.check(rows, "rows", (n_front, st.w), st.device)
+        args = st.args(tables, rows=rows.data_ptr())
+        _lib.launch("probe_rows", "reach_expand_probe_rows", st.device,
+                    ctypes.addressof(args))
     STEPS["launches"] += 1
 
 
@@ -554,8 +588,9 @@ def _stepped_call(st, tables, cs, ct, pad, *, classify=None,
     """One expansion call stepped from the host: set-up, then kernel 3 and
     kernel 4 while the control words say run (one read a step), then
     clean-up. Under ``distinct_overflow`` the slots first grow to every
-    candidate of the step. ``gather_rows`` and ``fetch_rows`` go to the
-    plain versions; ``on_step(st)`` sees the state before each step."""
+    candidate of the step. ``gather_rows`` goes to kernel 3 (on a card
+    its exchanged-rows entry, ``expand_probe``), ``fetch_rows`` to kernel
+    4's plain version; ``on_step(st)`` sees the state before each step."""
     st.ct.copy_(ct)
     frontier_setup(st, cs, pad, tables["is_hub"], tables)
     while True:
@@ -567,7 +602,8 @@ def _stepped_call(st, tables, cs, ct, pad, *, classify=None,
                             + (st.q * st.m_t if host[HUB] else 0))
         if on_step is not None:
             on_step(st)
-        expand_probe(st, tables, gather_rows=gather_rows)
+        expand_probe(st, tables, gather_rows=gather_rows,
+                     n_front=int(host[N_FRONT]))
         dedup_classify_emit(st, tables, classify=classify,
                             distinct_overflow=distinct_overflow,
                             fetch_rows=fetch_rows)
@@ -591,9 +627,10 @@ def expand_frontier_loop_fused(ell, tail_src, tail_dst, is_hub, cs, ct,
     ``distinct_overflow`` selects the overflow rule of the reference's XLA
     loop (``kernels/frontier.py``): overflow iff more than ``cap``
     distinct survivor keys. ``gather_rows(table, ids)`` and ``fetch_rows``
-    are the plain loop's hooks (rows by global node id; the operands of
-    ``classify``), kept pluggable for a sharded placement; on a card the
-    kernels read the tables in place. ``can_reach_tail`` ([n] bool) is a
+    are the loop's hooks (rows by global node id; the operands of
+    ``classify``) for a sharded placement: on a card a ``gather_rows``
+    hook feeds kernel 3's exchanged-rows entry; without one the kernels
+    read the tables in place. ``can_reach_tail`` ([n] bool) is a
     live overlay's: kernel 4 applies its rule to every verdict, the graph
     path included (union-graph serving; ``tail_src``/``tail_dst`` then
     carry the delta slab). ``workspaces`` (required on a card): a dict

@@ -9,6 +9,12 @@ int32 in {0 NEG, 1 POS, 2 UNKNOWN}.
   stab_packed — kernel 1 (``csrc/interval_stab.cu``), the gather-fused
                 layout: ``meta [n, 4]`` and ``slab [n, 2K]``. Replaces the
                 reference's ``interval_stab_classify_packed``.
+  stab_packed_owned — kernel 1's owned-rows entry for the sharded
+                placement: t's meta rows by query position (the owned-
+                rows exchange), the source's rows in this rank's shard at
+                cs - base, 0 where the rank does not own the source. What
+                the reference's kernel computes on gathered rows (its
+                ``_prefetched`` form).
   stab_naive  — kernel 2, the 12-array layout with W-word seeds and
                 unsaturated levels (used when the fused layout does not
                 fit). Replaces the reference's ``interval_stab_classify``.
@@ -110,6 +116,40 @@ def stab_packed(meta, slab, cs, ct):
     if q:
         _lib.launch("stab_packed", "reach_stab_packed", dev, *args,
                     out.data_ptr(), q, k, vec, shape[1], shape[0], shape[2])
+    return out
+
+
+def stab_packed_owned_plain(meta_t, meta, slab, cs, ct, base: int):
+    rel = cs.long() - base
+    own = (rel >= 0) & (rel < meta.shape[0])
+    r = rel.clamp(0, meta.shape[0] - 1)
+    v = ref.interval_stab_classify_packed_ref(meta[r], meta_t, slab[r])
+    v = torch.where(cs == ct, ref.POS, v)
+    return torch.where(own, v, 0).to(torch.int32)
+
+
+def stab_packed_owned(meta_t, meta, slab, cs, ct, base: int):
+    """Kernel 1's owned-rows entry: verdict [Q] int32 of (cs, ct) from
+    ``meta_t`` [Q, 4] (t's meta rows by query position) and this rank's
+    ``meta`` [n_loc, 4] / ``slab`` [n_loc, 2K], rows of node ids
+    ``base`` .. ``base + n_loc``; 0 where the rank does not own cs."""
+    if on_cpu(cs):
+        return stab_packed_owned_plain(meta_t, meta, slab, cs, ct, base)
+    n, q, k2 = meta.shape[0], cs.shape[0], slab.shape[1]
+    if k2 % 2:
+        raise ValueError(f"slab: {k2} columns, expected 2K")
+    k, dev = k2 // 2, cs.device
+    vec, shape = vector_width(k), launch_shape(q, k, 0, sm_count(dev.index))
+    args = (_lib.check(meta_t, "meta_t", (q, 4), dev, align=16),
+            _lib.check(meta, "meta", (n, 4), dev, align=16),
+            _lib.check(slab, "slab", (n, k2), dev, align=4 * vec),
+            _lib.check(cs, "cs", (q,), dev),
+            _lib.check(ct, "ct", (q,), dev))
+    out = torch.empty(q, dtype=torch.int32, device=dev)
+    if q:
+        _lib.launch("stab_packed_owned", "reach_stab_packed_owned", dev,
+                    *args, out.data_ptr(), q, k, vec, shape[1], shape[0],
+                    shape[2], int(base), n)
     return out
 
 

@@ -15,7 +15,7 @@ from . import ref
 from .batched_mp import batched_mp  # noqa: F401  (kernel 9)
 from .flash_attention import flash_attention
 from .frontier_fused import emit_plain, expand_frontier_loop_fused
-from .interval_stab import stab_naive, stab_packed
+from .interval_stab import stab_naive, stab_packed, stab_packed_owned
 from .retrieval_score import retrieval_score  # noqa: F401  (kernel 10)
 
 NEG, POS, UNKNOWN = ref.NEG, ref.POS, ref.UNKNOWN
@@ -32,7 +32,16 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
 def classify_queries(dev: dict, cs, ct):
     """Phase-1 verdict [Q] int32 of condensed-id pairs (cs, ct) [Q] int32,
     cs == ct folded to POS. Kernel 1 on the fused slab/meta layout,
-    kernel 2 on the 12-array layout."""
+    kernel 2 on the 12-array layout.
+
+    The pre-fetched form (``dev["_prefetched"]``, the sharded placement's
+    compute-at-owner step): ``meta_t`` [Q, 4] holds t's meta rows from the
+    owned-rows exchange, ``meta`` / ``slab`` this rank's shard from node id
+    ``base`` on; kernel 1's owned-rows entry reads the source's rows there
+    and returns the verdict where the rank owns cs, else 0."""
+    if dev.get("_prefetched"):
+        return stab_packed_owned(dev["meta_t"], dev["meta"], dev["slab"],
+                                 cs, ct, dev["base"])
     if "slab" in dev:
         return stab_packed(dev["meta"], dev["slab"], cs, ct)
     sp, sm = ref.naive_seed_rows(dev)

@@ -11,8 +11,22 @@ device: phase 1 and the sparse phase 2 run the CUDA kernels on a card.
         --nodes 20000 --queries 100000 --k 2 --device cuda
 
 ``--index-dir DIR`` loads the artifact committed there, or builds and
-saves one (first run builds, reruns load). ``--device cpu`` runs the
-kernels' plain PyTorch versions instead. ``--tenants N`` re-serves the
+saves one (first run builds, reruns load). ``--updates N`` then streams N
+random edge inserts through the live session in ``--update-batch``
+batches, each followed by a query batch over the mutated graph (logged to
+the artifact and replayed on the next load when ``--index-dir`` is set).
+``--device cpu`` runs the kernels' plain PyTorch versions instead.
+
+``--placement replicated|sharded`` (with ``--mesh DATAxMODEL``) serves
+from every rank of a process group, one process a device, started by
+``torchrun`` (which sets the rank, the world and the rendezvous); the
+command then initialises the group from that environment (NCCL on the
+cards, one card a rank by ``LOCAL_RANK``; gloo with ``--device cpu``),
+and only rank 0 prints:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --nodes 200000 --queries 100000 --placement sharded --mesh 2x2
+ ``--tenants N`` re-serves the
 stream through the async frontend (``reach.frontend``) in
 ``--request-size`` requests over N tenants and prints its ``frontend:``
 block; ``--metrics-dump`` writes the telemetry registry's snapshot and
@@ -30,18 +44,23 @@ dims 16 and 32 are below the flash kernel's 64):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import time
 from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import obs
 from ..configs import get_config, get_smoke
 from ..core.packed import pack_index
 from ..core.query_torch import resolve_device
-from ..core.workload import positive_queries, random_queries
+from ..core.workload import (positive_queries, random_edge_inserts,
+                             random_queries)
 from ..graphs.generators import scale_free_digraph
 from ..models import transformer as tf
 from ..reach import (Frontend, IndexSpec, QuerySession, Rejected, build,
@@ -88,13 +107,20 @@ def _load_session(index_dir, spec: IndexSpec, graph_meta: dict, n: int,
 def serve_reachability(n_nodes: int, avg_deg: float, n_queries: int,
                        spec: IndexSpec, *, seed: int = 0,
                        workload: str = "random", device="cuda",
-                       index_dir=None, n_tenants: int = 0,
+                       index_dir=None, n_updates: int = 0,
+                       update_batch: int = 256, n_tenants: int = 0,
                        request_size: int = 64,
                        metrics_dump: str | None = None,
                        trace_out: str | None = None) -> dict:
     """Build (or load from ``index_dir``), warm up, then serve
     ``n_queries`` of ``workload`` once, timed. Returns the wall time,
     ns/query, positives and SessionStats.
+
+    ``n_updates > 0`` then streams that many random edge inserts through
+    the live session in ``update_batch`` batches, each followed by the
+    next ``spec.max_batch`` queries of the stream over the mutated graph
+    (inserts oriented by the condensed topological order, so compactions
+    stay incremental); its stats come back as ``update_stats``.
 
     ``n_tenants > 0`` re-serves the stream through the async frontend:
     chopped into ``request_size``-pair requests spread round-robin over
@@ -123,6 +149,11 @@ def serve_reachability(n_nodes: int, avg_deg: float, n_queries: int,
     else:
         sess, t_build = _build_session(g, spec, device, index_dir,
                                        graph_meta)
+    if spec.placement != "single":
+        mesh = sess.engine.mesh
+        print(f"placement: {spec.placement} over mesh "
+              f"{{'data': {mesh.n_data}, 'model': {mesh.n_model}}} "
+              f"({mesh.world} devices, {dist.get_backend()})", flush=True)
     print(f"device: {sess.engine.device}; phase-2 engine: "
           f"{sess.engine.phase2_mode}", flush=True)
     qs, qt = (random_queries if workload == "random"
@@ -145,6 +176,10 @@ def serve_reachability(n_nodes: int, avg_deg: float, n_queries: int,
     fe = None
     if n_tenants > 0:
         fe = _serve_frontend(sess, spec, qs, qt, n_tenants, request_size)
+    update_stats = None
+    if n_updates > 0:
+        update_stats = _serve_updates(sess, spec, g.n, qs, qt, n_updates,
+                                      update_batch, seed)
     if metrics_dump is not None:
         snap = obs.metrics_snapshot()
         if fe is not None:
@@ -161,8 +196,44 @@ def serve_reachability(n_nodes: int, avg_deg: float, n_queries: int,
     return {"seconds": dt, "ns_per_query": dt / n_queries * 1e9,
             "positive": pos, "stats": stats, "build_seconds": t_build,
             "trace_count": sess.trace_count, "spec": spec,
-            "loaded": loaded,
+            "loaded": loaded, "update_stats": update_stats,
             "frontend_stats": None if fe is None else fe.stats}
+
+
+def _serve_updates(sess, spec: IndexSpec, n: int, qs, qt, n_updates: int,
+                   update_batch: int, seed: int):
+    """The live-graph churn loop: insert a batch, then answer a query
+    slice against the mutated graph, with no restart and no rebuild.
+    Prints the inserts' rate and the churn stats; returns the stats."""
+    if sess.epoch or sess.stats.overlay_edges:
+        print(f"resumed at epoch {sess.epoch} with "
+              f"{sess.stats.overlay_edges} replayed overlay edges",
+              flush=True)
+    # the resume point is in the seed: a rerun extends the replayed graph
+    # with fresh edges instead of drawing (and dropping) the last run's
+    rng = np.random.default_rng(
+        (seed + 2, sess.epoch, sess.stats.overlay_edges))
+    sess.reset_stats()
+    batch, qcur = spec.max_batch, 0
+    t0 = time.perf_counter()
+    for lo in range(0, n_updates, update_batch):
+        b = min(update_batch, n_updates - lo)
+        # by the condensed topological order: no insert closes a condensed
+        # cycle, so compactions stay on the bounded incremental path
+        sess.apply_updates(*random_edge_inserts(
+            n, b, rng, order=sess.index.cond.comp))
+        hi = min(qcur + batch, qs.size)
+        if hi > qcur:
+            sess.query(qs[qcur:hi], qt[qcur:hi])
+            qcur = hi
+    dt = time.perf_counter() - t0
+    st = sess.stats
+    print(f"{n_updates} edge inserts in {dt:.2f}s ({n_updates / dt:.0f} "
+          f"updates/s interleaved with {qcur} queries), "
+          f"{st.n_compactions} compactions, overlay fill "
+          f"{st.overlay_edges}/{spec.overlay_cap}, epoch {sess.epoch}")
+    print(f"churn stats: {st}")
+    return st
 
 
 def _serve_frontend(sess, spec: IndexSpec, qs, qt, n_tenants: int,
@@ -247,13 +318,18 @@ def _build_session(g, spec: IndexSpec, device, index_dir, graph_meta):
     pk = pack_index(ix)
     p2 = spec.phase2_mode
     if p2 == "auto":
-        p2 = "dense" if pk.n <= spec.n_dense_max else "sparse"
+        p2 = ("sparse" if spec.placement != "single"
+              else "dense" if pk.n <= spec.n_dense_max else "sparse")
     ell = (pk.ell_layout(width=spec.ell_width)
            if index_dir is not None or p2 == "sparse" else None)
     sess = QuerySession(ix, spec, packed=pk, ell=ell, device=device)
     if index_dir is not None:
-        save_index(index_dir, ix, spec, meta={"graph": graph_meta},
-                   packed=pk, ell=ell)
+        if spec.placement == "single" or dist.get_rank() == 0:
+            save_index(index_dir, ix, spec, meta={"graph": graph_meta},
+                       packed=pk, ell=ell)
+        if spec.placement != "single":
+            dist.barrier()          # saved before any rank logs to it
+        sess.bind_artifact(index_dir)     # updates log, replay on rerun
         print(f"index saved to {index_dir}", flush=True)
     return sess, time.perf_counter() - t0
 
@@ -331,6 +407,12 @@ def main(argv=None):
     ap.add_argument("--index-dir", default=None,
                     help="load the index artifact committed here, or "
                          "build and save one")
+    ap.add_argument("--updates", type=int, default=0,
+                    help="stream this many random edge inserts through the "
+                         "live session, interleaved with query batches "
+                         "(logged and replayed when --index-dir is set)")
+    ap.add_argument("--update-batch", type=int, default=256,
+                    help="edge inserts per apply_updates() batch")
     ap.add_argument("--tenants", type=int, default=0,
                     help="also serve the stream through the async "
                          "frontend spread over this many tenants "
@@ -357,14 +439,44 @@ def main(argv=None):
                         seed=args.seed, device=args.device)
     # clamp before construction: IndexSpec validates max_batch >= min_bucket
     args.min_bucket = min(args.min_bucket, args.max_batch)
-    return serve_reachability(args.nodes, args.avg_deg, args.queries,
-                              IndexSpec.from_args(args), seed=args.seed,
-                              workload=args.workload, device=args.device,
-                              index_dir=args.index_dir,
-                              n_tenants=args.tenants,
-                              request_size=args.request_size,
-                              metrics_dump=args.metrics_dump,
-                              trace_out=args.trace_out)
+    spec = IndexSpec.from_args(args)
+    quiet = contextlib.nullcontext()
+    if spec.placement != "single":
+        quiet = _init_process_group(args.device)
+    with quiet:
+        return serve_reachability(args.nodes, args.avg_deg, args.queries,
+                                  spec, seed=args.seed,
+                                  workload=args.workload, device=args.device,
+                                  index_dir=args.index_dir,
+                                  n_updates=args.updates,
+                                  update_batch=args.update_batch,
+                                  n_tenants=args.tenants,
+                                  request_size=args.request_size,
+                                  metrics_dump=args.metrics_dump,
+                                  trace_out=args.trace_out)
+
+
+def _init_process_group(device):
+    """The process group of a multi-device run from the launcher's
+    environment (``torchrun``: RANK, WORLD_SIZE, MASTER_ADDR/PORT), unless
+    the caller initialised one: NCCL with this rank's card current on a
+    card, gloo on the CPU. Returns a context that keeps every rank but 0
+    quiet."""
+    if not dist.is_initialized():
+        if "RANK" not in os.environ:
+            raise RuntimeError(
+                "--placement replicated/sharded serves from a process "
+                "group: start the command under torchrun "
+                "(--nproc-per-node N)")
+        on_card = torch.device(device).type == "cuda"
+        if on_card:
+            # "cuda" names the rank's card from here on
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                                  % torch.cuda.device_count())
+        dist.init_process_group("nccl" if on_card else "gloo")
+    if dist.get_rank() == 0:
+        return contextlib.nullcontext()
+    return contextlib.redirect_stdout(open(os.devnull, "w"))
 
 
 if __name__ == "__main__":

@@ -13,9 +13,13 @@ the fused index layout, kernel 1 on a card). The LM train step accumulates float
 The recsys ``train`` kind and the GNN's cells are not ported (ROADMAP.md,
 Queue 1 item 8) and raise ``NotImplementedError``; the GNN dense-batch
 forward is reached through ``models.gnn.forward_dense``.
-Unlike the reference there is no mesh and no sharding: a cell runs on one
-device (the ferrari cell's ``index_placement="sharded"`` runs replicated,
-as the reference's cell does without a mesh).
+A cell runs on one device, with one exception: given a
+``core.distributed.ServingMesh`` whose model axis divides n, the ferrari
+cell takes its published ``index_placement="sharded"``: its state is the
+rank's shard of the table rows and its step ``classify_sharded``
+(compute-at-owner, kernel 1's owned-rows entry on a card), as the
+reference's cell shards over 'model' on a mesh with that axis. Without a
+mesh it runs replicated, as the reference's cell does without one.
 """
 from __future__ import annotations
 
@@ -187,21 +191,35 @@ def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig):
         _NOT_PORTED.format(what=f"the LM {shape.kind!r} cell"))
 
 
-def _ferrari_cell(cfg: FerrariServeConfig, shape, opt_cfg: OptConfig):
+def _ferrari_cell(cfg: FerrariServeConfig, shape, opt_cfg: OptConfig,
+                  mesh=None):
     """Phase-1 classification over the gather-fused layout: state ``slab``
     [n, 2K] (begins with exact flags in the sign bits, then ends) and
     ``meta`` [n, 4] (π | blevel << 24, τ, s⁺, s⁻) int32, from
     ``PackedIndex.to_torch(device, fused=True)``; batch ``cs``, ``ct`` [Q]
     int32 condensed ids. Kernel 1 on a card, its plain version on the
-    CPU (the reference's cell runs its plain rules, ``use_pallas=False``)."""
+    CPU (the reference's cell runs its plain rules, ``use_pallas=False``).
+
+    Sharded (``index_placement="sharded"`` and a ``mesh`` whose model axis
+    M divides n): the state is the rank's n / M rows
+    (``core.distributed.shard_tables``), every rank takes the whole batch
+    and the step is ``classify_sharded``, which returns the whole verdict
+    on every rank."""
     from ..kernels import ops
     n, K = cfg.n_nodes, cfg.k_max
     i32 = torch.int32
     Q = _pad(shape.n_queries)
-    state_shapes = {"slab": ((n, 2 * K), i32), "meta": ((n, 4), i32)}
+    sharded = (getattr(cfg, "index_placement", "replicated") == "sharded"
+               and mesh is not None and n % mesh.n_model == 0)
+    rows = n // mesh.n_model if sharded else n
+    state_shapes = {"slab": ((rows, 2 * K), i32), "meta": ((rows, 4), i32)}
     batch_shapes = {"cs": ((Q,), i32), "ct": ((Q,), i32)}
 
     def step(state, batch):
+        if sharded:
+            from ..core.distributed import classify_sharded
+            return state, classify_sharded(mesh, state, batch["cs"],
+                                           batch["ct"])
         return state, ops.classify_queries(state, batch["cs"], batch["ct"])
 
     # ~54 int/cmp ops per query lane over the K-slab + filters
@@ -213,14 +231,27 @@ _CELLS = {"recsys": _recsys_cell, "lm": _lm_cell, "ferrari": _ferrari_cell}
 
 
 def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
-               opt_cfg: OptConfig | None = None) -> CellSpec:
+               opt_cfg: OptConfig | None = None, mesh=None) -> CellSpec:
+    """The (arch, shape) cell on ``device``. ``mesh``: a
+    ``core.distributed.ServingMesh`` for the ferrari cell's sharded
+    placement (its device is then the cell's); the other families run on
+    one device and refuse one."""
     shape = shape_override or shapes_for_family(cfg.family)[shape_name]
     if cfg.family not in _CELLS:
         raise NotImplementedError(_NOT_PORTED.format(
             what=f"the {cfg.family} {shape.kind!r} cell"))
+    kw = {}
+    if mesh is not None:
+        if cfg.family != "ferrari":
+            raise NotImplementedError(
+                f"the {cfg.family} cells run on one device; only the "
+                "ferrari cell takes a serving mesh")
+        kw["mesh"] = mesh
+        device = mesh.device
     dev = resolve_device(device)
     step, batch_shapes, *extra = _CELLS[cfg.family](cfg, shape,
-                                                    opt_cfg or OptConfig())
+                                                    opt_cfg or OptConfig(),
+                                                    **kw)
     state_shapes, flops_fn = extra if extra else (None, None)
     return CellSpec(arch=cfg.arch_id, shape_name=shape_name, kind=shape.kind,
                     step=step, batch_shapes=batch_shapes, device=dev,

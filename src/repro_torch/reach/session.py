@@ -84,7 +84,11 @@ class _InflightBatch:
 
 
 class QuerySession:
-    """Serve reachability queries against one index on one device.
+    """Serve reachability queries against one index, on one device or,
+    under ``spec.placement`` "replicated" / "sharded", on every rank of a
+    torch.distributed process group (each rank calls with the same
+    batches and gets the whole answers; only rank 0 writes a bound
+    artifact).
 
     >>> sess = QuerySession(index, spec)          # device="cuda" by default
     >>> ans = sess.query(srcs, dsts)              # bucketed micro-batches
@@ -278,6 +282,14 @@ class QuerySession:
         return ans
 
     # -------------------------------------------------------- live updates
+    @property
+    def _writes_artifact(self) -> bool:
+        """A bound session writes its log and epochs: one process of a
+        multi-device session, rank 0, does."""
+        mesh = getattr(self.engine, "mesh", None)
+        return self._artifact_dir is not None and (mesh is None
+                                                   or mesh.rank == 0)
+
     def bind_artifact(self, path, epoch: int = 0) -> None:
         """Attach this session to an index artifact directory so
         ``apply_updates`` appends to its delta log and ``compact``
@@ -332,7 +344,7 @@ class QuerySession:
             ca, cb = comp[srcs], comp[dsts]
             keep = ca != cb
             applied = self.engine.apply_updates(ca[keep], cb[keep])
-            if self._artifact_dir is not None:
+            if self._writes_artifact:
                 from .persist import append_delta
                 append_delta(self._artifact_dir, self.epoch, srcs, dsts,
                              seq=self._take_delta_seq())
@@ -353,7 +365,7 @@ class QuerySession:
             # here — they are already durable under the artifact's epoch,
             # and a replay-triggered compaction re-logs the unfolded rest
             # under its new epoch itself (see compact())
-            if self._artifact_dir is not None and not self._replaying:
+            if self._writes_artifact and not self._replaying:
                 from .persist import append_delta
                 append_delta(self._artifact_dir, self.epoch, s, d,
                              seq=self._take_delta_seq())
@@ -421,18 +433,21 @@ class QuerySession:
         # and the re-saved artifact
         p2 = self.spec.phase2_mode
         if p2 == "auto":
-            p2 = "dense" if pk.n <= self.spec.n_dense_max else "sparse"
+            p2 = ("sparse" if self.spec.placement != "single"
+                  else "dense" if pk.n <= self.spec.n_dense_max else "sparse")
         ell = (pk.ell_layout(width=self.spec.ell_width)
                if self._artifact_dir is not None or p2 == "sparse" else None)
         stats = self.engine.stats           # carry phase mix across the swap
         self.index = new_ix
+        # a multi-device engine keeps its mesh (and process groups)
         self.engine = make_engine(new_ix, self.spec, packed=pk, ell=ell,
-                                  device=device)
+                                  device=device,
+                                  mesh=getattr(self.engine, "mesh", None))
         self.engine.stats = stats
         self.engine.stats.n_compactions += 1
         self.epoch += 1
         self._next_delta_seq = 0     # fresh epoch — fresh log cursor
-        if self._artifact_dir is not None:
+        if self._writes_artifact:
             from .persist import append_delta, save_index
             if self._replaying:
                 # a compaction mid-replay folds only the already-replayed

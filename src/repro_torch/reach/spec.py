@@ -7,10 +7,13 @@ AND serve-time knob in one validated value that round-trips through dicts
 are those of the reference package's ``IndexSpec``, so a manifest's
 ``spec`` dict written there loads here through ``from_dict``.
 
-This port serves one device. ``build`` runs the host builder or the
-staged device builder (``builder="wavefront"``, on ``device``), and
-``make_engine`` the single placement only; the other placements raise
-``NotImplementedError``. ``kernel_impl`` and ``use_pallas`` keep their
+``build`` runs the host builder or the staged device builder
+(``builder="wavefront"``, on ``device``). ``make_engine`` builds the
+one-device engine for ``placement="single"`` and, for ``"replicated"`` and
+``"sharded"``, the multi-device engine over the initialised
+torch.distributed process group (``core.distributed``; one process a
+device, ``mesh`` "DATAxMODEL" must match its world). ``kernel_impl`` and
+``use_pallas`` keep their
 names so manifests round-trip, but choose nothing beyond the device: on a
 CUDA device the hand-written kernels run, and a spec that asks for the
 XLA path (``kernel_impl="xla"``) or the no-kernel path
@@ -363,6 +366,46 @@ class IndexSpec:
             latency_window=args.latency_window,
         )
 
+    def to_cli_args(self) -> list:
+        """Inverse of ``from_args``: an argv that parses back to ``self``."""
+        argv = ["--variant", self.variant]
+        if self.variant != "full":
+            argv += ["--k", str(self.k)]
+        argv += ["--c", str(self.c), "--cover-method", self.cover_method,
+                 "--n-seeds", str(self.n_seeds)]
+        if not self.use_seeds:
+            argv.append("--no-seeds")
+        if self.precondensed:
+            argv.append("--precondensed")
+        argv += ["--builder", self.builder,
+                 "--merge-chunk", str(self.merge_chunk)]
+        if self.m_cap is not None:
+            argv += ["--m-cap", str(self.m_cap)]
+        argv += ["--phase2", self.phase2_mode,
+                 "--dense-max", str(self.n_dense_max)]
+        if self.ell_width is not None:
+            argv += ["--ell-width", str(self.ell_width)]
+        argv += ["--phase2-chunk", str(self.phase2_chunk)]
+        if not self.use_pallas:
+            argv.append("--no-pallas")
+        argv += ["--frontier-cap", str(self.frontier_cap),
+                 "--frontier-cap-max", str(self.frontier_cap_max),
+                 "--kernel-impl", self.kernel_impl,
+                 "--max-batch", str(self.max_batch),
+                 "--min-bucket", str(self.min_bucket),
+                 "--overlay-cap", str(self.overlay_cap)]
+        if not self.auto_compact:
+            argv.append("--no-auto-compact")
+        argv += ["--compact-mode", self.compact_mode,
+                 "--placement", self.placement]
+        if self.mesh is not None:
+            argv += ["--mesh", self.mesh]
+        argv += ["--deadline-us", str(self.deadline_us),
+                 "--tenant-queue-cap", str(self.tenant_queue_cap),
+                 "--cache", str(self.cache_entries),
+                 "--latency-window", str(self.latency_window)]
+        return argv
+
 
 # ---------------------------------------------------------------- facade --
 
@@ -405,19 +448,33 @@ def build(g, spec: IndexSpec = IndexSpec(), device="cuda"):
 
 
 def make_engine(index, spec: IndexSpec = IndexSpec(), *, packed=None,
-                ell=None, device="cuda"):
-    """Construct the one-device two-phase engine described by ``spec`` on
-    ``device`` (see ``core.query_torch.resolve_device``). ``packed`` /
-    ``ell`` inject pre-built layouts to skip the host packing loops."""
-    if spec.placement != "single":
-        raise NotImplementedError(
-            f"placement={spec.placement!r} is not ported; use 'single'")
+                ell=None, device="cuda", mesh=None):
+    """Construct the two-phase engine described by ``spec`` on ``device``
+    (see ``core.query_torch.resolve_device``).
+
+    ``spec.placement`` picks the executor: ``"single"`` is the one-device
+    ``DeviceQueryEngine``; ``"replicated"`` / ``"sharded"`` build a
+    ``core.distributed.DistributedQueryEngine`` over the process group's
+    (data, model) mesh (``spec.mesh``, default every rank on one axis;
+    "cuda" names the current card, which the caller sets to the rank's) —
+    same interface, the same answers. It raises without an initialised
+    process group or when the mesh does not match its world. ``mesh``: a
+    ``ServingMesh`` to reuse instead. ``packed`` / ``ell`` inject
+    pre-built layouts to skip the host packing loops."""
     from ..core.query_torch import DeviceQueryEngine, resolve_device
-    dev = resolve_device(device)
-    _refuse_plain_path(spec, dev)
-    return DeviceQueryEngine(
-        index, n_dense_max=spec.n_dense_max, phase2_chunk=spec.phase2_chunk,
+    common = dict(
+        n_dense_max=spec.n_dense_max, phase2_chunk=spec.phase2_chunk,
         phase2_mode=spec.phase2_mode, ell_width=spec.ell_width,
         frontier_cap=spec.frontier_cap,
         frontier_cap_max=spec.frontier_cap_max, packed=packed, ell=ell,
-        overlay_cap=spec.overlay_cap, device=dev)
+        overlay_cap=spec.overlay_cap)
+    if spec.placement == "single":
+        dev = resolve_device(device)
+        _refuse_plain_path(spec, dev)
+        return DeviceQueryEngine(index, device=dev, **common)
+    from ..core.distributed import DistributedQueryEngine, ServingMesh
+    if mesh is None:
+        shape = None if spec.mesh is None else parse_mesh(spec.mesh)
+        mesh = ServingMesh(spec.placement, shape, device)
+    _refuse_plain_path(spec, mesh.device)
+    return DistributedQueryEngine(index, mesh, **common)

@@ -24,6 +24,8 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels import frontier_fused as ff
 from repro_torch.kernels.interval_stab import (stab_naive, stab_naive_plain,
                                                stab_packed,
+                                               stab_packed_owned,
+                                               stab_packed_owned_plain,
                                                stab_packed_plain)
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import shapes_for_family
@@ -259,6 +261,102 @@ def test_probe_matches_plain(dev, cap, k):
         ff.expand_probe_plain(want, tables["ell"], tables["tail_src"],
                               tables["tail_dst"])
         _hold_state(got, want, after_probe=True)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("cap", [64, 4096])
+def test_probe_rows_matches_plain(dev, cap, k):
+    """Kernel 3's exchanged-rows entry (the front's ELL rows from an
+    [n_front, W] buffer) against its plain version, bit for bit, on every
+    step of a call with hubs in its fronts, and against the in-place
+    kernel on the same step."""
+    p, cpu, tables, tables_cpu = _sparse_setup(dev, k=k)
+    cs, ct = _queries(p, cpu, 64, 1)
+    st = ff.StepState(q=64, n_nodes=p.n, w=2, m_t=int(tables["tail_src"]
+                      .shape[0]), cap=cap, max_steps=p.n, device=dev)
+    tables["ct"] = _i32(ct).to(dev)
+    states = _replay(st, tables, _i32(cs).to(dev),
+                     torch.zeros(64, dtype=torch.bool, device=dev))
+    assert any(int(s.ctl[ff.HUB]) for s in states)
+
+    def gather(table, ids):
+        return table[ids.long()]
+    before = _lib.LAUNCHES["probe_rows"]
+    for s in states:
+        n_front = int(s.ctl[ff.N_FRONT])
+        got, want, inplace = s.clone(), s.clone(), s.clone()
+        ff.expand_probe(got, tables, gather_rows=gather, n_front=n_front)
+        rows = ff.front_rows(want, tables["ell"], n_front, gather)
+        ff.expand_probe_rows_plain(want, rows, tables["tail_src"],
+                                   tables["tail_dst"])
+        ff.expand_probe(inplace, tables)
+        _hold_state(got, want, after_probe=True)
+        _hold_state(got, inplace, after_probe=True)
+    assert _lib.LAUNCHES["probe_rows"] - before == len(states)
+
+
+@pytest.mark.parametrize("n_model", [1, 2, 3])
+@pytest.mark.parametrize("k", [1, 3, 8, 32])
+def test_stab_packed_owned_matches_plain(dev, k, n_model):
+    """Kernel 1's owned-rows entry against its plain version on each
+    shard, bit for bit (0 where the shard does not own the source), and
+    the shards' sum against kernel 1 on the whole tables."""
+    rng = np.random.default_rng(k)
+    n, q = 9_001, 70_001
+    meta, slab = _packed(rng, n, k)
+    cs, ct = _pairs(rng, n, q)
+    cs_t, ct_t = _i32(cs).to(dev), _i32(ct).to(dev)
+    meta_t = _i32(meta[ct]).to(dev)
+    n_loc = -(-n // n_model)
+    total = torch.zeros(q, dtype=torch.int32, device=dev)
+    for m in range(n_model):
+        lo = m * n_loc
+        rows = np.zeros((n_loc, 4), np.int32), np.zeros((n_loc, 2 * k),
+                                                         np.int32)
+        hi = min(lo + n_loc, n)
+        rows[0][:hi - lo], rows[1][:hi - lo] = meta[lo:hi], slab[lo:hi]
+        got = stab_packed_owned(meta_t, _i32(rows[0]).to(dev),
+                                _i32(rows[1]).to(dev), cs_t, ct_t, lo)
+        want = stab_packed_owned_plain(_i32(meta[ct]), _i32(rows[0]),
+                                       _i32(rows[1]), _i32(cs), _i32(ct), lo)
+        _same(got, want)
+        total += got
+    _same(total, stab_packed_plain(_i32(meta), _i32(slab), _i32(cs),
+                                   _i32(ct)))
+
+
+@pytest.mark.parametrize("placement", ["replicated", "sharded"])
+def test_world_one_nccl_engine_matches_single(dev, tmp_path, placement):
+    """A world-1 NCCL process group (mesh 1x1): the distributed session on
+    the card answers as the one-device session, with its phase mix; the
+    sharded one through kernel 1's owned-rows entry and kernel 3's
+    exchanged-rows entry (its loop stepped from the host)."""
+    import torch.distributed as dist
+    g = scale_free_digraph(20_000, 4.0, seed=0)
+    base = dict(k=1, use_seeds=False, phase2_mode="sparse", phase2_chunk=64,
+                frontier_cap=64, max_batch=4096, min_bucket=256)
+    ix = build(g, IndexSpec(**base))
+    qs, qt = random_queries(g, 20_000, seed=2)
+    single = QuerySession(ix, IndexSpec(**base))
+    want = single.query(qs, qt)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        _lib.LAUNCHES.reset()
+        sess = QuerySession(ix, IndexSpec(**base, placement=placement))
+        np.testing.assert_array_equal(sess.query(qs, qt), want)
+        got, ref = asdict(sess.stats), asdict(single.stats)
+        for d in (got, ref):
+            for key in ("seconds", "sparse_retries", "buckets"):
+                d.pop(key)
+        assert got == ref and sess.stats.phase2_sparse > 0
+        own = placement == "sharded"
+        assert (_lib.LAUNCHES["stab_packed_owned"] > 0) == own
+        assert (_lib.LAUNCHES["probe_rows"] > 0) == own
+        assert (_lib.LAUNCHES["stab_packed"] > 0) != own
+        assert _lib.LAUNCHES["classify_emit"] > 0
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("k", [1, 8])

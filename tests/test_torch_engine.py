@@ -233,9 +233,11 @@ def test_spec_dict_roundtrips_reference_manifest(spec_kw):
 
 
 def test_unported_choices_raise():
+    """The multi-device placements are ported (``core.distributed``): they
+    serve over an initialised process group and raise without one."""
     g = ref_gen.random_dag(100, 2.0, seed=0)
     ix = reach.build(g)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="initialise the process group"):
         reach.make_engine(ix, reach.IndexSpec(placement="replicated"),
                           device="cpu")
 

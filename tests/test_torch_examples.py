@@ -1,0 +1,113 @@
+"""The port's examples and the serve CLI's live-update flags on the CPU.
+
+``examples/torch_{quickstart,reachability_serve,shortest_path_pruning}.py``
+run end to end with ``--device cpu`` at a small size (each in its own
+process, as a user runs them). The CLI's ``--updates`` / ``--update-batch``
+churn loop gives the reference CLI's answers, phase mix and overlay
+counters on the same graph and seed (the reference on its XLA loop, whose
+overflow rule differs from the fused rule the port keeps, so
+``sparse_retries`` may differ), and ``IndexSpec.to_cli_args`` parses back
+to the spec, as the reference's argv does.
+"""
+import argparse
+import os
+import subprocess
+import sys
+from dataclasses import asdict
+from pathlib import Path
+
+import pytest
+
+from repro.launch import serve as ref_serve
+from repro.reach import IndexSpec as RefSpec
+from repro_torch.launch import serve
+from repro_torch.reach import IndexSpec
+
+ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = ROOT / "examples"
+
+
+def _run(name, *argv):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, str(EXAMPLES / name), *argv],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return r.stdout
+
+
+def test_quickstart_example():
+    out = _run("torch_quickstart.py", "--device", "cpu", "--nodes", "3000",
+               "--queries", "2000")
+    assert "a ~> e ? True" in out and "on cpu" in out
+    assert "phase stats: SessionStats(n_queries=4000" in out
+
+
+def test_reachability_serve_example():
+    out = _run("torch_reachability_serve.py", "--device", "cpu", "--nodes",
+               "3000", "--queries", "4000")
+    assert out.count("phase-2 engine:") == 2
+    assert "800 positive queries" in out and "800 positive," in out
+
+
+def test_shortest_path_pruning_example():
+    out = _run("torch_shortest_path_pruning.py", "--device", "cpu",
+               "--nodes", "2000", "--pairs", "4")
+    assert "identical distances" in out and "on cpu" in out
+
+
+ARGV = ["--nodes", "2000", "--queries", "2048", "--k", "1", "--no-seeds",
+        "--phase2", "sparse", "--updates", "256", "--update-batch", "64",
+        "--max-batch", "1024"]
+MIX = ("n_queries", "n_positive", "phase1_pos", "phase1_neg",
+       "phase2_queries", "phase2_dense", "phase2_sparse", "phase2_host",
+       "n_updates", "n_overlay_hits", "n_compactions", "overlay_edges",
+       "n_batches", "n_padded")
+
+
+def test_serve_updates_matches_reference_cli(capsys):
+    got = serve.main(["--device", "cpu", *ARGV])
+    out = capsys.readouterr().out
+    assert "256 edge inserts in" in out and "churn stats:" in out
+    ref = ref_serve.serve_reachability(
+        2000, 4.0, 2048, spec=RefSpec(k=1, use_seeds=False,
+                                      phase2_mode="sparse", max_batch=1024),
+        seed=0, n_updates=256, update_batch=64)
+    assert got["positive"] == ref["positive"]
+    for name in ("stats", "update_stats"):
+        a, b = asdict(got[name]), asdict(ref[name])
+        assert {k: a[k] for k in MIX} == {k: b[k] for k in MIX}, name
+    assert got["update_stats"].n_updates > 0
+
+
+def test_serve_updates_log_and_replay(tmp_path, capsys):
+    """With --index-dir the inserts are logged; a rerun replays them and
+    extends the graph with fresh edges."""
+    argv = ["--device", "cpu", *ARGV, "--index-dir", str(tmp_path)]
+    first = serve.main(argv)
+    second = serve.main(argv)
+    out = capsys.readouterr().out
+    assert not first["loaded"] and second["loaded"]
+    assert f"resumed at epoch 0 with {first['update_stats'].overlay_edges}" \
+        in out
+    assert (second["update_stats"].overlay_edges
+            > first["update_stats"].overlay_edges)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(k=None, variant="full", use_seeds=False),
+    dict(k=5, variant="L", c=2, cover_method="dp", n_seeds=64,
+         phase2_mode="sparse", ell_width=16, use_pallas=False,
+         kernel_impl="xla", max_batch=4096, min_bucket=64, m_cap=40,
+         precondensed=True, auto_compact=False, compact_mode="full"),
+    dict(builder="wavefront", cover_method="topgap", merge_chunk=8),
+    dict(placement="sharded", mesh="2x4", phase2_mode="sparse",
+         deadline_us=900, tenant_queue_cap=64, cache_entries=0,
+         latency_window=128),
+])
+def test_to_cli_args_round_trips(kw):
+    spec = IndexSpec(**kw)
+    argv = spec.to_cli_args()
+    assert argv == RefSpec(**kw).to_cli_args()
+    ap = argparse.ArgumentParser()
+    IndexSpec.add_cli_args(ap)
+    assert IndexSpec.from_args(ap.parse_args(argv)) == spec

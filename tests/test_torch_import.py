@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing any of its modules pulls in
-neither JAX nor the reference package, and no source file names either."""
+neither JAX nor the reference package, and no source file names either;
+the same holds for the port's examples (``examples/torch_*.py``)."""
 import os
 import re
 import subprocess
@@ -41,7 +42,8 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.reach.frontend", "repro_torch.reach.frontend.loop",
             "repro_torch.reach.frontend.router",
             "repro_torch.reach.frontend.cache",
-            "repro_torch.reach.frontend.stats"} <= mods
+            "repro_torch.reach.frontend.stats",
+            "repro_torch.core.distributed"} <= mods
 
 
 def test_no_source_file_imports_jax_or_reference():
@@ -66,3 +68,31 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
     r = subprocess.run([sys.executable, "-c", probe], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+EXAMPLE_PROBE = r"""
+import importlib.util, sys
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print(len(sys.argv) - 1)
+"""
+
+
+def test_examples_import_neither_jax_nor_reference():
+    """The port's three examples name neither jax nor the reference, and
+    importing them (their ``__main__`` blocks aside) pulls in neither."""
+    files = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [f.name for f in files] == [
+        "torch_quickstart.py", "torch_reachability_serve.py",
+        "torch_shortest_path_pruning.py"]
+    assert [f.name for f in files if IMPORT.search(f.read_text())] == []
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    r = subprocess.run([sys.executable, "-c", EXAMPLE_PROBE,
+                        *map(str, files)], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.split() == ["3"]
