@@ -12,8 +12,9 @@ float32 and, in bfloat16, 3e-2 of the largest magnitude in each row of
 head-dim values (one query row of dq, one key of dk, dv) plus 1e-5 of the
 gradient's largest; kernels 6, 7 and 8 also bit for bit from one run to
 the next), then drives the port's reachability serving path through
-``repro_torch.reach.QuerySession``, its three model serving paths and LM
-training on the card:
+``repro_torch.reach.QuerySession``, its three model serving paths, the
+GNN, recsys and LM training paths and the fault-tolerant Trainer on the
+card:
 
   main     the default IndexSpec (k=2, FERRARI-G, c=4, 32 seeds: k_max ≤ 8,
            one seed word, ELL width ≤ 32 — the ferrari-web widths) over
@@ -77,6 +78,29 @@ training on the card:
            65,536 molecules (kernel 9, each call's route printed), held
            against the CPU run; a profile of the bulk forward split into
            kernel 9, the SGEMMs and the rest.
+  gnn_train  GNN training through ``models.api.build_cell`` at the
+           published widths: BatchedMP's backward (kernel 9 on adjᵀ, dy,
+           I_H, then the dx and dw GEMMs) against autograd of the plain
+           einsums (rtol 1e-5, atol 1e-5 × max|want|); three steps each
+           of gin-tu and gatedgcn on molecule (128 graphs; gin-tu also
+           65,536), kernel 9 once a gin layer a step forward and once a
+           layer but the first backward (the features take no gradient),
+           counted; graphsage-reddit on minibatch_lg (169,984 ×
+           168,960 padded subgraph, d_feat 602: one NeighborSampler batch
+           over the reddit-like graph, then batches at the cell's shape)
+           and on ogb_products at full size (2,449,408 nodes, 61,859,328
+           edges from scale_free_digraph, d_feat 100), peak memory
+           printed; each conv's step cut to 2 layers on a 20k-node graph
+           and gin-tu's molecule step, two steps card against CPU.
+  recsys_train  MIND's train cell at its published config (2^23 items,
+           D 64, 255 negatives) on train_batch (B 65,536), uncut, three
+           steps with finite loss and grad norm; the SMOKE config's step
+           card against CPU for two steps.
+  reach_service  ``data.graph_data.ReachabilityService`` over the
+           products-like graph (244,902 nodes): 2^20 candidate pairs
+           through ``filter_unreachable_pairs`` on the card (kernels 1,
+           3, 4), the kept pairs of a 2^16 sample equal to the host
+           QueryEngine's.
   lm       llama3-8b at its published widths and full depth (32 layers,
            bf16, random weights) through ``launch.serve.generate``: the
            prefill_32k prompt of 32,768 tokens (batch cut 32 -> 1; kernel
@@ -98,9 +122,15 @@ training on the card:
            7 and 8 at one llama3-8b layer call (q [1, 4096, 32, 128], k, v
            [1, 4096, 8, 128] bf16, random) held against the plain version
            and timed the same way; layer 0's forward call (kernel 6)
-           timed beside SDPA; a profiled step; then the same widths cut to
-           2 layers in float32 (batch 2 x seq 512, 2 microbatches), two
-           steps, card against CPU.
+           timed beside SDPA; a profiled step; one
+           ``CheckpointManager.save`` of the whole state and its
+           ``restore_latest``, bit for bit, with the bytes and seconds;
+           then the same widths cut to 2 layers in float32 (batch 2 x seq
+           512, 2 microbatches), two steps, card against CPU, and the
+           Trainer over 6 steps with a checkpoint every 2 and a
+           WorkerFailure injected at step 5: its losses and state against
+           an uninterrupted run's, bit for bit when two uninterrupted runs
+           agree bit for bit.
   ferrari  ferrari-web (the paper's own system) at its published n =
            16,777,216, after every other phase is driven and timed and
            the card's cache emptied: a condensed DAG
@@ -267,6 +297,13 @@ KERNELS = {
     "batched_mp": dict(
         source="src/repro_torch/csrc/batched_mp_mma.cu",
         replaces="src/repro/kernels/batched_mp.py:31", phase="gnn"),
+    # kernel 9 as its own backward (BatchedMP: adjᵀ, dy, I_H), in the
+    # dense-batch train step, which the reference differentiates through
+    # its plain einsums (use_pallas=False)
+    "batched_mp_bwd": dict(
+        source="src/repro_torch/csrc/batched_mp_mma.cu",
+        replaces="src/repro/kernels/batched_mp.py:31",
+        call="src/repro/models/api.py:278", phase="gnn_train"),
     "flash_fwd": dict(
         source="src/repro_torch/csrc/flash_fwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:101", phase="lm"),
@@ -839,7 +876,7 @@ def work_of(name, args):
         cands, ints = args
         (c, d), i = cands.shape, ints.shape[0]
         return 4 * (c * d + i * d + c), 2 * c * i * d
-    if name == "batched_mp":
+    if name in ("batched_mp", "batched_mp_bwd"):
         adj, x, w = args
         (b, n, f), h = x.shape, w.shape[1]
         return (4 * (b * n * n + b * n * f + f * h + b * n * h),
@@ -893,10 +930,18 @@ def _mp_pair(adj, x, w):
     return torch.bmm(adj, x) @ w
 
 
+def _mp_bwd_library(adj_t, dy, eye):
+    import torch
+    return torch.bmm(adj_t, dy)
+
+
 LIBRARY_PAIRS = {
     "retrieval_score": ("(cands @ interests.T).amax(1), 2 calls",
                         _scores_pair),
     "batched_mp": ("torch.bmm(adj, x) @ w, 2 calls", _mp_pair),
+    # the backward call's w is I_H: one bmm computes the same function
+    "batched_mp_bwd": ("torch.bmm(adjT, dy), 1 call (w = I_H)",
+                       _mp_bwd_library),
 }
 
 
@@ -930,13 +975,15 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
              "stab_naive": st.stab_naive_plain,
              "merge_cover": mc.merge_cover_plain,
              "retrieval_score": rs.retrieval_score_plain,
-             "batched_mp": bm.batched_mp_plain}
+             "batched_mp": bm.batched_mp_plain,
+             "batched_mp_bwd": bm.batched_mp_plain}
     kernel = {"stab_packed": st.stab_packed,
               "stab_packed_owned": st.stab_packed_owned,
               "stab_naive": st.stab_naive,
               "merge_cover": mc.merge_cover,
               "retrieval_score": rs.retrieval_score,
-              "batched_mp": bm.batched_mp}
+              "batched_mp": bm.batched_mp,
+              "batched_mp_bwd": lambda *a: bm._call(*a, "batched_mp_bwd")}
     out = {}
     for name, label, (rows, args) in ([(n, n, recorded[n]) for n in KERNELS
                                        if n in recorded] + list(extra)):
@@ -960,7 +1007,7 @@ def time_kernels(recorded: dict, extra: tuple = ()) -> dict:
                           "operations", bytes=nbytes, ops=ops, err=err)
         lib = ("" if library is None else
                f", library {library_ms:.4f} ms ({library})")
-        if name == "batched_mp":
+        if name in ("batched_mp", "batched_mp_bwd"):
             (_, n, f), h = args[1].shape, args[2].shape[1]
             out[label]["route"] = bm.route(n, f, h)
             lib += f"; {out[label]['route']} route"
@@ -1772,8 +1819,8 @@ class Stopwatch:
 
 CHURN_BATCHES = 4
 CHURN_EDGES = 1024          # a batch; four fill the default overlay_cap
-CHURN_OPEN_SECONDS = 40.0   # the unrestricted batch's reopened queries
-CHURN_HOLD_SECONDS = 20.0   # ... and the host BFS holding their answers
+CHURN_OPEN_SECONDS = 20.0   # the unrestricted batch's reopened queries
+CHURN_HOLD_SECONDS = 10.0   # ... and the host BFS holding their answers
 
 
 def open_batch(sess, qs, qt, before, rng, rec, err) -> float:
@@ -2575,6 +2622,424 @@ def gnn_phase(dev, rec, seed: int):
         flush=True)
     return counts, calls
 
+# ------------------------------------------------ GNN and recsys training --
+GNN_TRAIN_STEPS = 3            # steps a train cell (the first one warms up)
+GNN_TRAIN_MOLECULE = ("gin-tu", "gatedgcn")
+PRODUCTS_NODES = 2_449_029     # ogb_products' graph before padding
+PRODUCTS_EDGES = 61_859_140
+GNN_CHECK = dict(nodes=20_000, edges=200_000, layers=2)   # card vs CPU
+# BatchedMP's backward against autograd of the plain einsums: the gin
+# layers' calls (F = H: I_F forward, I_H backward) at the molecule and the
+# bulk batch, gcn/sage's (F 16 -> H 64, 64 -> 64), gatedgcn's width, and
+# the tiled route (N 300)
+MP_BWD_SHAPES = ((128, 30, 16, 16), (128, 30, 64, 64), (128, 30, 16, 64),
+                 (GNN_BULK_GRAPHS, 30, 64, 64), (512, 30, 70, 70),
+                 (16, 300, 64, 64))
+RECSYS_TRAIN_STEPS = 3
+RECSYS_CHECK_BATCH = 4096      # the SMOKE MIND train step, card vs CPU
+REACH_DATASET = "products"     # synthetic_dataset's co-purchase graph
+REACH_PAIRS = 1 << 20          # candidate pairs through the service
+REACH_SAMPLE = 1 << 16         # of them, held against the host QueryEngine
+
+
+def mp_bwd_parity(dev, err: dict) -> None:
+    """``BatchedMP``'s dx and dw (kernel 9 forward, kernel 9 on adjᵀ, dy,
+    I_H backward, then the two GEMMs) against autograd of the plain
+    einsums on the same card tensors: rtol 1e-5, atol 1e-5 × the largest
+    magnitude; tallied under ``batched_mp_bwd``."""
+    import torch
+
+    from repro_torch.kernels import batched_mp as bm
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    for b, n, f, h in MP_BWD_SHAPES:
+        adj = (torch.rand((b, n, n), generator=g, device=dev) < 0.2).float()
+        x0 = torch.randn((b, n, f), generator=g, device=dev)
+        w0 = torch.randn((f, h), generator=g, device=dev) * (2 / (f + h)) ** .5
+        dy = torch.randn((b, n, h), generator=g, device=dev)
+        grads = []
+        for fn in (bm.BatchedMP.apply, bm.batched_mp_plain):
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            grads.append(torch.autograd.grad(fn(adj, x, w), (x, w), dy))
+        for name, got, want in zip(("dx", "dw"), *grads):
+            tol = dict(rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+            _tally(err, "batched_mp_bwd", _compare(
+                f"BatchedMP backward {name} B={b} N={n} F={f} H={h} "
+                f"({bm.route(n, h, h)} route) vs autograd of plain", got,
+                want, tol))
+    del adj, x0, dy, grads
+
+
+class MpBwdRecorder:
+    """Keeps the inputs of the largest kernel-9 call in ``BatchedMP``'s
+    backward (adjᵀ, dy, I_H) while a phase runs; counting stays in the
+    wrapper."""
+
+    def __init__(self):
+        from repro_torch.kernels import batched_mp as bm
+        self.call, self.size, self._orig = None, 0, bm._call
+
+        def wrapped(adj, x, w, counter):
+            if counter == "batched_mp_bwd" and adj.is_cuda:
+                size = adj.numel() + x.numel()
+                if size > self.size:
+                    self.call, self.size = (adj.shape[0], (adj, x, w)), size
+            return self._orig(adj, x, w, counter)
+        bm._call = wrapped
+
+    def close(self):
+        from repro_torch.kernels import batched_mp as bm
+        bm._call = self._orig
+
+
+def _card_batch(cell, n_classes: int, gen, dev) -> dict:
+    """A batch at the cell's shape, drawn on the card from ``gen``."""
+    import torch
+    out = {}
+    for key, (shape, _) in cell.batch_shapes.items():
+        if key == "adj":
+            out[key] = (torch.rand(shape, generator=gen, device=dev)
+                        < 0.2).float()
+        elif key == "feats":
+            out[key] = torch.randn(shape, generator=gen, device=dev)
+        else:
+            top = (n_classes if key == "labels"
+                   else cell.batch_shapes["feats"][0][0])
+            out[key] = torch.randint(0, top, shape, generator=gen,
+                                     device=dev, dtype=torch.int32)
+    return out
+
+
+def _train_steps(label, cell, state, batches, want=None) -> dict:
+    """Steps ``cell`` on each batch (a list, or a callable of the step
+    index), printing each step's seconds, loss, grad_norm and the peak
+    device memory; ``want``: the kernel launches each step must add."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    dev = cell.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"seconds": []}
+    for i in range(GNN_TRAIN_STEPS):
+        batch = batches(i) if callable(batches) else batches[i]
+        before = dict(_lib.LAUNCHES)
+        (state, m), dt = _timed(lambda: cell.step(state, batch))
+        step = {k: _lib.LAUNCHES[k] - before[k] for k in (want or {})}
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        out["seconds"].append(dt)
+        print(f"  {label} step {i}: {dt:.4f} s, loss {loss:.4f}, grad_norm "
+              f"{gnorm:.4f}, peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB"
+              + (f"; launches {step}" if want else ""), flush=True)
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"{label}: non-finite loss or gradient")
+        if want:
+            check(step == want, f"{label}: launches per step {step}, "
+                  f"expected {want}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def _state_close(label, got, want) -> None:
+    """Every leaf of a train state (params, m, v) on the card against the
+    CPU's at the model tolerance: rtol 1e-4, atol 1e-5 × max|want| (at
+    least 1e-5)."""
+    import torch
+    bad, worst = 0, 0.0
+    for a, b in zip(_leaves(got), _leaves(want)):
+        if b.dim() == 0 and b.dtype == torch.int32:
+            check(int(a) == int(b), f"{label}: AdamW step counts differ")
+            continue
+        err, n_bad, _ = close_stats(a.cpu(), b, FORWARD_RTOL,
+                                    forward_atol(b))
+        bad, worst = bad + n_bad, max(worst, err)
+    print(f"  card vs CPU {label}: params, m, v {bad} mismatches, max abs "
+          f"err {worst:.3e}", flush=True)
+    check(bad == 0, f"{label}: the card's train state differs from the CPU's")
+
+
+def _card_vs_cpu_steps(label, cfg, shape_name, shp, batches, gen, dev):
+    """The same steps of one train cell on the card and on the CPU from
+    one state: loss and grad_norm at rtol 1e-4, then the whole state."""
+    from repro_torch.models import api
+    cells = {d: api.build_cell(cfg, shape_name, device=d, shape_override=shp)
+             for d in (dev, "cpu")}
+    card = api.materialize_state(cells[dev], cfg, shape_name, gen)
+    host = _tree_to(card, "cpu")
+    for i, batch in enumerate(batches):
+        host, want = cells["cpu"].step(host, _tree_to(batch, "cpu"))
+        card, got = cells[dev].step(card, batch)
+        for key in ("loss", "grad_norm"):
+            a, b = float(got[key]), float(want[key])
+            check(abs(a - b) <= FORWARD_RTOL * abs(b),
+                  f"{label} step {i}: {key} {a} on the card, {b} on the CPU")
+        _state_close(f"{label} step {i} (loss {float(got['loss']):.6f})",
+                     card, host)
+
+
+def _padded_subgraph(g, feats, labels, shp, seed: int, dev):
+    """One NeighborSampler batch of ``shp.batch_nodes`` targets over ``g``
+    at ``shp.fanout``, padded to the minibatch cell's merged subgraph:
+    pad edges on the last (unused) node, labels only on the targets."""
+    import torch
+
+    from repro_torch.data.graph_data import NeighborSampler
+    from repro_torch.models.api import _gnn_subgraph_sizes
+    n_sub, m_sub = _gnn_subgraph_sizes(shp)
+    rng = np.random.default_rng(seed)
+    targets = rng.choice(g.n, shp.batch_nodes, replace=False)
+    (nodes, src, dst), dt = _timed(
+        lambda: NeighborSampler(g, shp.fanout, seed=seed).sample(targets))
+    check(len(nodes) < n_sub and len(src) <= m_sub,
+          "minibatch: the sample exceeds the cell's subgraph")
+    f = np.zeros((n_sub, feats.shape[1]), np.float32)
+    f[:len(nodes)] = feats[nodes]
+    lab = np.full(n_sub, -1, np.int32)
+    lab[:len(targets)] = labels[targets]
+    s = np.full(m_sub, n_sub - 1, np.int32)
+    d = np.full(m_sub, n_sub - 1, np.int32)
+    s[:len(src)], d[:len(dst)] = src, dst
+    print(f"  NeighborSampler: {shp.batch_nodes} targets at fanout "
+          f"{shp.fanout}: {len(nodes)} nodes, {len(src)} edges in {dt:.2f} s"
+          f", padded to {n_sub} x {m_sub}", flush=True)
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            (("feats", f), ("src", s), ("dst", d), ("labels", lab))}
+
+
+def gnn_train_phase(dev, seed: int, err: dict):
+    """GNN training at the published widths through build_cell: gin-tu and
+    gatedgcn on molecule (gin-tu also on 65,536 graphs; kernel 9 forward
+    and backward), graphsage-reddit on minibatch_lg (one NeighborSampler
+    batch over the reddit-like graph, then batches at the cell's shape)
+    and on ogb_products at full size; BatchedMP's backward against the
+    plain version; each conv's step cut to 2 layers on a 20k-node graph,
+    card vs CPU. Returns (counts, the largest backward kernel-9 call)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import shapes_for_family
+    from repro_torch.data.graph_data import synthetic_dataset
+    from repro_torch.graphs.generators import scale_free_digraph
+    from repro_torch.models import api
+    t_phase = time.perf_counter()
+    shapes = shapes_for_family("gnn")
+    print("gnn_train: BatchedMP backward parity, then the train cells",
+          flush=True)
+    mp_bwd_parity(dev, err)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 40)
+    rec = MpBwdRecorder()
+    reset_counters()
+    try:
+        mol = shapes["molecule"]
+        runs = [(arch, mol) for arch in GNN_TRAIN_MOLECULE] + [
+            ("gin-tu", dataclasses.replace(mol, batch_graphs=GNN_BULK_GRAPHS))]
+        for arch, shp in runs:
+            cfg = get_config(arch)
+            cell = api.build_cell(cfg, "molecule", device=dev,
+                                  shape_override=shp)
+            state = api.materialize_state(cell, cfg, "molecule", gen)
+            # gin: kernel 9 once a layer forward, and once a layer
+            # backward but the first, whose x (the features) and w (I_F)
+            # take no gradient
+            mp = 0 if cfg.conv == "gatedgcn" else cfg.n_layers
+            _train_steps(
+                f"{arch} ({cfg.n_layers} layers, d {cfg.d_hidden}, remat "
+                f"{cfg.remat}) molecule B {shp.batch_graphs}", cell, state,
+                lambda i: _card_batch(cell, shp.n_classes, gen, dev),
+                want={"batched_mp": mp, "batched_mp_bwd": max(mp - 1, 0)})
+            del cell, state
+        cfg = get_config("graphsage-reddit")
+        shp = shapes["minibatch_lg"]
+        cell = api.build_cell(cfg, "minibatch_lg", device=dev)
+        state = api.materialize_state(cell, cfg, "minibatch_lg", gen)
+        g, feats, labels, _ = synthetic_dataset("reddit", seed)
+        first = _padded_subgraph(g, feats, labels, shp, seed, dev)
+        del g, feats, labels
+        _train_steps(f"graphsage-reddit minibatch_lg "
+                     f"{cell.batch_shapes['feats'][0]}", cell, state,
+                     lambda i: first if i == 0 else
+                     _card_batch(cell, shp.n_classes, gen, dev))
+        del cell, state, first
+        torch.cuda.empty_cache()
+
+        shp = shapes["ogb_products"]
+        cell = api.build_cell(cfg, "ogb_products", device=dev)
+        n = cell.batch_shapes["feats"][0][0]
+        m = cell.batch_shapes["src"][0][0]
+        gr, dt = _timed(lambda: scale_free_digraph(
+            PRODUCTS_NODES, PRODUCTS_EDGES / PRODUCTS_NODES, seed=seed))
+        src, dst = gr.edges()
+        print(f"  ogb_products graph: scale_free_digraph({PRODUCTS_NODES}, "
+              f"{PRODUCTS_EDGES / PRODUCTS_NODES:.4f}): {gr.m} edges in "
+              f"{dt:.2f} s; padded to {n} nodes x {m} edges on the last "
+              f"node", flush=True)
+        pad = np.full(m - gr.m, n - 1, np.int32)
+        edges = {k: torch.from_numpy(np.concatenate([a.astype(np.int32),
+                                                     pad])).to(dev)
+                 for k, a in (("src", src), ("dst", dst))}
+        del gr, src, dst, pad
+        labels = torch.randint(0, shp.n_classes, (n,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        labels[PRODUCTS_NODES:] = -1
+        batch = {"feats": torch.randn((n, shp.d_feat), generator=gen,
+                                      device=dev),
+                 "labels": labels, **edges}
+        state = api.materialize_state(cell, cfg, "ogb_products", gen)
+        prod = _train_steps(f"graphsage-reddit ogb_products ({n} nodes, {m} "
+                            f"edges, d_feat {shp.d_feat})", cell, state,
+                            [batch] * GNN_TRAIN_STEPS)
+        del cell, state, batch, edges, labels
+        torch.cuda.empty_cache()
+    finally:
+        rec.close()
+    counts = read_counters()
+    print(f"  counts: {counts}", flush=True)
+    check(counts["batched_mp"] > 0 and counts["batched_mp_bwd"] > 0,
+          "gnn_train: kernel 9 was not launched forward and backward")
+
+    # card vs CPU: each conv cut to 2 layers on a 20k-node graph (the
+    # ogb_products widths), and gin-tu's molecule step (kernel 9)
+    c = GNN_CHECK
+    small = dataclasses.replace(shapes["ogb_products"], n_nodes=c["nodes"],
+                                n_edges=c["edges"])
+    for arch in GNN_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=c["layers"])
+        probe = api.build_cell(cfg, "ogb_products", device="cpu",
+                               shape_override=small)
+        batches = [_card_batch(probe, small.n_classes, gen, dev)
+                   for _ in range(2)]
+        _card_vs_cpu_steps(f"{arch} ({cfg.conv}, 2 layers, d "
+                           f"{cfg.d_hidden}) on {c['nodes']} nodes", cfg,
+                           "ogb_products", small, batches, gen, dev)
+    cfg = get_config("gin-tu")
+    probe = api.build_cell(cfg, "molecule", device="cpu")
+    _card_vs_cpu_steps("gin-tu molecule (kernel 9 forward and backward)",
+                       cfg, "molecule", mol,
+                       [_card_batch(probe, mol.n_classes, gen, dev)
+                        for _ in range(2)], gen, dev)
+    print(f"  gnn_train: {time.perf_counter() - t_phase:.1f} s, "
+          f"ogb_products peak {prod['peak_gb']:.2f} GB", flush=True)
+    return counts, rec.call
+
+
+def recsys_train_phase(dev, seed: int) -> dict:
+    """MIND's train cell at the published config (2^23 items, D 64, 255
+    negatives) on train_batch (B 65,536), uncut: three steps; then the
+    SMOKE config's step, card vs CPU, for two steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs.base import shapes_for_family
+    from repro_torch.models import api
+    t_phase = time.perf_counter()
+    cfg = get_config("mind")
+    cell = api.build_cell(cfg, "train_batch", device=dev)
+    B = cell.shape.batch
+    print(f"recsys_train: mind ({cfg.n_items} items x D {cfg.embed_dim}, "
+          f"{cfg.n_negatives} negatives, history {cfg.hist_len}) on "
+          f"train_batch B {B}", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 50)
+    state, dt = _timed(lambda: api.materialize_state(cell, cfg,
+                                                     "train_batch", gen))
+    print(f"  state: params and AdamW m, v "
+          f"{sum(t.numel() * 4 for t in _leaves(state) if t.dim()) / 1e9:.2f}"
+          f" GB on the card in {dt:.2f} s", flush=True)
+
+    def batch(_):
+        L = cfg.hist_len
+        return {"hist_ids": torch.randint(0, cfg.n_items, (B, L),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32),
+                "hist_mask": (torch.rand((B, L), generator=gen, device=dev)
+                              < 0.9).float(),
+                "target": torch.randint(0, cfg.n_items, (B,), generator=gen,
+                                        device=dev, dtype=torch.int32),
+                "negatives": torch.randint(0, cfg.n_items,
+                                           (B, cfg.n_negatives),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32)}
+    reset_counters()
+    out = _train_steps(f"mind train_batch B {B}", cell, state, batch)
+    del cell, state
+    torch.cuda.empty_cache()
+    small = get_smoke("mind")
+    shp = dataclasses.replace(shapes_for_family("recsys")["train_batch"],
+                              batch=RECSYS_CHECK_BATCH)
+    probe_cfg = small
+
+    def small_batch():
+        L = probe_cfg.hist_len
+        return {"hist_ids": torch.randint(0, small.n_items, (shp.batch, L),
+                                          generator=gen, device=dev,
+                                          dtype=torch.int32),
+                "hist_mask": (torch.rand((shp.batch, L), generator=gen,
+                                         device=dev) < 0.9).float(),
+                "target": torch.randint(0, small.n_items, (shp.batch,),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32),
+                "negatives": torch.randint(0, small.n_items,
+                                           (shp.batch, small.n_negatives),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32)}
+    _card_vs_cpu_steps(f"mind SMOKE ({small.n_items} items) train_batch B "
+                       f"{shp.batch}", small, "train_batch", shp,
+                       [small_batch() for _ in range(2)], gen, dev)
+    print(f"  recsys_train: {time.perf_counter() - t_phase:.1f} s, peak "
+          f"{out['peak_gb']:.2f} GB", flush=True)
+    return read_counters()
+
+
+def reach_service_phase(dev, seed: int) -> dict:
+    """``ReachabilityService`` over the products-like graph (244,902
+    nodes) on the card: 2^20 candidate pairs through
+    ``filter_unreachable_pairs`` (kernel 1, kernels 3 and 4 where phase 2
+    runs); the kept pairs of a 2^16 sample equal the host QueryEngine's."""
+    import torch
+
+    from repro_torch.data.graph_data import (ReachabilityService,
+                                             synthetic_dataset)
+    t_phase = time.perf_counter()
+    g, *_ = synthetic_dataset(REACH_DATASET, seed)
+    svc, dt = _timed(lambda: ReachabilityService(g, k=2, device=dev))
+    print(f"reach_service: synthetic_dataset({REACH_DATASET!r}) n={g.n} "
+          f"m={g.m}; ReachabilityService(k=2) built in {dt:.2f} s, phase 2 "
+          f"{svc.engine.phase2_mode}", flush=True)
+    rng = np.random.default_rng(seed + 60)
+    s = rng.integers(0, g.n, REACH_PAIRS)
+    t = rng.integers(0, g.n, REACH_PAIRS)
+    svc.filter_unreachable_pairs(s[:4096], t[:4096])        # warm up
+    svc.engine.stats.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    (ks, kt), dt = _timed(lambda: svc.filter_unreachable_pairs(s, t))
+    counts = read_counters()
+    st = svc.engine.stats
+    print(f"  {REACH_PAIRS} candidate pairs: {len(ks)} kept (unreachable) "
+          f"in {dt:.4f} s ({dt / REACH_PAIRS * 1e9:.1f} ns/pair); phase 1 "
+          f"POS {st.phase1_pos}, NEG {st.phase1_neg}, phase 2 "
+          f"{st.phase2_queries}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; counts "
+          f"{counts}", flush=True)
+    check(counts["stab_packed"] > 0, "reach_service: kernel 1 not launched")
+    if st.phase2_sparse:
+        check(counts["probe"] > 0 and counts["classify_emit"] > 0,
+              "reach_service: phase 2 ran without kernels 3 and 4")
+    idx = rng.choice(REACH_PAIRS, REACH_SAMPLE, replace=False)
+    key = s.astype(np.int64) * g.n + t
+    kept = np.isin(key[idx], ks.astype(np.int64) * g.n + kt)
+    host, dt = _timed(lambda: svc.host.batch(s[idx], t[idx]))
+    bad = int((kept != ~host).sum())
+    print(f"  {REACH_SAMPLE} sampled pairs against the host QueryEngine "
+          f"({dt:.2f} s): {int(kept.sum())} kept, {bad} mismatches; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(bad == 0, "reach_service: kept pairs differ from the host's")
+    return counts
 
 
 def _split(rows, label) -> dict:
@@ -2932,12 +3397,15 @@ def bwd_hd128_call(dev, seed: int):
 
 
 def _leaves(tree):
-    """The leaves of a nested dict, keys sorted."""
-    for key in sorted(tree):
-        if isinstance(tree[key], dict):
+    """The leaves of nested dicts (keys sorted) and lists."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
             yield from _leaves(tree[key])
-        else:
-            yield tree[key]
+    elif isinstance(tree, list):
+        for value in tree:
+            yield from _leaves(value)
+    else:
+        yield tree
 
 
 def _train_state_close(label, got, want, metrics, want_metrics) -> None:
@@ -2963,6 +3431,108 @@ def _train_state_close(label, got, want, metrics, want_metrics) -> None:
           f"{worst:.3e} (params at atol 2 lr = {two_lr:.3e}; m, v at rtol "
           f"{FORWARD_RTOL}, atol {FORWARD_ATOL} x max|want|)", flush=True)
     check(bad == 0, f"train {label}: the card's state differs from the CPU's")
+
+
+def ckpt_round_trip(tr) -> dict:
+    """One ``CheckpointManager.save`` of the Trainer's state at full width
+    under build/ (seconds until ``save`` returns, the host copy, and until
+    ``wait``, the write), then ``restore_latest``: the restored state must
+    equal the saved one bit for bit."""
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        free = shutil.disk_usage(work).free
+        mgr = CheckpointManager(work, keep_last=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(tr.step_idx, tr.state,
+                 extra={"data_state": tr.pipeline.state(tr.step_idx)})
+        returned = time.perf_counter() - t0
+        mgr.wait()
+        written = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in work.rglob("*") if p.is_file())
+        (restored, manifest), back = _timed(
+            lambda: mgr.restore_latest(tr.state))
+        same = all(a.dtype == b.dtype and a.device == b.device
+                   and torch.equal(a, b)
+                   for a, b in zip(_leaves(restored), _leaves(tr.state)))
+        print(f"  checkpoint at full width (step {manifest['step']}, "
+              f"{manifest['n_leaves']} leaves): {nbytes} bytes written "
+              f"({free / 1e9:.1f} GB free before); save returned after "
+              f"{returned:.2f} s (the host copy), written after {written:.2f}"
+              f" s; restore_latest {back:.2f} s; restored state equal bit "
+              f"for bit: {same}", flush=True)
+        check(same, "train: the restored checkpoint differs from the state")
+        del restored
+        return dict(bytes=nbytes, save_return_s=returned, save_s=written,
+                    restore_s=back)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def train_recovery(cfg, shp, dev, seed: int) -> None:
+    """The Trainer on the 2-layer float32 cut: 6 steps, a checkpoint every
+    2, a ``WorkerFailure`` injected at step 5 (rolled back to step 4);
+    its losses and final state against an uninterrupted run's, and a
+    second uninterrupted run against the first. Bit for bit when the two
+    uninterrupted runs agree bit for bit; else (an op of the step is not
+    deterministic on the card) at the model tolerance, naming the leaves
+    that differ between the two uninterrupted runs."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.launch.train import Trainer
+    from repro_torch.runtime.fault_tolerance import FaultInjector
+    from repro_torch.kernels import _lib
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    runs = {}
+    try:
+        for name, inj in (("uninterrupted", None), ("repeat", None),
+                          ("failed", FaultInjector.worker_failure_at(5))):
+            tr = Trainer(TRAIN_ARCH, cfg_override=cfg, batch_override=shp[0],
+                         seq_override=shp[1], ckpt_dir=str(work / name),
+                         fault_injector=inj, seed=seed + 2, device=dev)
+            tr.restore_or_init()
+            before = dict(_lib.LAUNCHES)
+            hist, dt = _timed(lambda: tr.run(6, ckpt_every=2, log_every=100))
+            launched = {k: _lib.LAUNCHES[k] - before[k]
+                        for k in ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv")}
+            runs[name] = (tr, {h["step"]: h["loss"] for h in hist})
+            print(f"  recovery run {name}: {len(hist)} steps run for 6 "
+                  f"({tr.recoveries} recoveries) in {dt:.2f} s; launches "
+                  f"{launched}; losses "
+                  f"{[round(v, 6) for v in runs[name][1].values()]}",
+                  flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    flat = {k: dict(_flatten_with_paths(v[0].state)) for k, v in runs.items()}
+    base = flat["uninterrupted"]
+
+    def differ(other):
+        return [p for p, t in base.items() if not torch.equal(t, other[p])]
+    noisy = differ(flat["repeat"])
+    moved = differ(flat["failed"])
+    same_loss = runs["failed"][1] == runs["uninterrupted"][1]
+    check(runs["failed"][0].recoveries == 1, "train: no recovery happened")
+    if not noisy and runs["repeat"][1] == runs["uninterrupted"][1]:
+        print(f"  recovery: two uninterrupted runs agree bit for bit; the "
+              f"recovered run: losses equal {same_loss}, leaves that differ "
+              f"{moved}", flush=True)
+        check(same_loss and not moved,
+              "train: the recovered run differs from the uninterrupted one")
+        return
+    print(f"  recovery: the uninterrupted runs differ between themselves in "
+          f"{noisy} (an op of the step not deterministic on the card); the "
+          f"recovered run held at the model tolerance", flush=True)
+    for key in (1, 5):
+        a, b = runs["failed"][1][key], runs["uninterrupted"][1][key]
+        check(abs(a - b) <= FORWARD_RTOL * abs(b),
+              f"train: the recovered run's loss at step {key} differs")
+    _state_close("recovered run vs uninterrupted", runs["failed"][0].state,
+                 runs["uninterrupted"][0].state)
 
 
 def train_phase(dev, seed: int):
@@ -3108,6 +3678,7 @@ def train_phase(dev, seed: int):
     torch.cuda.synchronize()
     opt_ms = events[-1][0].elapsed_time(events[-1][1])
     _train_split(rows, opt_ms, "train step")
+    ckpt_round_trip(tr)
     del layer0, seq0, tr, state, layers
     torch.cuda.empty_cache()
 
@@ -3136,6 +3707,8 @@ def train_phase(dev, seed: int):
                                              "labels": labs.to(dev)})
         print(f"  step {i}: CPU {dt:.2f} s", flush=True)
         _train_state_close(f"step {i}", card, host, got_m, want_m)
+    del cells, card, host
+    train_recovery(small, (c["batch"], c["seq"]), dev, seed)
     return counts, timing
 
 
@@ -4009,6 +4582,13 @@ def run(args, t_start: float) -> int:
         rs_counts, rs_calls = recsys_phase(dev, rec, args.seed)
         gnn_counts, gnn_calls = gnn_phase(dev, rec, args.seed)
         done("recsys, gnn")
+        rec.close()
+        gnn_train_counts, mp_bwd_call = gnn_train_phase(dev, args.seed, err)
+        done("gnn_train")
+        rs_train_counts = recsys_train_phase(dev, args.seed)
+        done("recsys_train")
+        reach_counts = reach_service_phase(dev, args.seed)
+        done("reach_service")
         lm_counts, lm_time = lm_phase(dev, args.seed)
         done("lm")
         train_counts, train_time = train_phase(dev, args.seed)
@@ -4021,7 +4601,9 @@ def run(args, t_start: float) -> int:
                     "phase2": p2_counts, "seeds64": s64_counts,
                     "dense": dense_counts, "recsys": rs_counts,
                     "gnn": gnn_counts, "lm": lm_counts,
-                    "train": train_counts}
+                    "train": train_counts, "gnn_train": gnn_train_counts,
+                    "recsys_train": rs_train_counts,
+                    "reach_service": reach_counts}
     for kname, meta in KERNELS.items():
         if meta["phase"] == "distributed":
             continue                      # on the ferrari index, below
@@ -4048,7 +4630,8 @@ def run(args, t_start: float) -> int:
                 "stab_naive": s64_calls["stab_naive"],
                 "merge_cover": wf_call,
                 "retrieval_score": rs_calls["retrieval_score"],
-                "batched_mp": gnn_calls["largest"]["batched_mp"]}
+                "batched_mp": gnn_calls["largest"]["batched_mp"],
+                "batched_mp_bwd": mp_bwd_call}
     # kernel 9 also at its smallest call, and at every other shape the gnn
     # phase called it with
     largest = recorded["batched_mp"][1]
@@ -4080,7 +4663,7 @@ def run(args, t_start: float) -> int:
     # (its device build peaks near 40 GB)
     del (rec, recorded, largest, smallest, stab_calls, main_calls, wf_call,
          p2_calls, p2_kept, s64_calls, dense_calls, rs_calls, gnn_calls,
-         churn_kept)
+         churn_kept, mp_bwd_call)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  left on the card here before the ferrari phase: "
@@ -4150,6 +4733,11 @@ def run(args, t_start: float) -> int:
             rows[-1]["launches_on_churn"] = churn_counts[kname]
         if kname == "merge_cover":
             rows[-1]["launches_on_churn_compact"] = churn_counts[kname]
+        if kname == "batched_mp":
+            # the dense-batch train steps' forwards (gin-tu, molecule)
+            rows[-1]["launches_on_gnn_train"] = gnn_train_counts[kname]
+        if kname in ("stab_packed", "probe", "classify_emit"):
+            rows[-1]["launches_on_reach_service"] = reach_counts[kname]
         if kname == "stab_packed":
             # ferrari-web's classify_16m cell call, at the published n
             t = times[FERRARI_LABEL]

@@ -1,4 +1,7 @@
-"""On-disk checkpoints in the reference package's format (numpy only)."""
-from .checkpoint import latest_step, restore_checkpoint, save_checkpoint  # noqa: F401
+"""On-disk checkpoints in the reference package's format, and the
+trainer's asynchronous checkpoint manager."""
+from .checkpoint import (CheckpointManager, latest_step,  # noqa: F401
+                         restore_checkpoint, restore_like, save_checkpoint)
 
-__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint"]
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint",
+           "restore_like", "save_checkpoint"]

@@ -1,2 +1,3 @@
-"""Synthetic data pipelines (numpy)."""
+"""Synthetic data pipelines (numpy): tokens, graphs, reachability
+workloads."""
 from .tokens import TokenPipeline  # noqa: F401

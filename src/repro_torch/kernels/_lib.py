@@ -81,6 +81,7 @@ class Counters(dict):
 
 LAUNCHES = Counters(stab_packed=0, stab_naive=0, probe=0, classify_emit=0,
                     merge_cover=0, retrieval_score=0, batched_mp=0,
+                    batched_mp_bwd=0,
                     flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
                     stab_packed_owned=0, probe_rows=0)
 

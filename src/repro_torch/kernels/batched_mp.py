@@ -17,6 +17,14 @@ dense-batch (molecule) forward, once per layer.
                adj, an F tile of x, its agg tile and the matching rows of
                w in shared memory, true float32 FMAs.
   batched_mp_plain — ``ref.batched_mp_ref``: two einsums.
+  BatchedMP — the autograd Function ``batched_mp`` applies: kernel 9
+               forward, and kernel 9 again as its own backward. For
+               ``y = (A x) w``: ``g = Aᵀ dy`` is one launch,
+               ``batched_mp(adjᵀ, dy, I_H)`` (counted under
+               ``LAUNCHES["batched_mp_bwd"]``); ``dx = g wᵀ`` and
+               ``dw = Σ_b x_bᵀ g_b`` (one GEMM over the B·N rows) are
+               ``torch.matmul``, products the reference also computes
+               outside any Pallas kernel. ``adj`` takes no gradient.
 
 A block has at most 227 KB of shared memory (the TPU kernel holds a whole
 graph in its 16 MiB of VMEM), so ``tiles`` picks the tiled route's row, F
@@ -143,7 +151,42 @@ def route(n: int, f: int, h: int, limit: int = H100_SMEM) -> str:
 
 def batched_mp(adj, x, w):
     """Kernel 9: (adj @ x) @ w, [B, N, H] float32, for adj [B, N, N],
-    x [B, N, F] and w [F, H] float32."""
+    x [B, N, F] and w [F, H] float32; differentiable in x and w
+    (``BatchedMP``). Raises ``ValueError`` if adj requires a gradient."""
+    if adj.requires_grad:
+        raise ValueError("batched_mp: adj takes no gradient (kernel 9's "
+                         "backward gives dx and dw only)")
+    return BatchedMP.apply(adj, x, w)
+
+
+class BatchedMP(torch.autograd.Function):
+    """``(adj @ x) @ w`` with kernel 9 forward and backward (the plain
+    version on CPU tensors, in both directions)."""
+
+    @staticmethod
+    def forward(ctx, adj, x, w):
+        ctx.save_for_backward(adj, x, w)
+        return _call(adj, x, w, "batched_mp")
+
+    @staticmethod
+    def backward(ctx, dy):
+        adj, x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            h = dy.shape[-1]
+            eye = torch.eye(h, dtype=dy.dtype, device=dy.device)
+            g = _call(adj.transpose(1, 2).contiguous(), dy.contiguous(), eye,
+                      "batched_mp_bwd")                       # Aᵀ dy
+            if ctx.needs_input_grad[1]:
+                dx = torch.matmul(g, w.t())
+            if ctx.needs_input_grad[2]:
+                dw = x.reshape(-1, x.shape[-1]).t() @ g.reshape(-1, h)
+        return None, dx, dw
+
+
+def _call(adj, x, w, counter: str):
+    """One kernel-9 call (counted under ``counter``) or, on CPU tensors,
+    the plain version."""
     if on_cpu(adj):
         return batched_mp_plain(adj, x, w)
     b, n, _ = adj.shape
@@ -159,10 +202,10 @@ def batched_mp(adj, x, w):
         return out
     if kind == "mma":
         plan = mma_plan(n, f, h, limit)
-        _lib.launch("batched_mp", "reach_batched_mp_mma", dev, *args,
+        _lib.launch(counter, "reach_batched_mp_mma", dev, *args,
                     out.data_ptr(), b, n, f, h, plan["pairs"],
                     plan["stages"])
     else:
-        _lib.launch("batched_mp", "reach_batched_mp", dev, *args,
+        _lib.launch(counter, "reach_batched_mp", dev, *args,
                     out.data_ptr(), b, n, f, h, *tiles(n, f, h, limit))
     return out

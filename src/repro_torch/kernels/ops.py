@@ -6,13 +6,19 @@ Each op dispatches by the tensors' device only: on the CPU the kernels'
 plain PyTorch versions run; on a CUDA device the hand-written kernels
 launch, or the call raises. No option selects the plain versions while a
 card is present.
+
+``segment_mp`` and ``embedding_bag`` stand for no Pallas kernel: the
+reference computes them with ``jax.ops.segment_*`` outside any kernel,
+and here they are ``index_add`` / ``scatter_reduce`` on either device.
+Ids must lie in range: where JAX drops or clamps an id out of range,
+PyTorch raises (or asserts on the card).
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from .batched_mp import batched_mp  # noqa: F401  (kernel 9)
+from .batched_mp import batched_mp  # noqa: F401  (kernel 9, differentiable)
 from .flash_attention import flash_attention
 from .frontier_fused import emit_plain, expand_frontier_loop_fused
 from .interval_stab import stab_naive, stab_packed, stab_packed_owned
@@ -127,3 +133,70 @@ def expand_frontier_overlay(dev: dict, ell, tail_src, tail_dst, is_hub,
                            max_steps=max_steps, cap=cap,
                            workspaces=workspaces,
                            can_reach_tail=can_reach_tail)
+
+
+# ------------------------------------------------------------ torch ops
+# Substrate ops of the GNN and recsys models (no Pallas kernel in the
+# reference either: ``jax.ops.segment_*`` there).
+
+class _SegmentSum(torch.autograd.Function):
+    """Σ of x's rows into n segments by ids (``index_add``); the backward
+    gathers the gradient at the ids. ``index_add``'s own backward keeps
+    x, the [m, F] messages, alive until the backward; this one keeps only
+    the ids (at ogb_products' 61.9M edges × 128 that is 31.7 GB less)."""
+
+    @staticmethod
+    def forward(ctx, x, ids, n: int):
+        ctx.save_for_backward(ids)
+        out = torch.zeros((n, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        return out.index_add_(0, ids, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return torch.index_select(grad, 0, ids), None, None
+
+
+def _segment_sum(x, ids, n: int):
+    return _SegmentSum.apply(x, ids, n)
+
+
+def segment_mp(x_src, dst_ids, n_nodes: int, reduce: str = "sum"):
+    """Message passing via edge-gather + segment reduction.
+
+    x_src: [m, F] gathered source features; dst_ids: [m] targets in
+    [0, n_nodes). ``max`` leaves an empty segment at -inf (the scatter's
+    identity, as ``jax.ops.segment_max`` does); ``mean`` at 0."""
+    if reduce == "sum":
+        return _segment_sum(x_src, dst_ids, n_nodes)
+    if reduce == "max":
+        lowest = (float("-inf") if x_src.dtype.is_floating_point
+                  else torch.iinfo(x_src.dtype).min)
+        out = torch.full((n_nodes, *x_src.shape[1:]), lowest,
+                         dtype=x_src.dtype, device=x_src.device)
+        idx = dst_ids.long().view(-1, *([1] * (x_src.dim() - 1)))
+        return out.scatter_reduce(0, idx.expand_as(x_src), x_src, "amax")
+    if reduce == "mean":
+        s = _segment_sum(x_src, dst_ids, n_nodes)
+        c = _segment_sum(x_src.new_ones((x_src.shape[0], 1)), dst_ids,
+                         n_nodes)
+        return s / torch.clamp(c, min=1.0)
+    raise ValueError(reduce)
+
+
+def embedding_bag(table, ids, bag_ids, n_bags: int, weights=None,
+                  mode: str = "sum"):
+    """EmbeddingBag: gather rows + segment-reduce into bags.
+
+    table: [V, D]; ids: [L] flat item ids; bag_ids: [L] bag assignment;
+    weights: optional [L] per-row weights."""
+    rows = torch.index_select(table, 0, ids)
+    if weights is not None:
+        rows = rows * weights[:, None]
+    if mode == "sum":
+        return _segment_sum(rows, bag_ids, n_bags)
+    if mode == "mean":
+        s = _segment_sum(rows, bag_ids, n_bags)
+        c = _segment_sum(rows.new_ones((ids.shape[0], 1)), bag_ids, n_bags)
+        return s / torch.clamp(c, min=1.0)
+    raise ValueError(mode)

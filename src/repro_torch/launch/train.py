@@ -1,17 +1,20 @@
-"""Training entry point of the PyTorch/CUDA port (the dense LMs).
+"""Fault-tolerant training entry point of the PyTorch/CUDA port (the
+dense LMs).
 
 Wires the config registry → the train cell (``models.api.build_cell``) →
-the token pipeline, and steps the model on one device: on a card the
-arch's published config (flash attention through kernels 6, 7 and 8), on
-the CPU its SMOKE config (the kernels' plain versions).
+the token pipeline → the checkpoint manager → the heartbeat and straggler
+monitors, and steps the model on one device: on a card the arch's
+published config (flash attention through kernels 6, 7 and 8), on the
+CPU its SMOKE config (the kernels' plain versions). The supervisor loop
+(``Trainer.run``) catches ``WorkerFailure`` / ``Preemption``, rebuilds the
+cell, rolls back to the last committed checkpoint and resumes.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --steps 3 --batch 16 --seq 4096
-    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20 \
+        --ckpt-dir build/ckpt --ckpt-every 5
 
-The reference's checkpoint manager, fault injection, heartbeat, straggler
-detection and elastic re-meshing are not ported (ROADMAP.md, Queue 1 item
-8): ``ckpt_dir`` and ``fault_injector`` raise ``NotImplementedError``.
+There is no elastic re-meshing: a cell runs on one device.
 """
 from __future__ import annotations
 
@@ -22,33 +25,37 @@ from typing import Optional
 
 import torch
 
+from ..checkpoint.checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke
 from ..configs.base import shapes_for_family
 from ..core.query_torch import resolve_device
 from ..data.tokens import TokenPipeline
 from ..models.api import build_cell, materialize_state
 from ..optim.optimizer import OptConfig
+from ..runtime.fault_tolerance import (FaultInjector, HeartbeatMonitor,
+                                       Preemption, StragglerDetector,
+                                       WorkerFailure)
 
 
 class Trainer:
     """Steps a train cell over ``TokenPipeline`` batches. ``smoke=None``
-    takes the published config on a card and SMOKE on the CPU."""
+    takes the published config on a card and SMOKE on the CPU.
+    ``ckpt_dir``: where ``run`` commits checkpoints and ``restore_or_init``
+    finds them; ``fault_injector``: scripted failures (tests, examples).
+    ``cfg_override``: a config to train instead of the arch's (a cut)."""
 
     def __init__(self, arch: str, smoke: Optional[bool] = None,
                  shape: str = "train_4k", ckpt_dir: Optional[str] = None,
-                 opt_cfg: Optional[OptConfig] = None, fault_injector=None,
+                 opt_cfg: Optional[OptConfig] = None,
+                 fault_injector: Optional[FaultInjector] = None,
                  batch_override: Optional[int] = None,
                  seq_override: Optional[int] = None, seed: int = 0,
-                 device="cuda"):
-        if ckpt_dir is not None or fault_injector is not None:
-            raise NotImplementedError(
-                "the checkpoint manager and fault injection of the trainer "
-                "are not ported to repro_torch yet (ROADMAP.md, Queue 1 "
-                "item 8)")
+                 device="cuda", cfg_override=None):
         self.device = resolve_device(device)
         if smoke is None:
             smoke = self.device.type == "cpu"
-        self.cfg = get_smoke(arch) if smoke else get_config(arch)
+        self.cfg = cfg_override or (get_smoke(arch) if smoke
+                                    else get_config(arch))
         shp = shapes_for_family(self.cfg.family)[shape]
         if batch_override or seq_override:
             shp = replace(shp, batch=batch_override or shp.batch,
@@ -58,48 +65,110 @@ class Trainer:
         self.shape = shp
         self.shape_name = shape
         self.opt_cfg = opt_cfg or OptConfig(warmup_steps=10)
-        self.cell = build_cell(self.cfg, shape, device=self.device,
-                               shape_override=shp, opt_cfg=self.opt_cfg)
+        self.cell = self._build_cell()
+        self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        self.monitor = HeartbeatMonitor(n_workers=1, timeout_s=3600)
+        self.straggler = StragglerDetector()
+        self.injector = fault_injector
         self.seed = seed
         self.pipeline = TokenPipeline(self.cfg.vocab, shp.batch, shp.seq_len,
                                       seed=seed)
         self.state = None
         self.step_idx = 0
+        self.recoveries = 0
         self.metrics: dict = {}          # the last step's, as floats
         self.history: list = []
 
-    def init_state(self):
+    def _build_cell(self):
+        # rebuilt after every failure (the reference's re-mesh hook)
+        return build_cell(self.cfg, self.shape_name, device=self.device,
+                          shape_override=self.shape, opt_cfg=self.opt_cfg)
+
+    # ----------------------------------------------------------- lifecycle
+    def _fresh_state(self):
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
-        self.state = materialize_state(self.cell, self.cfg, self.shape_name,
-                                       gen)
+        return materialize_state(self.cell, self.cfg, self.shape_name, gen)
+
+    def init_state(self):
+        self.state = self._fresh_state()
+
+    def restore_or_init(self) -> bool:
+        """The last committed checkpoint's state and data cursor (True), or
+        a fresh state (False)."""
+        if self.ckpt is not None:
+            like = self.state if self.state is not None else \
+                self._fresh_state()
+            restored, manifest = self.ckpt.restore_latest(like)
+            if restored is not None:
+                self.state = restored
+                self.step_idx = manifest["extra"]["data_state"]["step"]
+                return True
+            if self.state is None:
+                self.state = like
+                return False
+        self.init_state()
+        return False
+
+    def _save(self):
+        self.ckpt.save(self.step_idx, self.state, extra={
+            "data_state": self.pipeline.state(self.step_idx)})
 
     def _one_step(self) -> float:
         toks, labs = self.pipeline.batch_at(self.step_idx)
         batch = {"tokens": torch.from_numpy(toks).to(self.device),
                  "labels": torch.from_numpy(labs).to(self.device)}
         t0 = time.perf_counter()
+        if self.injector is not None:
+            self.injector.maybe_fire(self.step_idx)
         self.state, metrics = self.cell.step(self.state, batch)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt = time.perf_counter() - t0
         self.metrics = {k: float(v) for k, v in metrics.items()}
         loss = self.metrics["loss"]
+        slow = self.straggler.observe(self.step_idx, dt)
+        self.monitor.beat(0)
         self.history.append({"step": self.step_idx, "loss": loss,
-                             "seconds": dt})
+                             "seconds": dt, "straggler": slow})
         self.step_idx += 1
         return loss
 
-    def run(self, n_steps: int, log_every: int = 10) -> list:
-        """Steps until ``n_steps`` steps are done in all; returns the
-        history."""
+    def run(self, n_steps: int, ckpt_every: int = 10,
+            max_recoveries: int = 3, log_every: int = 10) -> list:
+        """Steps until ``n_steps`` steps are done in all, committing a
+        checkpoint every ``ckpt_every`` steps and at the end; a
+        ``WorkerFailure`` or ``Preemption`` rebuilds the cell and resumes
+        from the last committed step (a cold start without one), at most
+        ``max_recoveries`` times. Returns the history (re-run steps
+        included)."""
         if self.state is None:
             self.init_state()
         while self.step_idx < n_steps:
-            loss = self._one_step()
-            if self.step_idx % log_every == 0 or self.step_idx == n_steps:
-                print(f"step {self.step_idx:5d} loss {loss:.4f} "
-                      f"{self.history[-1]['seconds']:.3f}s", flush=True)
+            try:
+                loss = self._one_step()
+                if self.step_idx % log_every == 0 or self.step_idx == n_steps:
+                    print(f"step {self.step_idx:5d} loss {loss:.4f} "
+                          f"{self.history[-1]['seconds']:.3f}s ewma "
+                          f"{self.straggler.ewma:.3f}s", flush=True)
+                if self.ckpt and self.step_idx % ckpt_every == 0:
+                    self._save()
+            except (WorkerFailure, Preemption) as e:
+                self.recoveries += 1
+                print(f"[FT] {e} at step {self.step_idx}; "
+                      f"recovery {self.recoveries}/{max_recoveries}",
+                      flush=True)
+                if self.recoveries > max_recoveries:
+                    raise
+                if isinstance(e, WorkerFailure):
+                    self.monitor.mark_dead(e.worker)
+                self.cell = self._build_cell()
+                if not self.restore_or_init():
+                    print("[FT] no checkpoint found: cold restart",
+                          flush=True)
+        if self.ckpt:
+            self._save()
+            self.ckpt.wait()
         return self.history
 
 
@@ -111,17 +180,25 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="commit checkpoints here and resume from the "
+                         "last committed one")
+    ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the published config, the CUDA kernels) or "
                          "cpu (the SMOKE config, the plain versions)")
     args = ap.parse_args(argv)
     tr = Trainer(args.arch, batch_override=args.batch, seq_override=args.seq,
-                 seed=args.seed, device=args.device)
+                 seed=args.seed, device=args.device, ckpt_dir=args.ckpt_dir)
     cfg = tr.cfg
     print(f"{cfg.arch_id} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.dtype}, {cfg.microbatches} microbatches) on {tr.device}: "
           f"batch {tr.shape.batch} x seq {tr.shape.seq_len}", flush=True)
-    hist = tr.run(args.steps, log_every=args.log_every)
+    if tr.restore_or_init():
+        print(f"resumed from {args.ckpt_dir} at step {tr.step_idx}",
+              flush=True)
+    hist = tr.run(args.steps, ckpt_every=args.ckpt_every,
+                  log_every=args.log_every)
     print(f"done: {len(hist)} steps, final loss {hist[-1]['loss']:.4f}")
     return hist
 

@@ -1,18 +1,21 @@
 """Uniform step contract for the (architecture × shape) cells the port
-serves.
+serves and trains.
 
 ``build_cell(cfg, shape_name, device)`` returns a CellSpec with
 
     step(state, batch) -> (state, out)
 
 over tensors on the cell's device, plus the batch's shapes and dtypes.
-Kinds: serve and retrieval (recsys), train, prefill and decode (the dense
-LMs), classify (ferrari-web, the paper's own system: phase-1 verdicts over
-the fused index layout, kernel 1 on a card). The LM train step accumulates float32 gradients over
-``cfg.microbatches`` microbatches, then takes one AdamW step in place.
-The recsys ``train`` kind and the GNN's cells are not ported (ROADMAP.md,
-Queue 1 item 8) and raise ``NotImplementedError``; the GNN dense-batch
-forward is reached through ``models.gnn.forward_dense``.
+Kinds: train (the dense LMs, the GNNs' full_graph / minibatch /
+dense_batch, MIND's sampled softmax), serve and retrieval (recsys),
+prefill and decode (the dense LMs), classify (ferrari-web, the paper's
+own system: phase-1 verdicts over the fused index layout, kernel 1 on a
+card). A train step takes the gradient, then one AdamW step in place; the
+LM step accumulates float32 gradients over ``cfg.microbatches``
+microbatches first. The GNN minibatch kind runs ``forward_full`` over the
+merged sampled subgraph, as the reference's step does; the dense-batch
+kind runs ``forward_dense``, whose aggregation is kernel 9 forward and
+backward on a card (the reference's step passes ``use_pallas=False``).
 A cell runs on one device, with one exception: given a
 ``core.distributed.ServingMesh`` whose model axis divides n, the ferrari
 cell takes its published ``index_placement="sharded"``: its state is the
@@ -28,12 +31,15 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..configs.base import (FerrariServeConfig, LMConfig, RecsysConfig,
-                            shapes_for_family)
+from ..configs.base import (FerrariServeConfig, GNNConfig, LMConfig,
+                            RecsysConfig, shapes_for_family)
 from ..core.query_torch import resolve_device
-from ..optim.optimizer import OptConfig, adamw_init, adamw_update
+from ..optim.optimizer import (OptConfig, _leaves, _map, adamw_init,
+                               adamw_update)
+from . import gnn as gnn_mod
 from . import recsys as rec_mod
 from . import transformer as tf_mod
+from .common import cross_entropy
 
 PAD_UNIT = 512  # the reference's padding unit for data-parallel dims
 
@@ -56,13 +62,110 @@ class CellSpec:
     model_flops_fn: Optional[Callable] = None
 
 
-_NOT_PORTED = ("{what} is not ported to repro_torch yet (ROADMAP.md, "
-               "Queue 1 item 8: training of the recsys and GNN families)")
+def value_and_grad(loss_fn, params):
+    """(detached loss, grads in ``params``' tree) of ``loss_fn(params)``.
+    The grads are taken on views of the params (``detach``, no copy), so
+    the AdamW step after it may update the params in place."""
+    live = _map(lambda t: t.detach().requires_grad_(True), params)
+    loss = loss_fn(live)
+    flat = _leaves(live)
+    grads = iter(torch.autograd.grad(loss, flat, materialize_grads=True))
+    return loss.detach(), _map(lambda _: next(grads), live)
 
+
+def _train_step(opt_cfg: OptConfig, loss_fn):
+    """step(state, batch) of one gradient and one AdamW step in place."""
+    def step(state, batch):
+        loss, grads = value_and_grad(lambda p: loss_fn(p, batch),
+                                      state["params"])
+        params, opt, metrics = adamw_update(opt_cfg, state["params"], grads,
+                                            state["opt"])
+        metrics["loss"] = loss
+        return {"params": params, "opt": opt}, metrics
+    return step
+
+
+# ------------------------------------------------------------------ GNN ----
+
+def _gnn_subgraph_sizes(shape):
+    """Sampled-subgraph (GraphSAINT-style) sizes from batch_nodes ×
+    fanout."""
+    hops = [shape.batch_nodes]
+    for f in shape.fanout:
+        hops.append(hops[-1] * f)
+    n_sub = _pad(sum(hops))
+    m_sub = _pad(sum(hops[i + 1] for i in range(len(shape.fanout))))
+    return n_sub, m_sub
+
+
+def _masked_ce(logits, labels):
+    """Mean cross-entropy over the nodes whose label is >= 0."""
+    mask = (labels >= 0).float()
+    lab = torch.clamp(labels, min=0).long()
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, 1, lab[:, None])[:, 0]
+    return torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1)
+
+
+def _gnn_cell(cfg: GNNConfig, shape, opt_cfg: OptConfig):
+    i32, f32 = torch.int32, torch.float32
+    d = cfg.d_hidden
+    if shape.kind in ("full_graph", "minibatch"):
+        if shape.kind == "full_graph":
+            n, m = _pad(shape.n_nodes), _pad(shape.n_edges)
+        else:
+            n, m = _gnn_subgraph_sizes(shape)
+        batch_shapes = {"feats": ((n, shape.d_feat), f32),
+                        "src": ((m,), i32), "dst": ((m,), i32),
+                        "labels": ((n,), i32)}
+
+        def loss_fn(p, batch):
+            logits = gnn_mod.forward_full(cfg, p, batch["feats"],
+                                          batch["src"], batch["dst"], n)
+            return _masked_ce(logits, batch["labels"])
+
+        # 3x fwd-cost (fwd+bwd); per layer: edge msgs (m*d) + dense (n*d*d)
+        flops_fn = lambda: 3 * cfg.n_layers * (2 * m * d + 2 * n * d * d) \
+            + 3 * 2 * n * shape.d_feat * d                       # noqa: E731
+        return _train_step(opt_cfg, loss_fn), batch_shapes, None, flops_fn
+
+    if shape.kind == "dense_batch":
+        B, N = shape.batch_graphs, shape.nodes_per_graph
+        batch_shapes = {"adj": ((B, N, N), f32),
+                        "feats": ((B, N, shape.d_feat), f32),
+                        "labels": ((B,), i32)}
+
+        def loss_fn(p, batch):
+            logits = gnn_mod.forward_dense(cfg, p, batch["adj"],
+                                           batch["feats"])
+            return cross_entropy(logits, batch["labels"])
+
+        flops_fn = lambda: 3 * cfg.n_layers * B * (                # noqa: E731
+            2 * N * N * d + 2 * N * d * d)
+        return _train_step(opt_cfg, loss_fn), batch_shapes, None, flops_fn
+    raise ValueError(shape.kind)
+
+
+# --------------------------------------------------------------- recsys ----
 
 def _recsys_cell(cfg: RecsysConfig, shape, opt_cfg: OptConfig):
     Lh = cfg.hist_len
+    D, K = cfg.embed_dim, cfg.n_interests
     i32, f32 = torch.int32, torch.float32
+
+    if shape.kind == "train":
+        B = shape.batch
+        batch_shapes = {"hist_ids": ((B, Lh), i32),
+                        "hist_mask": ((B, Lh), f32),
+                        "target": ((B,), i32),
+                        "negatives": ((B, cfg.n_negatives), i32)}
+        flops_fn = lambda: 3 * B * (                               # noqa: E731
+            2 * Lh * D * D + cfg.capsule_iters * 4 * K * Lh * D
+            + 2 * (1 + cfg.n_negatives) * D)
+        step = _train_step(
+            opt_cfg, lambda p, batch: rec_mod.train_loss(cfg, p, batch))
+        return step, batch_shapes, None, flops_fn
 
     if shape.kind == "serve":
         B = shape.batch
@@ -92,8 +195,7 @@ def _recsys_cell(cfg: RecsysConfig, shape, opt_cfg: OptConfig):
             return state, scores
 
         return step, batch_shapes
-    raise NotImplementedError(
-        _NOT_PORTED.format(what=f"the recsys {shape.kind!r} cell"))
+    raise ValueError(shape.kind)
 
 
 def _lm_grads(cfg: LMConfig, params, tokens, labels, loss_chunk):
@@ -187,8 +289,7 @@ def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig):
             return {"params": state["params"], "cache": cache}, logits
 
         return step, batch_shapes
-    raise NotImplementedError(
-        _NOT_PORTED.format(what=f"the LM {shape.kind!r} cell"))
+    raise ValueError(shape.kind)
 
 
 def _ferrari_cell(cfg: FerrariServeConfig, shape, opt_cfg: OptConfig,
@@ -227,7 +328,8 @@ def _ferrari_cell(cfg: FerrariServeConfig, shape, opt_cfg: OptConfig,
     return step, batch_shapes, state_shapes, flops_fn
 
 
-_CELLS = {"recsys": _recsys_cell, "lm": _lm_cell, "ferrari": _ferrari_cell}
+_CELLS = {"recsys": _recsys_cell, "lm": _lm_cell, "gnn": _gnn_cell,
+          "ferrari": _ferrari_cell}
 
 
 def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
@@ -237,9 +339,6 @@ def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
     placement (its device is then the cell's); the other families run on
     one device and refuse one."""
     shape = shape_override or shapes_for_family(cfg.family)[shape_name]
-    if cfg.family not in _CELLS:
-        raise NotImplementedError(_NOT_PORTED.format(
-            what=f"the {cfg.family} {shape.kind!r} cell"))
     kw = {}
     if mesh is not None:
         if cfg.family != "ferrari":
@@ -264,7 +363,15 @@ def materialize_state(cell: CellSpec, cfg, shape_name: str,
     """Real (allocated) state on the cell's device, drawn from ``gen`` (a
     generator on that device)."""
     if cfg.family == "recsys":
-        return {"params": rec_mod.init_params(cfg, gen, cell.device)}
+        state = {"params": rec_mod.init_params(cfg, gen, cell.device)}
+        if cell.kind == "train":
+            state["opt"] = adamw_init(state["params"])
+        return state
+    if cfg.family == "gnn":
+        shape = cell.shape
+        p = gnn_mod.init_params(cfg, gen, shape.d_feat, shape.n_classes,
+                                cell.device)
+        return {"params": p, "opt": adamw_init(p)}
     if cfg.family == "lm":
         state = {"params": tf_mod.init_params(cfg, gen, cell.device)}
         if cell.kind == "train":
@@ -276,5 +383,4 @@ def materialize_state(cell: CellSpec, cfg, shape_name: str,
         return state
     if cfg.family == "ferrari":
         raise ValueError("use core.packed.PackedIndex for real ferrari state")
-    raise NotImplementedError(_NOT_PORTED.format(
-        what=f"state for the {cfg.family} family"))
+    raise ValueError(cfg.family)

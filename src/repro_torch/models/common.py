@@ -49,3 +49,12 @@ def rotate(x, cos, sin):
 def apply_rope(x, positions, theta: float):
     """x: [..., S, H, hd]; positions: [..., S] int."""
     return rotate(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+def cross_entropy(logits, labels):
+    """Stable CE in float32; logits [..., V], labels [...] int. Returns
+    the mean."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(lse - ll)

@@ -1,14 +1,27 @@
-"""GNN model zoo (GCN, GraphSAGE, GatedGCN, GIN): the dense-batch forward.
+"""GNN model zoo: GCN, GraphSAGE, GatedGCN, GIN.
 
-Molecule batches carry a dense [B, N, N] adjacency; the aggregation of
-the gin, gcn and sage convs is the ``batched_mp`` contract (kernel 9 on
-a card): ``(adj @ x) @ w``. gatedgcn's per-edge gates are plain einsums,
-as in the reference. The full-graph and sampled-minibatch forwards
-(segment reductions over edge lists) and training are not ported yet.
+Message passing is edge-gather (``index_select``) → ``ops.segment_mp``
+scatter (``index_add``), as the reference's ``jax.ops.segment_*``. Three
+input regimes, one weight set:
+
+  * full_graph  — edge lists over the whole graph (Cora / ogbn-products)
+  * minibatch   — sampled block-bipartite subgraphs (GraphSAGE regime);
+                  layer l aggregates hop-(l+1) nodes into hop-l nodes
+  * dense_batch — [B, N, N] adjacency for molecule batches; the gin, gcn
+                  and sage aggregation is the ``batched_mp`` contract,
+                  ``(adj @ x) @ w`` (kernel 9 on a card, forward and
+                  backward); gatedgcn's per-edge gates are plain einsums,
+                  as in the reference.
+
+Every regime runs on one device (the reference's ``ShardingCtx`` has no
+counterpart here). ``cfg.remat`` checkpoints each layer of
+``forward_full`` (``torch.utils.checkpoint``, non-reentrant), as the
+reference wraps each layer in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import GNNConfig
 from ..kernels import ops
@@ -57,10 +70,108 @@ def _act(h, last: bool):
     return h if last else torch.relu(h)
 
 
+# ------------------------------------------------------------ one conv ----
+
+def _conv_sparse(cfg: GNNConfig, lp, x_src, x_dst, src, dst, n_dst,
+                 deg_dst=None, deg_src=None):
+    """One conv layer on an edge list. x_src: features of the source side
+    (hop l+1); x_dst: features of the destination side (hop l, the ones
+    being updated). src / dst index rows of x_src / x_dst."""
+    msgs = torch.index_select(x_src, 0, src)
+
+    def ssum(v):
+        return ops.segment_mp(v, dst, n_dst, "sum")
+
+    if cfg.conv == "gcn":
+        # symmetric normalization 1/sqrt(d_i d_j)
+        norm = torch.rsqrt(torch.clamp(
+            torch.index_select(deg_src, 0, src)
+            * torch.index_select(deg_dst, 0, dst), min=1.0))
+        agg = ssum(msgs * norm[:, None])
+        agg = agg + x_dst * torch.rsqrt(
+            torch.clamp(deg_dst * deg_dst, min=1.0))[:, None]
+        return agg @ lp["w_self"] + lp["b"]
+    if cfg.conv == "sage":
+        cnt = ssum(msgs.new_ones((msgs.shape[0], 1)))
+        agg = ssum(msgs) / torch.clamp(cnt, min=1.0)
+        return x_dst @ lp["w_self"] + agg @ lp["w_neigh"] + lp["b"]
+    if cfg.conv == "gin":
+        agg = ssum(msgs)
+        h = (1.0 + lp["eps"]) * x_dst + agg
+        h = torch.relu(h @ lp["w_self"] + lp["b"])
+        return h @ lp["w2"] + lp["b2"]
+    if cfg.conv == "gatedgcn":
+        gate = torch.sigmoid(
+            torch.index_select(x_src, 0, src) @ lp["wA"]
+            + torch.index_select(x_dst, 0, dst) @ lp["wB"])
+        vals = (msgs @ lp["wV"]) * gate
+        agg = ssum(vals) / (ssum(gate) + 1e-6)
+        return x_dst @ lp["w_self"] + agg + lp["b"]
+    raise ValueError(cfg.conv)
+
+
+def _ones(n: int, device):
+    return torch.ones(n, dtype=torch.float32, device=device)
+
+
+# ------------------------------------------------------------- full graph --
+
+def forward_full(cfg: GNNConfig, params, feats, src, dst, n_nodes: int):
+    """Full-graph node classification logits [n, n_classes]; src, dst [m]
+    int edge endpoints in [0, n_nodes)."""
+    deg_in = ops.segment_mp(_ones(dst.shape[0], dst.device), dst, n_nodes)
+    deg_out = ops.segment_mp(_ones(src.shape[0], src.device), src, n_nodes)
+    x = feats
+    L = cfg.n_layers
+
+    def one_layer(lp, x, last):
+        x = _conv_sparse(cfg, lp, x, x, src, dst, n_nodes,
+                         deg_dst=deg_in, deg_src=deg_out)
+        return _act(x, last)
+
+    for i, lp in enumerate(params["layers"]):
+        if cfg.remat:
+            x = checkpoint(one_layer, lp, x, i == L - 1, use_reentrant=False)
+        else:
+            x = one_layer(lp, x, i == L - 1)
+    return x @ params["readout"] + params["readout_b"]
+
+
+# -------------------------------------------------------------- minibatch --
+
+def forward_minibatch(cfg: GNNConfig, params, hop_feats, hop_edges):
+    """Sampled-subgraph forward (GraphSAGE regime).
+
+    hop_feats: list of [n_hop_l, d] feature tensors, hop 0 = the targets.
+    hop_edges: list of (src_idx, dst_idx) for each layer l, indexing into
+    hop l+1 (src) and hop l (dst).
+    """
+    L = cfg.n_layers
+    xs = list(hop_feats)
+    for l in range(L):  # layer l consumes hop l+1 into hop l, iteratively
+        new_xs = []
+        lp = params["layers"][l]
+        for h in range(L - l):
+            src, dst = hop_edges[h]
+            n_dst = xs[h].shape[0]
+            deg = ops.segment_mp(_ones(dst.shape[0], dst.device), dst, n_dst)
+            out = _conv_sparse(cfg, lp, xs[h + 1], xs[h], src, dst, n_dst,
+                               deg_dst=deg + 1.0,
+                               deg_src=_ones(xs[h + 1].shape[0],
+                                             xs[h + 1].device))
+            new_xs.append(_act(out, l == L - 1))
+        xs = new_xs
+    return xs[0] @ params["readout"] + params["readout_b"]
+
+
+# ------------------------------------------------------------ dense batch --
+
+
 def forward_dense(cfg: GNNConfig, params, adj, feats):
     """Molecule batches: adj [B, N, N], feats [B, N, d]. Graph-level logits
     [B, n_classes] via mean readout. Aggregation = batched dense matmul
-    (kernel 9 on a card)."""
+    (kernel 9 on a card, and kernel 9 again in the backward: the
+    reference's train step runs its plain einsums instead)."""
     x = feats
     L = cfg.n_layers
     for i, lp in enumerate(params["layers"]):

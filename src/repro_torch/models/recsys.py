@@ -1,14 +1,14 @@
-"""MIND: Multi-Interest Network with Dynamic routing (recsys arch), serving.
+"""MIND: Multi-Interest Network with Dynamic routing (recsys arch).
 
 Item embedding table → behavior-to-interest (B2I) capsule routing with a
-shared bilinear map (capsule_iters=3) → max-interest retrieval scoring
-(kernel 10). The table lookups are ``index_select`` gathers; the routing
-einsums run in full float32 (cuBLAS without TF32, as PyTorch's default
-"highest" matmul precision gives).
+shared bilinear map (capsule_iters=3) → label-aware attention and a
+sampled softmax (train) or max-interest retrieval scoring (serve, kernel
+10). The table lookups are ``index_select`` gathers (``ops.embedding_bag``
+is the general form); the routing einsums run in full float32 (cuBLAS
+without TF32, as PyTorch's default "highest" matmul precision gives).
 
-Shapes: serve 512 / 262144 users; retrieval_cand scores one user against
-10^6 candidates. Training (label-aware attention, sampled softmax) is not
-ported yet.
+Shapes: train_batch B=65536; serve 512 / 262144 users; retrieval_cand
+scores one user against 10^6 candidates.
 """
 from __future__ import annotations
 
@@ -56,6 +56,33 @@ def interests(cfg: RecsysConfig, params, hist_ids, hist_mask):
                                     w * hist_mask[:, None, :], se))
         b_r = b_r + torch.einsum("bke,ble->bkl", caps, se)
     return caps                                              # [B, K, D]
+
+
+def label_aware_user_vec(caps, target_e, p: float = 2.0):
+    """Label-aware attention (train): attend interests by target
+    affinity^p. ``torch.maximum`` against a tensor, as ``jnp.maximum``:
+    at a tie the gradient is split evenly."""
+    att = torch.einsum("bkd,bd->bk", caps, target_e)
+    floor = torch.tensor(1e-9, dtype=att.dtype, device=att.device)
+    att = torch.softmax(torch.pow(torch.maximum(att, floor), p), dim=1)
+    return torch.einsum("bk,bkd->bd", att, caps)
+
+
+def train_loss(cfg: RecsysConfig, params, batch):
+    """Sampled-softmax loss: the positive target against
+    ``cfg.n_negatives`` uniform ids."""
+    caps = interests(cfg, params, batch["hist_ids"], batch["hist_mask"])
+    table = params["table"]
+    pos_e = torch.index_select(table, 0, batch["target"])          # [B, D]
+    negs = batch["negatives"]
+    neg_e = torch.index_select(table, 0, negs.reshape(-1)).view(
+        *negs.shape, table.shape[1])                               # [B, Nn, D]
+    user = label_aware_user_vec(caps, pos_e)                       # [B, D]
+    pos_s = torch.einsum("bd,bd->b", user, pos_e)
+    neg_s = torch.einsum("bd,bnd->bn", user, neg_e)
+    logits = torch.cat([pos_s[:, None], neg_s], dim=1).float()
+    lse = torch.logsumexp(logits, dim=1)
+    return torch.mean(lse - logits[:, 0])
 
 
 def serve_interests(cfg: RecsysConfig, params, hist_ids, hist_mask):

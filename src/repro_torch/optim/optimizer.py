@@ -1,5 +1,5 @@
 """AdamW, its learning-rate schedules and global-norm clipping over nested
-dicts of tensors (the counterpart of the reference's ``optim/
+dicts and lists of tensors (the counterpart of the reference's ``optim/
 optimizer.py``).
 
 The moments m and v are float32 whatever the parameter dtype. Weight decay
@@ -39,16 +39,22 @@ def _f32(x) -> torch.Tensor:
 
 
 def _leaves(tree) -> list:
-    """The leaves in sorted-key order (as ``jax.tree.leaves``), so that
-    trees built in different orders line up."""
+    """The leaves in sorted-key order, lists in order (as
+    ``jax.tree.leaves``), so that trees built in different orders line
+    up."""
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, list):
+        return [leaf for value in tree for leaf in _leaves(value)]
     return [tree]
 
 
 def _map(fn, tree):
+    """``fn`` over the leaves, visited in ``_leaves``' order."""
     if isinstance(tree, dict):
-        return {key: _map(fn, value) for key, value in tree.items()}
+        return {key: _map(fn, tree[key]) for key in sorted(tree)}
+    if isinstance(tree, list):
+        return [_map(fn, value) for value in tree]
     return fn(tree)
 
 

@@ -1384,3 +1384,134 @@ def test_serve_lm_full_config_on_card(dev):
     cfg = get_config("tinyllama-1.1b")
     assert res["tokens"].shape == (2, 4)
     assert _lib.LAUNCHES["flash_fwd"] == cfg.n_layers
+
+
+# ------------------------------------------------ GNN and recsys training --
+@pytest.mark.parametrize("b,n,f,h", [(128, 30, 16, 64), (128, 30, 64, 64),
+                                     (65, 30, 70, 70), (4, 100, 64, 64),
+                                     (2, 40, 64, 200)])
+def test_batched_mp_backward_matches_plain(dev, b, n, f, h):
+    """BatchedMP's dx, dw (kernel 9 on adjᵀ, dy, I_H, then two GEMMs)
+    against autograd of the plain einsums on the same card tensors."""
+    from repro_torch.kernels.batched_mp import BatchedMP
+    rng = np.random.default_rng(b + n + f + h)
+    adj = torch.from_numpy((rng.random((b, n, n)) < 0.2).astype(
+        np.float32)).to(dev)
+    x0 = torch.from_numpy(rng.standard_normal((b, n, f)).astype(
+        np.float32)).to(dev)
+    w0 = torch.from_numpy(rng.standard_normal((f, h)).astype(
+        np.float32)).to(dev)
+    dy = torch.from_numpy(rng.standard_normal((b, n, h)).astype(
+        np.float32)).to(dev)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    _lib.LAUNCHES.reset()
+    dx, dw = torch.autograd.grad(BatchedMP.apply(adj, x, w), (x, w), dy)
+    assert _lib.LAUNCHES["batched_mp"] == 1
+    assert _lib.LAUNCHES["batched_mp_bwd"] == 1
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    dxr, dwr = torch.autograd.grad(batched_mp_plain(adj, xr, wr), (xr, wr),
+                                   dy)
+    for got, want in ((dx, dxr), (dw, dwr)):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def _card_state(state, dev):
+    if isinstance(state, dict):
+        return {k: _card_state(v, dev) for k, v in state.items()}
+    if isinstance(state, list):
+        return [_card_state(v, dev) for v in state]
+    # AdamW's step count stays on the host
+    return state if state.dim() == 0 and state.dtype == torch.int32 \
+        else state.to(dev)
+
+
+def _state_close(got, want, lr):
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    for (path, g), (_, w) in zip(_flatten_with_paths(got),
+                                 _flatten_with_paths(want)):
+        g = g.cpu()
+        if path.startswith("params/"):     # an update may flip near 0
+            torch.testing.assert_close(g, w, rtol=0, atol=2 * lr, msg=path)
+        else:
+            torch.testing.assert_close(g, w, **forward_tol(w), msg=path)
+
+
+def _two_steps_card_vs_cpu(dev, cfg, shape_name, shp, batches):
+    cpu = api.build_cell(cfg, shape_name, device="cpu", shape_override=shp)
+    card = api.build_cell(cfg, shape_name, shape_override=shp)
+    host = api.materialize_state(cpu, cfg, shape_name,
+                                 torch.Generator().manual_seed(0))
+    on_card = _card_state(host, dev)
+    host = _card_state(on_card, "cpu")          # a copy, not the same tensors
+    for batch in batches:
+        host, want = cpu.step(host, batch)
+        on_card, got = card.step(on_card, {k: v.to(dev)
+                                           for k, v in batch.items()})
+        for key in ("loss", "grad_norm"):
+            torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4,
+                                       atol=0)
+        _state_close(on_card, host, float(want["lr"]))
+
+
+def test_gin_molecule_train_step_on_card_matches_cpu(dev):
+    cfg = get_config("gin-tu")
+    shp = shapes_for_family("gnn")["molecule"]
+    rng = np.random.default_rng(5)
+    b, n = shp.batch_graphs, shp.nodes_per_graph
+    batches = [{"adj": torch.from_numpy((rng.random((b, n, n)) < 0.2).astype(
+                    np.float32)),
+                "feats": torch.from_numpy(rng.standard_normal(
+                    (b, n, shp.d_feat)).astype(np.float32)),
+                "labels": torch.from_numpy(rng.integers(
+                    0, shp.n_classes, b).astype(np.int32))}
+               for _ in range(2)]
+    _lib.LAUNCHES.reset()
+    _two_steps_card_vs_cpu(dev, cfg, "molecule", shp, batches)
+    # kernel 9 forward once a layer a step, and backward once a layer but
+    # the first (its x, the features, and w, I_F, take no gradient)
+    assert _lib.LAUNCHES["batched_mp"] == 2 * cfg.n_layers
+    assert _lib.LAUNCHES["batched_mp_bwd"] == 2 * (cfg.n_layers - 1)
+
+
+def test_mind_train_step_on_card_matches_cpu(dev):
+    cfg = get_smoke("mind")
+    shp = dataclasses.replace(shapes_for_family("recsys")["train_batch"],
+                              batch=256)
+    rng = np.random.default_rng(6)
+    L, B = cfg.hist_len, shp.batch
+    batches = [{"hist_ids": torch.from_numpy(rng.integers(
+                    0, cfg.n_items, (B, L)).astype(np.int32)),
+                "hist_mask": torch.from_numpy((rng.random((B, L)) < 0.9)
+                                              .astype(np.float32)),
+                "target": torch.from_numpy(rng.integers(
+                    0, cfg.n_items, B).astype(np.int32)),
+                "negatives": torch.from_numpy(rng.integers(
+                    0, cfg.n_items, (B, cfg.n_negatives)).astype(np.int32))}
+               for _ in range(2)]
+    _two_steps_card_vs_cpu(dev, cfg, "train_batch", shp, batches)
+
+
+def test_trainer_recovery_on_card_bit_for_bit(dev, tmp_path):
+    """tinyllama's widths cut to 2 layers in float32: a worker failure at
+    step 5 rolls back to step 4's checkpoint, and the run ends with the
+    losses and params of an uninterrupted run, bit for bit."""
+    from repro_torch.checkpoint.checkpoint import _flatten_with_paths
+    from repro_torch.launch.train import Trainer
+    from repro_torch.runtime.fault_tolerance import FaultInjector
+    cut = dataclasses.replace(get_config("tinyllama-1.1b"), n_layers=2,
+                              dtype="float32", microbatches=2)
+    runs = []
+    for name, inj in (("clean", None),
+                      ("failed", FaultInjector.worker_failure_at(step=5))):
+        tr = Trainer("tinyllama-1.1b", cfg_override=cut, batch_override=2,
+                     seq_override=256, ckpt_dir=str(tmp_path / name),
+                     fault_injector=inj, device=dev)
+        tr.restore_or_init()
+        hist = tr.run(6, ckpt_every=2, log_every=100)
+        runs.append((tr, {h["step"]: h["loss"] for h in hist}))
+    (clean, want), (failed, got) = runs
+    assert failed.recoveries == 1 and got == want
+    for (path, a), (_, b) in zip(_flatten_with_paths(failed.state),
+                                 _flatten_with_paths(clean.state)):
+        assert torch.equal(a, b), path

@@ -1,8 +1,9 @@
 """The port's examples and the serve CLI's live-update flags on the CPU.
 
-``examples/torch_{quickstart,reachability_serve,shortest_path_pruning}.py``
-run end to end with ``--device cpu`` at a small size (each in its own
-process, as a user runs them). The CLI's ``--updates`` / ``--update-batch``
+``examples/torch_{quickstart,reachability_serve,shortest_path_pruning,
+lm_train,gnn_train}.py`` run end to end with ``--device cpu`` at a small
+size (each in its own process, as a user runs them; the LM example
+through its injected failure and recovery). The CLI's ``--updates`` / ``--update-batch``
 churn loop gives the reference CLI's answers, phase mix and overlay
 counters on the same graph and seed (the reference on its XLA loop, whose
 overflow rule differs from the fused rule the port keeps, so
@@ -53,6 +54,23 @@ def test_shortest_path_pruning_example():
     out = _run("torch_shortest_path_pruning.py", "--device", "cpu",
                "--nodes", "2000", "--pairs", "4")
     assert "identical distances" in out and "on cpu" in out
+
+
+def test_lm_train_example_recovers_from_its_injected_failure():
+    out = _run("torch_lm_train.py", "--device", "cpu", "--steps", "8",
+               "--fail-at", "5", "--ckpt-every", "2", "--batch", "4",
+               "--seq", "32")
+    assert "[FT] worker 0 failed: injected at step 5" in out
+    assert "trained 8 steps on cpu with 1 recovery(ies)" in out
+
+
+def test_gnn_train_example():
+    out = _run("torch_gnn_train.py", "--device", "cpu", "--steps", "21",
+               "--pairs", "2000")
+    assert "verified unreachable by FERRARI (k=2) on cpu" in out
+    losses = [float(line.split()[-1]) for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 2 and losses[1] < losses[0]
 
 
 ARGV = ["--nodes", "2000", "--queries", "2048", "--k", "1", "--no-seeds",

@@ -43,7 +43,10 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.reach.frontend.router",
             "repro_torch.reach.frontend.cache",
             "repro_torch.reach.frontend.stats",
-            "repro_torch.core.distributed"} <= mods
+            "repro_torch.core.distributed",
+            "repro_torch.runtime.fault_tolerance",
+            "repro_torch.data.graph_data",
+            "repro_torch.checkpoint.checkpoint"} <= mods
 
 
 def test_no_source_file_imports_jax_or_reference():
@@ -83,16 +86,16 @@ print(len(sys.argv) - 1)
 
 
 def test_examples_import_neither_jax_nor_reference():
-    """The port's three examples name neither jax nor the reference, and
+    """The port's five examples name neither jax nor the reference, and
     importing them (their ``__main__`` blocks aside) pulls in neither."""
     files = sorted((ROOT / "examples").glob("torch_*.py"))
     assert [f.name for f in files] == [
-        "torch_quickstart.py", "torch_reachability_serve.py",
-        "torch_shortest_path_pruning.py"]
+        "torch_gnn_train.py", "torch_lm_train.py", "torch_quickstart.py",
+        "torch_reachability_serve.py", "torch_shortest_path_pruning.py"]
     assert [f.name for f in files if IMPORT.search(f.read_text())] == []
     env = dict(os.environ, PYTHONPATH=str(SRC))
     r = subprocess.run([sys.executable, "-c", EXAMPLE_PROBE,
                         *map(str, files)], env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.split() == ["3"]
+    assert r.stdout.split() == ["5"]

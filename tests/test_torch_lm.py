@@ -26,7 +26,6 @@ from repro.models import transformer as ref_tf
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import MoESpec, shapes_for_family
 from repro_torch.launch import serve
-from repro_torch.launch.train import Trainer
 from repro_torch.models import api, common, transformer
 from repro_torch.models.convert import params_from_arrays
 
@@ -178,13 +177,15 @@ def test_generate_greedy_on_cpu():
     assert int(res["tokens"].max()) < cfg.vocab
 
 
-def test_unported_lm_parts_raise(tmp_path):
+def test_unported_lm_parts_raise():
     with pytest.raises(KeyError, match="Queue 1 item 8"):
         get_config("phi3.5-moe-42b-a6.6b")
     with pytest.raises(KeyError, match="Queue 1 item 8"):
         get_smoke("moonshot-v1-16b-a3b")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Trainer("tinyllama-1.1b", device="cpu", ckpt_dir=str(tmp_path))
+        api.build_cell(dataclasses.replace(get_smoke("llama3-8b"),
+                                           kv_cache_dtype="int8"),
+                       "decode_32k", device="cpu")
     moe = dataclasses.replace(get_smoke("llama3-8b"),
                               moe=MoESpec(n_experts=4, top_k=2))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):

@@ -3,7 +3,10 @@ kernel 10's plain version against the reference's Pallas
 ``retrieval_score`` (interpret mode) at the reference tests' sweep
 shapes, the capsule routing (``interests``), ``retrieval_scores`` with the
 reference's Pallas kernel, and the ``serve`` and ``retrieval`` cells
-through both packages' ``build_cell`` at the SMOKE config. The params
+through both packages' ``build_cell`` at the SMOKE config; training:
+``label_aware_user_vec`` and the sampled-softmax ``train_loss`` with
+their gradients against ``jax.value_and_grad``, and two steps of the
+``train`` cell against the reference's jitted step. The params
 come from the reference's ``init_params`` and cross over through
 ``models.convert.params_from_arrays``; the inputs are numpy, from a seed.
 
@@ -33,7 +36,7 @@ from repro_torch.kernels import _lib, ops
 from repro_torch.kernels.retrieval_score import (retrieval_score,
                                                  retrieval_score_plain)
 from repro_torch.models import api, recsys
-from repro_torch.models.convert import params_from_arrays
+from repro_torch.models.convert import params_from_arrays, state_from_arrays
 
 pytestmark = pytest.mark.arch
 
@@ -164,12 +167,122 @@ def test_materialize_state_shapes_match_reference():
 
 
 def test_unported_cells_and_archs_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.build_cell(get_smoke("mind"), "train_batch", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.build_cell(get_smoke("gin-tu"), "molecule", device="cpu")
+    """What stays unported: the MoE configs, the int8 KV cache, and a
+    serving mesh given to a cell other than ferrari-web's."""
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("phi3.5-moe-42b-a6.6b")
+    int8 = dataclasses.replace(get_smoke("llama3-8b"), kv_cache_dtype="int8")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.build_cell(int8, "decode_32k", device="cpu")
+    with pytest.raises(NotImplementedError, match="one device"):
+        api.build_cell(get_smoke("gin-tu"), "molecule", device="cpu",
+                       mesh=object())
+
+
+# ----------------------------------------------------------- training ----
+def _train_batch(rng, cfg, b):
+    ids, mask = _history(rng, cfg, b)
+    return {"hist_ids": ids, "hist_mask": mask,
+            "target": rng.integers(0, cfg.n_items, b).astype(np.int32),
+            "negatives": rng.integers(0, cfg.n_items,
+                                      (b, cfg.n_negatives)).astype(np.int32)}
+
+
+def _jax_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def test_label_aware_user_vec_and_grads_match_reference():
+    rng = np.random.default_rng(11)
+    caps = rng.standard_normal((8, 4, 16)).astype(np.float32)
+    tgt = rng.standard_normal((8, 16)).astype(np.float32)
+    tgt[0] = 0.0              # every affinity 0: all at the 1e-9 floor
+    caps[1, 2] = 0.0          # one interest of zero affinity
+
+    def f(c, t):
+        return jnp.sum(jnp.sin(ref_rec.label_aware_user_vec(c, t)))
+
+    want, (wc, wt) = jax.value_and_grad(f, argnums=(0, 1))(
+        jnp.asarray(caps), jnp.asarray(tgt))
+    c = torch.from_numpy(caps).requires_grad_()
+    t = torch.from_numpy(tgt).requires_grad_()
+    got = torch.sum(torch.sin(recsys.label_aware_user_vec(c, t)))
+    gc, gt = torch.autograd.grad(got, (c, t))
+    np.testing.assert_allclose(float(got.detach()), float(want),
+                               **FORWARD_TOL)
+    for g, w in ((gc, wc), (gt, wt)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **FORWARD_TOL)
+
+
+def test_train_loss_and_grads_match_reference():
+    cfg = ref_get_smoke("mind")
+    p, tp = _params(cfg, seed=3)
+    batch = _train_batch(np.random.default_rng(12), cfg, 32)
+    want, wgrads = jax.value_and_grad(
+        lambda q: ref_rec.train_loss(cfg, q, _jax_batch(batch)))(p)
+    loss, grads = api.value_and_grad(
+        lambda q: recsys.train_loss(get_smoke("mind"), q,
+                                    _torch_batch(batch)), tp)
+    np.testing.assert_allclose(float(loss), float(want), **FORWARD_TOL)
+    assert set(grads) == set(wgrads)
+    for k, w in wgrads.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(grads[k].numpy(), w, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(w).max()),
+                                   err_msg=k)
+
+
+def test_recsys_train_cell_two_steps_match_reference():
+    cfg, pcfg = ref_get_smoke("mind"), get_smoke("mind")
+    shp = dataclasses.replace(shapes_for_family("recsys")["train_batch"],
+                              batch=64)
+    pshp = dataclasses.replace(port_shapes_for_family("recsys")[
+        "train_batch"], batch=64)
+    ref_cell = ref_api.build_cell(cfg, "train_batch", shape_override=shp)
+    cell = api.build_cell(pcfg, "train_batch", device="cpu",
+                          shape_override=pshp)
+    assert cell.kind == "train"
+    for key, (shape, dtype) in cell.batch_shapes.items():
+        assert tuple(shape) == tuple(ref_cell.batch_sds[key].shape), key
+        assert str(dtype).split(".")[-1] == str(ref_cell.batch_sds[key].dtype)
+    assert cell.model_flops_fn() == ref_cell.model_flops_fn()
+    state = ref_api.materialize_state(ref_cell, cfg, "train_batch",
+                                      jax.random.PRNGKey(4))
+    tstate = state_from_arrays("recsys", jax.tree.map(np.asarray, state),
+                               "cpu")
+    step = jax.jit(ref_cell.step)
+    rng = np.random.default_rng(13)
+    for _ in range(2):
+        batch = _train_batch(rng, cfg, 64)
+        state, metrics = step(state, _jax_batch(batch))
+        tstate, tmetrics = cell.step(tstate, _torch_batch(batch))
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(float(tmetrics[key]),
+                                       float(metrics[key]), rtol=1e-4,
+                                       err_msg=key)
+        for k, w in state["params"].items():
+            np.testing.assert_allclose(tstate["params"][k].numpy(),
+                                       np.asarray(w), **FORWARD_TOL,
+                                       err_msg=k)
+        for name in ("m", "v"):
+            for k, w in state["opt"][name].items():
+                np.testing.assert_allclose(tstate["opt"][name][k].numpy(),
+                                           np.asarray(w), **FORWARD_TOL,
+                                           err_msg=f"{name}/{k}")
+    assert int(tstate["opt"]["step"]) == 2
+
+
+def test_materialize_recsys_train_state_has_opt():
+    cell = api.build_cell(get_smoke("mind"), "train_batch", device="cpu")
+    state = api.materialize_state(cell, get_smoke("mind"), "train_batch",
+                                  torch.Generator().manual_seed(0))
+    assert set(state) == {"params", "opt"}
+    assert set(state["opt"]["m"]) == set(state["params"])
+    assert int(state["opt"]["step"]) == 0
 
 
 @pytest.mark.parametrize("arch", ARCHS)
