@@ -110,6 +110,24 @@ card:
            whole beside SDPA on the same tensors and on k, v expanded to
            32 heads; then the same widths cut to 2 layers in float32, a
            512-token prompt and 8 decode steps, card against CPU.
+  moe      the MoE LMs with the int8 KV cache through
+           ``launch.serve.generate``: moonshot-v1-16b-a3b at its published
+           config (48 layers, 64 experts top 6, bf16, 56.1 GB of random
+           weights) on one prompt of 16,384 tokens (prefill_32k's 32 x
+           32,768 cut by the card's memory; kernel 6 once per layer), the
+           cache re-encoded to int8, 32 greedy decode steps; the tokens
+           each expert took and the share of assignments dropped by
+           capacity, per prefill and per decode step; layer 0's attention
+           call (16 heads over 16 kv heads) held against the plain version
+           on its last 256 query rows and timed beside SDPA; the int8
+           decode attention at layer 0 against the same step over the
+           bf16 cache (rtol = atol = 5e-2); then phi3.5-moe-42b-a6.6b at
+           full width with 24 of its 32 layers (62.9 GB): a 4,096-token
+           prompt, 16 decode steps, its grouped (G 4) layer-0 call held
+           and timed the same way; then moonshot's widths cut to 2 layers
+           in float32, a 512-token prompt and 8 int8 decode steps, card
+           against CPU: logits, the route and [E, C] token tables, the
+           int8 caches.
   train    tinyllama-1.1b at its published widths and full depth (22
            layers, bf16, remat, 4 microbatches) through
            ``launch.train.Trainer`` on train_4k (seq 4096; batch cut 256
@@ -185,7 +203,7 @@ dense phase's largest call, and kernels 1 to 4 beside their launch floor
 (``zero_()`` of an output as large, timed the same way).
 ``--ferrari-only`` runs the kernels' build and the ferrari phase alone
 and prints no result lines; only with it, ``--ferrari-nodes`` cuts the
-phase's graph.
+phase's graph. ``--moe-only`` does the same for the moe phase.
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -266,6 +284,22 @@ FLASH_BWD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
 # key, so dS = P·(dP - delta) cancels) holds float32 rounding noise, well
 # under this floor (flash_bwd_parity prints it)
 BWD_NOISE_FLOOR = 1e-5
+# the moe phase: moonshot at its published config on one prompt of 16,384
+# tokens (prefill_32k's 32 x 32,768 cut: 56.1 GB of weights, a 6.5 GB
+# bf16 prefill cache and its 3.3 GB int8 copy fit the card, 32,768 tokens
+# do not); phi3.5-moe at full width, 24 of its 32 layers (83.7 GB at 32)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_PROMPT = 16_384
+MOE_DECODE = 32
+MOE_PHI = dict(arch="phi3.5-moe-42b-a6.6b", layers=24, prompt=4096,
+               steps=16)
+MOE_CHECK = dict(layers=2, prompt=512, steps=8)   # card vs CPU, float32
+# int8 decode attention vs the same step over the bf16 cache: the
+# reference's own tolerance (tests/test_kv_int8.py)
+INT8_DECODE_TOL = dict(rtol=5e-2, atol=5e-2)
+ROUTE_TIE = 1e-6            # K-th minus (K+1)-th probability: a near tie
+ROUTE_TIE_SHARE = 1e-3      # at most this share of tokens near a tie
+INT8_OFF_SHARE = 1e-4       # int8 values one quantum apart, card vs CPU
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_BATCH = 16               # train_4k's batch 256 cut to 4 x 4 sequences
 TRAIN_STEPS = 3                # timed, after one warm-up step
@@ -304,9 +338,11 @@ KERNELS = {
         source="src/repro_torch/csrc/batched_mp_mma.cu",
         replaces="src/repro/kernels/batched_mp.py:31",
         call="src/repro/models/api.py:278", phase="gnn_train"),
+    # also on the moe phase's prefills (moonshot, phi3.5-moe)
     "flash_fwd": dict(
         source="src/repro_torch/csrc/flash_fwd_wgmma.cu",
-        replaces="src/repro/kernels/flash_attention.py:101", phase="lm"),
+        replaces="src/repro/kernels/flash_attention.py:101", phase="lm",
+        also=("moe",)),
     "flash_bwd_dq": dict(
         source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:172",
@@ -3270,6 +3306,425 @@ def lm_phase(dev, seed: int):
     return counts, timing
 
 
+class ExpertLoad:
+    """Counts, per ``transformer.dispatch_tables`` call (one a layer), the
+    assignments routed to each expert (a ``scatter_add_`` kept on the
+    card: ``torch.bincount`` would sync for its length); an expert takes
+    the first C of its queue and drops the rest. A context manager that
+    wraps the module's function while it is open."""
+
+    def __init__(self, tf):
+        self.tf, self.fn, self.calls = tf, tf.dispatch_tables, []
+
+    def __enter__(self):
+        import torch
+
+        def counted(gates, experts, n_experts, cap):
+            flat = experts.reshape(-1)
+            routed = torch.zeros(n_experts, dtype=torch.int64,
+                                 device=flat.device).scatter_add_(
+                0, flat, torch.ones_like(flat))
+            self.calls.append((routed, cap))
+            return self.fn(gates, experts, n_experts, cap)
+        self.tf.dispatch_tables = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.dispatch_tables = self.fn
+
+    def groups(self, n_layers: int) -> list:
+        """Per group of ``n_layers`` calls (a prefill, a decode step): the
+        slots C, the tokens each expert took summed over the layers, the
+        assignments routed and dropped, and each layer's drop share."""
+        import torch
+        routed = torch.stack([c for c, _ in self.calls]).cpu()
+        caps = torch.tensor([cap for _, cap in self.calls])
+        taken = torch.minimum(routed, caps[:, None])
+        out = []
+        for g0 in range(0, routed.shape[0], n_layers):
+            r, t = routed[g0:g0 + n_layers], taken[g0:g0 + n_layers]
+            layer_drop = (r - t).sum(1).double() / r.sum(1)
+            out.append(dict(cap=int(caps[g0]), taken=t.sum(0).tolist(),
+                            routed=int(r.sum()), dropped=int((r - t).sum()),
+                            layer_drop=layer_drop.tolist()))
+        return out
+
+
+def _load_lines(load, cfg) -> dict:
+    """Prints and returns the expert load of a generate call: its prefill
+    and each decode step."""
+    import statistics
+    prefill, *steps = load.groups(cfg.n_layers)
+    E = cfg.moe.n_experts
+
+    def spread(taken):
+        return (f"min {min(taken)}, median {statistics.median(taken):g}, "
+                f"max {max(taken)}")
+    share = prefill["dropped"] / prefill["routed"]
+    print(f"  expert load, prefill (C {prefill['cap']} slots an expert a "
+          f"layer): tokens each of the {E} experts took, summed over "
+          f"{cfg.n_layers} layers: {spread(prefill['taken'])}; "
+          f"{prefill['dropped']} of {prefill['routed']} assignments dropped "
+          f"by capacity ({share:.4%}; by layer "
+          f"{[round(x, 4) for x in prefill['layer_drop']]})", flush=True)
+    print(f"    by expert: {prefill['taken']}", flush=True)
+    step_share = [s["dropped"] / s["routed"] for s in steps]
+    decode_taken = [sum(s["taken"][e] for s in steps) for e in range(E)]
+    print(f"  expert load, {len(steps)} decode steps (C {steps[0]['cap']}): "
+          f"share dropped a step {[round(x, 4) for x in step_share]}; "
+          f"tokens each expert took over the steps and layers: "
+          f"{spread(decode_taken)}", flush=True)
+    print(f"    by expert: {decode_taken}", flush=True)
+    return dict(prefill_cap=prefill["cap"], prefill_taken=prefill["taken"],
+                prefill_drop_share=share,
+                prefill_layer_drop=prefill["layer_drop"],
+                decode_cap=steps[0]["cap"], decode_drop_share=step_share,
+                decode_taken=decode_taken)
+
+
+def int8_decode_parity(q, k, v, pos: int, label: str) -> None:
+    """The int8 decode attention at ``pos`` (layer 0's cache re-encoded
+    by ``quantize_cache``) against the same step over the bf16 cache."""
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.transformer import quantize_cache
+    c = quantize_cache({"k": k[None], "v": v[None]})
+    want = decode_attention(q, k, v, pos)
+    got = decode_attention(q, c["k"][0], c["v"][0], pos,
+                           k_scale=c["k_scale"][0], v_scale=c["v_scale"][0])
+    err, bad, rel = close_stats(got.float(), want.float(), **INT8_DECODE_TOL)
+    print(f"  parity int8 decode attention vs the bf16 cache at position "
+          f"{pos}, {label}: {bad} mismatches, max abs err {err:.3e}, "
+          f"max|want| {float(want.abs().max()):.3e}, max rel err {rel:.3e} "
+          f"(rtol {INT8_DECODE_TOL['rtol']}, atol {INT8_DECODE_TOL['atol']})",
+          flush=True)
+    check(bad == 0, "moe: the int8 decode attention is off the bf16 one")
+
+
+def moe_serve(dev, cfg, prompt: int, steps: int, seed: int, cut: str,
+              int8_check: bool) -> dict:
+    """``cfg`` at full width through ``launch.serve.generate``: one prompt
+    of ``prompt`` tokens, ``steps`` int8 decode steps; launches, memory,
+    expert load; kernel 6 on layer 0's call against plain and timed."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params, dt = _timed(lambda: tf.init_params(cfg, gen, dev))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    moe = cfg.moe
+    print(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd {cfg.hd}, "
+          f"{moe.n_experts} experts top {moe.top_k} (d_ff {cfg.d_ff}, "
+          f"capacity factor {moe.capacity_factor}), vocab {cfg.vocab}, "
+          f"{cfg.dtype}, kv cache {cfg.kv_cache_dtype}; {cut}; weights "
+          f"{n_bytes / 1e9:.2f} GB on the card in {dt:.2f} s", flush=True)
+    toks = torch.randint(0, cfg.vocab, (1, prompt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    serve.generate(cfg, params, toks[:, :256], 2)          # warm up
+
+    captured = []
+    attention = ops.attention
+
+    def capture(q, k, v, **kw):
+        if not captured:          # layer 0's call, by reference
+            captured.append((q, k, v, kw["causal"], kw["q_offset"]))
+        return attention(q, k, v, **kw)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    ops.attention = capture
+    try:
+        with ExpertLoad(tf) as load:
+            res = serve.generate(cfg, params, toks, steps + 1)
+    finally:
+        ops.attention = attention
+    counts = read_counters()
+    peak = torch.cuda.max_memory_allocated(dev)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    ms_tok = res["decode_s"] / res["decode_steps"] * 1e3
+    print(f"  prefill {res['prefill_s']:.3f} s ({prompt / res['prefill_s']:.0f}"
+          f" tokens/s), time to first token {res['ttft_s']:.3f} s, int8 "
+          f"re-encode of the cache {res['quantize_s']:.3f} s; "
+          f"{res['decode_steps']} decode steps in {res['decode_s']:.3f} s, "
+          f"{ms_tok:.2f} ms per decoded token; peak device memory "
+          f"{peak / 1e9:.2f} GB of {total / 1e9:.2f} GB; tokens "
+          f"{res['tokens'][0, :8].tolist()}...", flush=True)
+    print(f"  counts: {counts} (flash_fwd per prefill: {cfg.n_layers} "
+          f"layers)", flush=True)
+    check(counts["flash_fwd"] == cfg.n_layers,
+          f"moe: kernel 6 launches differ from {cfg.arch_id}'s layers")
+    check(peak < total, "moe: peak memory above the card's")
+    check(int(res["tokens"].min()) >= 0
+          and int(res["tokens"].max()) < cfg.vocab, "moe: token out of range")
+    stats = _load_lines(load, cfg)
+    del load
+
+    # where the time goes: a prefill and a decode step profiled; then the
+    # prefill's routes and [E, C] tables, every layer, against the CPU's
+    # on the same inputs
+    max_seq = prompt + steps + 1
+    rows = profile_window(lambda: tf.prefill(cfg, params, toks, max_seq),
+                          f"{cfg.arch_id} prefill of {prompt} tokens", top=8,
+                          wall=res["prefill_s"])
+    split = _split(rows, "prefill")
+    with RouteLog(tf, inputs=True) as log:
+        logits, cache = tf.prefill(cfg, params, toks, max_seq)
+    routes = hold_routes(f"{cfg.arch_id} at full width, its prefill",
+                         log.calls, log.on_host(), moe.n_experts)
+    del log
+    cache = tf.quantize_cache(cache)
+    nxt = logits.argmax(-1, keepdim=True).to(torch.int32)
+    profile_window(lambda: tf.decode_step(cfg, params, cache, nxt, prompt),
+                   f"{cfg.arch_id} int8 decode step at position {prompt}",
+                   top=8)
+    del cache, logits
+
+    q, k, v, causal, q_offset = captured.pop()
+    if int8_check:
+        int8_decode_parity(q[:, -1:], k, v, prompt - 1,
+                           f"{cfg.arch_id} layer 0")
+    n = LM_PARITY_ROWS
+    tail = (q[:, -n:].contiguous(), k, v, causal, q_offset + prompt - n)
+    err = flash_tail_parity(tail, f"{cfg.arch_id} layer 0's last {n} query "
+                                  "rows")
+    timing = time_flash((q, k, v, causal, q_offset), tail,
+                        f"{cfg.arch_id}'s prefill call")
+    timing.update(err=err, launches=counts["flash_fwd"])
+    del q, k, v, tail, params
+    return dict(counts=counts, timing=timing, load=stats, peak=peak,
+                routes=routes, prefill_split=split,
+                prefill_s=res["prefill_s"], ttft_s=res["ttft_s"],
+                quantize_s=res["quantize_s"], ms_per_token=ms_tok,
+                weights_gb=n_bytes / 1e9)
+
+
+class RouteLog:
+    """Records, while open, each MoE layer call's route (its experts) and
+    its [E, C] token table, and with ``inputs`` its tokens ``xf`` and
+    router, copied to the host, by wrapping ``transformer.route`` and
+    ``dispatch_tables``. ``gaps`` are the K-th minus the (K+1)-th
+    probabilities of each call's tokens."""
+
+    def __init__(self, tf, inputs: bool = False):
+        self.tf, self.route, self.tables = tf, tf.route, tf.dispatch_tables
+        self.inputs, self.calls = inputs, []
+
+    def __enter__(self):
+        import torch
+
+        def route(moe, router, xf):
+            gates, experts = self.route(moe, router, xf)
+            probs = torch.softmax(xf.float() @ router, dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True).values
+            call = {"experts": experts.cpu(),
+                    "gap": (top[:, moe.top_k - 1] - top[:, moe.top_k]).cpu()}
+            if self.inputs:
+                call.update(xf=xf.cpu(), router=router.cpu(), moe=moe)
+            self.calls.append(call)
+            return gates, experts
+
+        def tables(gates, experts, n_experts, cap):
+            out = self.tables(gates, experts, n_experts, cap)
+            self.calls[-1].update(tokens=out[0].cpu(), cap=cap)
+            return out
+        self.tf.route, self.tf.dispatch_tables = route, tables
+        return self
+
+    def __exit__(self, *exc):
+        self.tf.route, self.tf.dispatch_tables = self.route, self.tables
+
+    def on_host(self) -> list:
+        """The recorded calls' routes and tables recomputed on the CPU from
+        their recorded inputs (the log closed)."""
+        import torch
+        out = []
+        for call in self.calls:
+            xf, router, moe = call["xf"], call["router"], call["moe"]
+            gates, experts = self.tf.route(moe, router, xf)
+            probs = torch.sort(torch.softmax(xf.float() @ router, dim=-1),
+                               dim=-1, descending=True).values
+            out.append({"experts": experts,
+                        "gap": probs[:, moe.top_k - 1] - probs[:, moe.top_k],
+                        "tokens": self.tf.dispatch_tables(
+                            gates, experts, moe.n_experts, call["cap"])[0]})
+        return out
+
+
+def hold_routes(label, card: list, host: list, n_experts: int) -> tuple:
+    """The card's routes and token tables against the CPU's, layer call by
+    layer call: equal, but for tokens whose K-th and (K+1)-th
+    probabilities (the CPU's) lie within ``ROUTE_TIE``, which are counted
+    and not compared, and the table rows of the experts such a token
+    went to on either side. Returns (routes, near ties)."""
+    import torch
+    check(len(card) == len(host), f"moe: {label}: MoE calls differ")
+    tokens = ties = flipped = rows_skipped = 0
+    for d, h in zip(card, host):
+        tie = h["gap"] < ROUTE_TIE
+        # a route is its set of K experts: the order within it (by
+        # probability) moves no queue position and no table entry
+        diff = (torch.sort(d["experts"], dim=-1).values
+                != torch.sort(h["experts"], dim=-1).values).any(-1)
+        tokens += len(tie)
+        ties += int(tie.sum())
+        flipped += int(diff.sum())
+        bad = diff & ~tie
+        if bool(bad.any()):
+            g = int(bad.nonzero()[0, 0])
+            print(f"  card vs CPU routes, {label}: token {g}: experts "
+                  f"{d['experts'][g].tolist()} on the card, "
+                  f"{h['experts'][g].tolist()} on the CPU; the CPU's gap "
+                  f"{float(h['gap'][g]):.3e}", flush=True)
+        check(not bool(bad.any()),
+              f"moe: {label}: the card routes a token away from a near tie "
+              "differently from the CPU")
+        keep = torch.ones(n_experts, dtype=torch.bool)
+        keep[torch.cat([d["experts"][diff], h["experts"][diff]]).reshape(
+            -1)] = False
+        rows_skipped += int((~keep).sum())
+        check(torch.equal(d["tokens"][keep], h["tokens"][keep]),
+              f"moe: {label}: the card's [E, C] token table differs from "
+              "the CPU's")
+    print(f"  card vs CPU routes, {label}: {len(card)} MoE layer calls, "
+          f"{tokens} token routes; {ties} within {ROUTE_TIE} of a tie (not "
+          f"compared), {flipped} of them routed differently ({rows_skipped} "
+          f"table rows not compared); every other route and [E, C] token "
+          f"table equal", flush=True)
+    return tokens, ties
+
+
+def hold_int8(label, got, want, where=None) -> tuple:
+    """The card's int8 cache against the CPU's: equal or one quantum apart
+    (returns the values compared and those apart), the scales at the
+    model phases' tolerances."""
+    n = off = bad = 0
+    err = 0.0
+    for name in ("k", "v", "k_scale", "v_scale"):
+        a, b = got[name].cpu(), want[name]
+        if where is not None:
+            a, b = a[where], b[where]
+        if name.endswith("_scale"):
+            e, m, _ = close_stats(a, b, FORWARD_RTOL, forward_atol(b))
+            err, bad = max(err, e), bad + m
+            continue
+        d = (a.int() - b.int()).abs()
+        check(int(d.max()) <= 1, f"moe: {label}: int8 values more than one "
+                                 "quantum apart")
+        n += d.numel()
+        off += int((d > 0).sum())
+    print(f"  card vs CPU {label}: {n} int8 values, {off} one quantum apart, "
+          f"the rest equal; scales {bad} mismatches, max abs err {err:.3e} "
+          f"(rtol {FORWARD_RTOL})", flush=True)
+    check(bad == 0, f"moe: {label}: the int8 cache's scales differ")
+    return n, off
+
+
+def moe_card_vs_cpu(dev, cfg, seed: int) -> tuple:
+    """``cfg``'s widths cut to 2 layers in float32, card against CPU: a
+    prompt, the cache re-encoded, int8 decode steps from the same cache on
+    both sides (the CPU's, so that a value one quantum apart does not
+    carry over), each step's logits, the routes and token tables of every
+    MoE layer call (returns hold_routes'), and the int8 caches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+    small = dataclasses.replace(cfg, n_layers=MOE_CHECK["layers"],
+                                dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    card = tf.init_params(small, gen, dev)
+    host = _tree_to(card, "cpu")
+    p_len, steps = MOE_CHECK["prompt"], MOE_CHECK["steps"]
+    prompt = torch.randint(0, small.vocab, (1, p_len), generator=gen,
+                           device=dev, dtype=torch.int32)
+    log_h, log_d = RouteLog(tf), RouteLog(tf)
+    t0 = time.perf_counter()
+    with log_h:
+        want, cache_h = tf.prefill(small, host, prompt.cpu(), p_len + steps)
+    dt = time.perf_counter() - t0
+    with log_d:
+        got, cache_d = tf.prefill(small, card, prompt, p_len + steps)
+    print(f"  card vs CPU: {cfg.arch_id}'s widths cut to {small.n_layers} "
+          f"layers, float32, a {p_len}-token prompt and {steps} int8 decode "
+          f"steps (CPU prefill {dt:.2f} s)", flush=True)
+    _hold("prefill last-token logits", got.cpu(), want)
+    cache_h = tf.quantize_cache(cache_h)
+    n, off = hold_int8("the prefill's cache re-encoded",
+                       tf.quantize_cache(cache_d), cache_h)
+    cache_d = _tree_to(cache_h, dev)
+    for i in range(steps):
+        tok = want.argmax(-1, keepdim=True).to(torch.int32)   # the CPU's
+        with log_h:
+            want, cache_h = tf.decode_step(small, host, cache_h, tok,
+                                           p_len + i)
+        with log_d:
+            got, cache_d = tf.decode_step(small, card, cache_d, tok.to(dev),
+                                          p_len + i)
+        _hold(f"decode step {i} logits", got.cpu(), want)
+        col = (slice(None), slice(None), p_len + i)
+        n_i, off_i = hold_int8(f"decode step {i}'s int8 keys and values",
+                               cache_d, cache_h, col)
+        n, off = n + n_i, off + off_i
+        for name, t in cache_d.items():       # the next step from the CPU's
+            t.copy_(cache_h[name])
+    print(f"  card vs CPU int8 caches: {off} of {n} values one quantum apart "
+          f"(limit {INT8_OFF_SHARE:.2%})", flush=True)
+    check(off <= INT8_OFF_SHARE * n, "moe: the int8 caches differ")
+    return hold_routes(f"{small.n_layers}-layer cut", log_d.calls,
+                       log_h.calls, small.moe.n_experts)
+
+
+def moe_phase(dev, seed: int) -> dict:
+    """moonshot-v1-16b-a3b at its published config and phi3.5-moe at full
+    width on 24 layers through ``launch.serve.generate`` with the int8
+    cache; then moonshot's widths cut to 2 layers, card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import shapes_for_family
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH)
+    shp = shapes_for_family("lm")["prefill_32k"]
+    held = torch.cuda.memory_allocated(dev)
+    print(f"moe: the MoE LMs with the int8 KV cache ({held / 1e9:.2f} GB "
+          f"left allocated on the card by earlier phases)", flush=True)
+    out = {"moonshot": moe_serve(
+        dev, cfg, MOE_PROMPT, MOE_DECODE, seed,
+        f"prefill_32k's {shp.batch} x {shp.seq_len} tokens cut to one prompt "
+        f"of {MOE_PROMPT} by the card's memory, then {MOE_DECODE} greedy "
+        "int8 decode steps", int8_check=True)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(MOE_PHI["arch"])
+    phi = dataclasses.replace(full, n_layers=MOE_PHI["layers"])
+    out["phi"] = moe_serve(
+        dev, phi, MOE_PHI["prompt"], MOE_PHI["steps"], seed + 1,
+        f"depth cut {full.n_layers} -> {phi.n_layers} layers (bf16 weights "
+        f"{full.param_count() * 2 / 1e9:.1f} GB at {full.n_layers}); one "
+        f"prompt of {MOE_PHI['prompt']} tokens, then {MOE_PHI['steps']} "
+        "greedy int8 decode steps", int8_check=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = moe_card_vs_cpu(dev, cfg, seed + 2)
+    routes, ties = (sum(r) for r in zip(out["moonshot"]["routes"],
+                                        out["phi"]["routes"], cut))
+    print(f"  card vs CPU routes, all: {ties} of {routes} within {ROUTE_TIE} "
+          f"of a tie ({ties / routes:.4%}; limit {ROUTE_TIE_SHARE:.1%})",
+          flush=True)
+    check(ties <= ROUTE_TIE_SHARE * routes, "moe: too many near ties")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  moe: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def _train_split(rows, optimizer_ms: float, label) -> dict:
     """Device ms of a train step's profile in five parts: kernel 6,
     kernels 7-8, the cuBLAS GEMMs, the optimizer (``optimizer_ms``, from
@@ -4454,6 +4909,9 @@ def main() -> int:
                         help="with --ferrari-only: the ferrari phase's "
                              "graph (default: ferrari-web's published "
                              "16,777,216 nodes)")
+    parser.add_argument("--moe-only", action="store_true",
+                        help="build the kernels and run the moe phase "
+                             "alone (a quick check; no result lines)")
     args = parser.parse_args()
     if args.ferrari_nodes != FERRARI_NODES and not args.ferrari_only:
         parser.error("--ferrari-nodes cuts the ferrari phase's width: "
@@ -4537,6 +4995,12 @@ def run(args, t_start: float) -> int:
         print(card_line(), flush=True)
         return 0
 
+    if args.moe_only:
+        moe_phase(dev, args.seed)
+        done("moe")
+        print(card_line(), flush=True)
+        return 0
+
     print("parity (kernel vs plain; integer kernels bit for bit):",
           flush=True)
     err, stab_calls = kernel_parity(dev)
@@ -4591,6 +5055,8 @@ def run(args, t_start: float) -> int:
         done("reach_service")
         lm_counts, lm_time = lm_phase(dev, args.seed)
         done("lm")
+        moe = moe_phase(dev, args.seed)
+        done("moe")
         train_counts, train_time = train_phase(dev, args.seed)
         done("train")
     finally:
@@ -4601,17 +5067,18 @@ def run(args, t_start: float) -> int:
                     "phase2": p2_counts, "seeds64": s64_counts,
                     "dense": dense_counts, "recsys": rs_counts,
                     "gnn": gnn_counts, "lm": lm_counts,
+                    "moe": moe["moonshot"]["counts"],
                     "train": train_counts, "gnn_train": gnn_train_counts,
                     "recsys_train": rs_train_counts,
                     "reach_service": reach_counts}
     for kname, meta in KERNELS.items():
         if meta["phase"] == "distributed":
             continue                      # on the ferrari index, below
-        n = phase_counts[meta["phase"]][kname]
-        print(f"  launches {kname} on its phase ({meta['phase']}): {n}",
-              flush=True)
-        check(n > 0, f"{kname} was not launched on the {meta['phase']} "
-              "phase")
+        for phase in (meta["phase"], *meta.get("also", ())):
+            n = phase_counts[phase][kname]
+            print(f"  launches {kname} on its phase ({phase}): {n}",
+                  flush=True)
+            check(n > 0, f"{kname} was not launched on the {phase} phase")
     check(dense_counts["stab_packed"] > 0, "dense: kernel 1 not launched")
     print(f"  launches on the churn phase (4 batches served, then "
           f"compact): {churn_counts}", flush=True)
@@ -4650,8 +5117,11 @@ def run(args, t_start: float) -> int:
     overlay_times = time_step_kernels(churn_kept)
     times["flash_fwd"] = lm_time          # timed in the lm phase
     train_fwd = train_time.pop("flash_fwd")
-    a, b = lm_time["err"], train_fwd["err"]   # both held against plain
-    lm_time["err"] = (max(a[0], b[0]), a[1] + b[1], max(a[2], b[2]))
+    moe_fwd = {"at_moonshot_call": moe["moonshot"]["timing"],
+               "at_phi35_call": moe["phi"]["timing"]}
+    for t in (train_fwd, *moe_fwd.values()):  # each held against plain
+        a, b = lm_time["err"], t["err"]
+        lm_time["err"] = (max(a[0], b[0]), a[1] + b[1], max(a[2], b[2]))
     bwd_hd128 = train_time.pop("hd128")
     for kname, t in bwd_hd128.items():    # held against plain there too
         a, b = train_time[kname]["err"], t["err"]
@@ -4715,8 +5185,14 @@ def run(args, t_start: float) -> int:
                 gloo["seconds"] / gloo["stats"]["n_queries"] * 1e9)
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "library_expanded_ms", "plain_at", "ms_at_plain_shape")
+        if "also" in meta:
+            rows[-1]["phases"] = [meta["phase"], *meta["also"]]
         if kname == "flash_fwd":
             rows[-1]["at_train_call"] = {key: train_fwd[key] for key in keys}
+            rows[-1]["launches_on_moe"] = phase_counts["moe"][kname]
+            for at, t in moe_fwd.items():
+                rows[-1][at] = {"launches": t["launches"],
+                                **{key: t[key] for key in keys}}
         if kname in bwd_hd128:
             rows[-1]["at_llama3_8b_layer_call"] = {
                 key: bwd_hd128[kname][key] for key in keys

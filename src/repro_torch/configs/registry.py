@@ -1,7 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution for the archs the
-port can run, ferrari-web (the paper's own system as a servable cell)
-included. The reference's two MoE LMs are not ported yet; asking for one
-raises ``KeyError``."""
+"""Architecture registry: ``--arch <id>`` resolution for every arch of the
+reference package, ferrari-web (the paper's own system as a servable
+cell) included."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +10,8 @@ _MODULES: Dict[str, str] = {
     "llama3-8b": "llama3_8b",
     "smollm-360m": "smollm_360m",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b",
     "gcn-cora": "gcn_cora",
     "graphsage-reddit": "graphsage_reddit",
     "gatedgcn": "gatedgcn",
@@ -25,8 +26,7 @@ ASSIGNED_ARCHS = tuple(a for a in ARCHS if a != "ferrari-web")
 
 def _module(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not ported to repro_torch (see "
-                       f"ROADMAP.md, Queue 1 item 8); available: {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; available: {ARCHS}")
     return importlib.import_module(f"{__package__}.{_MODULES[arch]}")
 
 

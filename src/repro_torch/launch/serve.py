@@ -36,10 +36,11 @@ around a kernel launch covers the launch, not the kernel).
 ``--mode lm`` prefills random prompts, then decodes greedily, with random
 weights from ``--seed``: on a card at the arch's published widths, on the
 CPU at its SMOKE config (as the reference's ``serve_lm``; the SMOKE head
-dims 16 and 32 are below the flash kernel's 64):
+dims 16 and 32 are below the flash kernel's 64). The MoE archs decode
+from an int8 cache (``generate``):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
-        --arch tinyllama-1.1b --batch 2 --prompt-len 512 --gen-len 16
+        --arch moonshot-v1-16b-a3b --batch 1 --prompt-len 4096 --gen-len 32
 """
 from __future__ import annotations
 
@@ -344,8 +345,14 @@ def generate(cfg, params, tokens, gen_len: int) -> dict:
     gen_len positions, take the first token from the prefill's logits,
     then run ``gen_len - 1`` decode steps. Returns the tokens [B, gen_len]
     and the wall times: ``prefill_s`` (ends in a device sync), ``ttft_s``
-    (the first tokens on the host) and ``decode_s`` (every decode step,
-    each ending with its tokens on the host)."""
+    (the first tokens on the host), ``quantize_s`` and ``decode_s`` (every
+    decode step, each ending with its tokens on the host).
+
+    With ``cfg.kv_cache_dtype == "int8"`` the prefill's cache, in the
+    model's dtype, is re-encoded by ``quantize_cache`` after the first
+    token (``quantize_s``, ending in a device sync) and the decode steps
+    read the int8 cache: the reference's own int8 decode path, which its
+    ``serve_lm`` lacks (it would stop at the missing scales)."""
     B, S = tokens.shape
     dev = tokens.device
     _sync(dev)
@@ -356,13 +363,18 @@ def generate(cfg, params, tokens, gen_len: int) -> dict:
     cur = logits.argmax(-1, keepdim=True).to(torch.int32)
     out = [cur.cpu()]
     t_first = time.perf_counter() - t0
+    t_quant = 0.0
+    if cfg.kv_cache_dtype == "int8":
+        cache = tf.quantize_cache(cache)
+        _sync(dev)
+        t_quant = time.perf_counter() - t0 - t_first
     for i in range(gen_len - 1):
         logits, cache = tf.decode_step(cfg, params, cache, cur, S + i)
         cur = logits.argmax(-1, keepdim=True).to(torch.int32)
         out.append(cur.cpu())
-    t_decode = time.perf_counter() - t0 - t_first
+    t_decode = time.perf_counter() - t0 - t_first - t_quant
     return {"tokens": torch.cat(out, dim=1), "prefill_s": t_prefill,
-            "ttft_s": t_first, "decode_s": t_decode,
+            "ttft_s": t_first, "quantize_s": t_quant, "decode_s": t_decode,
             "decode_steps": gen_len - 1}
 
 
@@ -381,13 +393,15 @@ def serve_lm(arch: str, batch: int, prompt_len: int, gen_len: int, *,
                          device=dev, dtype=torch.int32)
     res = generate(cfg, params, toks, gen_len)
     steps = res["decode_steps"]
-    total = res["ttft_s"] + res["decode_s"]
+    total = res["ttft_s"] + res["quantize_s"] + res["decode_s"]
     print(f"{cfg.arch_id} ({config}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.dtype}) on {dev}: served {batch} requests x "
           f"{gen_len} tokens in {total:.2f}s ({batch * gen_len / total:.0f} "
           f"tok/s); prefill of {prompt_len} tokens {res['prefill_s']:.3f}s, "
           f"first token {res['ttft_s']:.3f}s, "
-          f"{res['decode_s'] / max(steps, 1) * 1e3:.2f} ms per decode step")
+          + (f"int8 cache re-encoded in {res['quantize_s']:.3f}s, "
+             if cfg.kv_cache_dtype == "int8" else "")
+          + f"{res['decode_s'] / max(steps, 1) * 1e3:.2f} ms per decode step")
     return res
 
 

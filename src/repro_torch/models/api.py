@@ -8,9 +8,11 @@ serves and trains.
 over tensors on the cell's device, plus the batch's shapes and dtypes.
 Kinds: train (the dense LMs, the GNNs' full_graph / minibatch /
 dense_batch, MIND's sampled softmax), serve and retrieval (recsys),
-prefill and decode (the dense LMs), classify (ferrari-web, the paper's
+prefill and decode (every LM), classify (ferrari-web, the paper's
 own system: phase-1 verdicts over the fused index layout, kernel 1 on a
-card). A train step takes the gradient, then one AdamW step in place; the
+card). The MoE LMs and the int8 KV cache run the prefill and decode
+cells (a decode cell's state holds ``init_cache``'s int8 cache); their
+train cell is not ported. A train step takes the gradient, then one AdamW step in place; the
 LM step accumulates float32 gradients over ``cfg.microbatches``
 microbatches first. The GNN minibatch kind runs ``forward_full`` over the
 merged sampled subgraph, as the reference's step does; the dense-batch
@@ -260,11 +262,14 @@ def _lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, B: int,
 
 
 def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig):
-    tf_mod.dense_only(cfg)
     B, S = shape.batch, shape.seq_len
     i32 = torch.int32
 
     if shape.kind == "train":
+        if cfg.moe:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: MoE training is not ported to repro_torch "
+                "yet (ROADMAP.md, Queue 1 item 8)")
         batch_shapes = {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
         return _lm_train_step(cfg, opt_cfg, B), batch_shapes
 

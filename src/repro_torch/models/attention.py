@@ -57,7 +57,8 @@ def decode_attention(q, k_cache, v_cache, cur_pos,
                      k_scale=None, v_scale=None):
     """Single-token decode. q: [B, 1, H, hd]; caches: [B, S, KV, hd];
     cur_pos: int — the position being decoded (q attends to positions
-    <= cur_pos). Returns [B, 1, H, hd] in the cache's dtype.
+    <= cur_pos). Returns [B, 1, H, hd] in the cache's dtype, or in q's for
+    an int8 cache.
 
     Plain masked softmax over the whole cache, as in the reference (no
     Pallas kernel there). Both products read the cache as one contiguous
@@ -71,25 +72,36 @@ def decode_attention(q, k_cache, v_cache, cur_pos,
     (``preferred_element_type``), with no float32 copy of the cache (see
     ``_scores``); the softmax with its additive position bias runs in
     float32, and p is rounded to v's dtype for the product with v (float32
-    accumulation). The int8 cache (``k_scale``/``v_scale``) is only used
-    by the MoE configs, which are not ported (ROADMAP.md, Queue 1 item 8).
+    accumulation).
+
+    int8 cache: ``k_scale``, ``v_scale`` [B, S, KV] float32, the
+    reference's order of roundings: the cache cast to q's dtype, the
+    scores times 1/√hd and then times each head's kv-head ``k_scale``,
+    the float32 softmax, p times ``v_scale``, then rounded to q's dtype.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported to repro_torch yet (ROADMAP.md, "
-            "Queue 1 item 8)")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("an int8 cache takes both k_scale and v_scale")
     b, _, h, hd = q.shape
     s, kv = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
+    if k_scale is not None:
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
+
+    def per_head(x, scale):             # [B, H, S] times [B, S, KV]
+        if scale is None:
+            return x
+        return (x.view(b, kv, g, s)
+                * scale.transpose(1, 2)[:, :, None]).view(b, h, s)
+
     eye = torch.eye(kv, dtype=k_cache.dtype, device=q.device)
     q_spread = torch.einsum("bkgd,kj->bkgjd",
                             q.reshape(b, kv, g, hd).to(k_cache.dtype), eye)
     scores = _scores(q_spread.reshape(b, h, kv * hd),
                      k_cache.reshape(b, s, kv * hd).transpose(1, 2))
-    scores = scores * (1.0 / hd ** 0.5)                          # [B, H, S]
+    scores = per_head(scores * (1.0 / hd ** 0.5), k_scale)      # [B, H, S]
     pos = torch.arange(s, device=q.device)
     bias = torch.where(pos <= cur_pos, 0.0, NEG_INF)
-    p = torch.softmax(scores + bias, dim=-1)
+    p = per_head(torch.softmax(scores + bias, dim=-1), v_scale)
     full = torch.matmul(p.to(v_cache.dtype),
                         v_cache.reshape(b, s, kv * hd))      # [B, H, KV·hd]
     out = torch.diagonal(full.view(b, kv, g, kv, hd), dim1=1, dim2=3)

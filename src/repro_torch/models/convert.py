@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..core.query_torch import resolve_device
-from .transformer import LAYER_LEAVES
+from .transformer import LAYER_LEAVES, MOE_LAYER_LEAVES
 
 RECSYS_LEAVES = frozenset({"table", "bilinear", "cap_bias"})
 LM_LEAVES = frozenset({"embed", "final_norm"})     # and lm_head, untied
@@ -45,9 +45,19 @@ def params_from_arrays(family: str, tree: dict, device="cuda") -> dict:
     if family == "lm":
         head = {k: v for k, v in tree.items() if k != "layers"}
         want = LM_LEAVES | ({"lm_head"} & set(head))
+        layers = tree["layers"]
+        moe = "router" in layers
+        ffn = {k: np.ndim(layers[k]) for k in ("w_gate", "w_up", "w_down")
+               if k in layers}
+        if any(nd != (4 if moe else 3) for nd in ffn.values()):
+            raise KeyError(f"lm layers: FFN weights of {ffn} dimensions "
+                           f"{'beside' if moe else 'without'} a router (an "
+                           "MoE layer's are [L, E, ...], a dense one's [L, "
+                           "...])")
         return {**_tensors(head, want, dev, "lm params"),
-                "layers": _tensors(tree["layers"], LAYER_LEAVES, dev,
-                                   "lm layers")}
+                "layers": _tensors(layers,
+                                   MOE_LAYER_LEAVES if moe else LAYER_LEAVES,
+                                   dev, "lm layers")}
     if family == "gnn":
         layers = []
         for i, lp in enumerate(tree["layers"]):

@@ -1,17 +1,30 @@
-"""Decoder-only LM (llama family), dense variant: GQA, RoPE, SwiGLU FFN.
+"""Decoder-only LM (llama family), dense and MoE variants: GQA, RoPE,
+SwiGLU FFN, and an int8 KV cache.
 
 Layer parameters are stacked on a leading ``layers`` axis with the
 reference's names and layouts (``wq [L, D, H·hd]``, ``w_gate [L, D, F]``,
-…); the layer loop is a Python loop over ``params["layers"][name][i]``
-(or over a list of per-layer dicts: ``layer_leaves``). Prefill and
-training run flash attention (kernel 6 on a card, kernels 7 and 8 in the
-backward) once per layer through ``chunked_attention``; decode runs the
-plain masked softmax over the cache. ``logits_and_loss`` is the training
-loss, a chunked and checkpointed cross-entropy; with ``cfg.remat`` the
-forward recomputes each layer in the backward. Unlike the reference there
-is no mesh and no sharding: a model runs on one device. The MoE FFN and
-the int8 KV cache (the two MoE configs) are not ported (ROADMAP.md, Queue
-1 item 8).
+or ``[L, E, D, F]`` with a float32 ``router [L, D, E]`` for MoE, …); the
+layer loop is a Python loop over ``params["layers"][name][i]`` (or over
+a list of per-layer dicts: ``layer_leaves``). Prefill and training run
+flash attention (kernel 6 on a card, kernels 7 and 8 in the backward)
+once per layer through ``chunked_attention``; decode runs the plain
+masked softmax over the cache. ``logits_and_loss`` is the training loss,
+a chunked and checkpointed cross-entropy; with ``cfg.remat`` the forward
+recomputes each layer in the backward. Unlike the reference there is no
+mesh and no sharding: a model runs on one device, so the MoE FFN is the
+reference's gather path (``_moe_ffn_gather``) whatever ``moe.impl``
+says, as the reference's is without a mesh.
+
+The MoE FFN is capacity-based top-K routing in small steps that the
+tests hold one by one (``route``, ``queue_positions``,
+``dispatch_tables``, ``expert_ffn``, ``combine``), every discrete choice
+the reference's: top-K ties go to the lower expert index (a stable
+descending sort; ``torch.topk`` orders ties otherwise), queue positions
+in the flat token-major order, assignments past the capacity dropped.
+With ``cfg.kv_cache_dtype == "int8"`` the decode cache holds int8 keys
+and values with float32 absmax scales per (token, kv head);
+``prefill`` returns its cache in the model's dtype, as the reference's
+does, and ``quantize_cache`` re-encodes it for ``decode_step``.
 """
 from __future__ import annotations
 
@@ -25,20 +38,16 @@ from .common import normal_init, rms_norm, rope_tables, rotate
 
 LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                 "w_up", "w_down")
-
-
-def dense_only(cfg: LMConfig) -> None:
-    if cfg.moe is not None or cfg.kv_cache_dtype != "auto":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the MoE FFN and the int8 KV cache are not "
-            f"ported to repro_torch yet (ROADMAP.md, Queue 1 item 8)")
+MOE_LAYER_LEAVES = LAYER_LEAVES + ("router",)
 
 
 def init_params(cfg: LMConfig, gen: torch.Generator, device):
     """The reference's params tree with its scales, drawn from ``gen`` (a
     generator on ``device``): norms at 1, projections N(0, 1)·fan_in^-1/2,
-    the embedding N(0, 1)."""
-    dense_only(cfg)
+    the embedding N(0, 1); for MoE the router in float32 whatever
+    ``cfg.dtype`` is, and the experts' [L, E, ...] weights drawn a layer
+    at a time (the float32 draw of a whole stack would be 35 GB at
+    moonshot's widths)."""
     dt = getattr(torch, cfg.dtype)
     D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab
     H, KV, hd, L = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
@@ -47,6 +56,12 @@ def init_params(cfg: LMConfig, gen: torch.Generator, device):
     def normal(shape, scale):
         return normal_init(gen, shape, scale, dt, device)
 
+    def stacked(shape, scale):
+        out = torch.empty(shape, dtype=dt, device=device)
+        for i in range(shape[0]):
+            out[i] = normal(shape[1:], scale)
+        return out
+
     lay = {
         "attn_norm": torch.ones((L, D), dtype=dt, device=device),
         "mlp_norm": torch.ones((L, D), dtype=dt, device=device),
@@ -54,10 +69,18 @@ def init_params(cfg: LMConfig, gen: torch.Generator, device):
         "wk": normal((L, D, KV * hd), s_in),
         "wv": normal((L, D, KV * hd), s_in),
         "wo": normal((L, H * hd, D), (H * hd) ** -0.5),
-        "w_gate": normal((L, D, F_), s_in),
-        "w_up": normal((L, D, F_), s_in),
-        "w_down": normal((L, F_, D), F_ ** -0.5),
     }
+    if cfg.moe:
+        E = cfg.moe.n_experts
+        lay["router"] = normal_init(gen, (L, D, E), s_in, torch.float32,
+                                    device)
+        lay.update(w_gate=stacked((L, E, D, F_), s_in),
+                   w_up=stacked((L, E, D, F_), s_in),
+                   w_down=stacked((L, E, F_, D), F_ ** -0.5))
+    else:
+        lay.update(w_gate=normal((L, D, F_), s_in),
+                   w_up=normal((L, D, F_), s_in),
+                   w_down=normal((L, F_, D), F_ ** -0.5))
     params = {"embed": normal((V, D), 1.0),
               "final_norm": torch.ones((D,), dtype=dt, device=device),
               "layers": lay}
@@ -70,7 +93,7 @@ def _layer_params(params, i: int) -> dict:
     layers = params["layers"]
     if isinstance(layers, list):                 # per-layer leaves
         return layers[i]
-    return {name: layers[name][i] for name in LAYER_LEAVES}
+    return {name: leaf[i] for name, leaf in layers.items()}
 
 
 def layer_leaves(params) -> dict:
@@ -83,8 +106,9 @@ def layer_leaves(params) -> dict:
         return t.detach().requires_grad_()
     out = {name: leaf(t) for name, t in params.items() if name != "layers"}
     n = params["layers"][LAYER_LEAVES[0]].shape[0]
-    out["layers"] = [{name: leaf(params["layers"][name][i])
-                      for name in LAYER_LEAVES} for i in range(n)]
+    out["layers"] = [{name: leaf(t[i])
+                      for name, t in params["layers"].items()}
+                     for i in range(n)]
     return out
 
 
@@ -95,6 +119,105 @@ def _head(cfg: LMConfig, params):
 def _dense_ffn(lp, x):
     h = F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])
     return h @ lp["w_down"]
+
+
+# ---------------------------------------------------------------- MoE FFN --
+
+def capacity(moe, G: int) -> int:
+    """Slots an expert takes of ``G`` tokens: the reference's
+    ``max(int(G·K / E · capacity_factor), 1)``, the same float
+    expression."""
+    return max(int(G * moe.top_k / moe.n_experts * moe.capacity_factor), 1)
+
+
+def route(moe, router, xf):
+    """Top-K routing of ``xf [G, D]``: (gates [G, K] float32, the K
+    probabilities renormalised to sum 1; experts [G, K] int64). The logits
+    are ``xf`` in float32 times the float32 router, softmaxed in float32.
+    The K largest come from a stable descending sort, so that equal
+    probabilities go to the lower expert index first, as
+    ``jax.lax.top_k`` orders them."""
+    probs = torch.softmax(xf.float() @ router, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :moe.top_k], top_e[:, :moe.top_k]
+    return top_p / top_p.sum(dim=-1, keepdim=True), top_e
+
+
+def queue_positions(flat_e, n_experts: int):
+    """The rank of each assignment ``flat_e [G·K]`` (token-major, then k)
+    within its expert's queue, in that flat order: the reference's
+    ``"sort"`` dispatch (a stable argsort, then each expert's start by
+    ``searchsorted``), which gives the ``"cumsum"`` dispatch's
+    positions."""
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(n_experts, dtype=flat_e.dtype,
+                               device=flat_e.device))
+    pos_sorted = (torch.arange(flat_e.numel(), device=flat_e.device)
+                  - starts[sorted_e])
+    return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+
+
+def dispatch_tables(gates, experts, n_experts: int, cap: int):
+    """The [E, C] token table (int64) and gate table (float32) of a
+    routing: assignment (g, k) goes to slot (e, pos) of its expert e at
+    its queue position, unless pos >= C, when it goes to the sentinel
+    slot E·C and is dropped. An empty slot holds token 0 with gate 0."""
+    G, K = experts.shape
+    dev = experts.device
+    flat_e = experts.reshape(-1)
+    pos = queue_positions(flat_e, n_experts)
+    slot = torch.where(pos < cap, flat_e * cap + pos, n_experts * cap)
+    tokens = torch.arange(G, device=dev).repeat_interleave(K)
+    token_of = torch.zeros(n_experts * cap + 1, dtype=torch.int64,
+                           device=dev).scatter_(0, slot, tokens)
+    gate_of = torch.zeros(n_experts * cap + 1, dtype=torch.float32,
+                          device=dev).scatter_(0, slot, gates.reshape(-1))
+    return (token_of[:-1].view(n_experts, cap),
+            gate_of[:-1].view(n_experts, cap))
+
+
+def expert_ffn(lp, ex_in):
+    """SwiGLU of each expert over its slots: ``ex_in [E, C, D]`` → [E, C,
+    D], batched GEMMs over the experts."""
+    h = F.silu(torch.bmm(ex_in, lp["w_gate"])) * torch.bmm(ex_in, lp["w_up"])
+    return torch.bmm(h, lp["w_down"])
+
+
+def combine(ex_out, gate_tbl, token_tbl, n_tokens: int):
+    """[G, D] in ``ex_out``'s dtype: each slot's output times its gate
+    (rounded to that dtype) summed into its token, in that dtype (the
+    reference's ``segment_sum``)."""
+    E, C, D = ex_out.shape
+    weighted = ex_out * gate_tbl[..., None].to(ex_out.dtype)
+    out = torch.zeros((n_tokens, D), dtype=ex_out.dtype,
+                      device=ex_out.device)
+    return out.index_add_(0, token_tbl.reshape(-1),
+                          weighted.reshape(E * C, D))
+
+
+def _moe_ffn_gather(cfg: LMConfig, lp, x):
+    """Capacity-based top-K routing, the experts' batched GEMMs over the
+    [E, C] token table, the gate-weighted combine: x [B, S, D] → [B, S,
+    D] in x's dtype."""
+    moe = cfg.moe
+    B, S, D = x.shape
+    G = B * S
+    xf = x.reshape(G, D)
+    gates, experts = route(moe, lp["router"], xf)
+    token_tbl, gate_tbl = dispatch_tables(gates, experts, moe.n_experts,
+                                          capacity(moe, G))
+    ex_out = expert_ffn(lp, xf[token_tbl])
+    return combine(ex_out, gate_tbl, token_tbl, G).reshape(B, S, D).to(
+        x.dtype)
+
+
+def _moe_ffn(cfg: LMConfig, lp, x):
+    """The reference's dispatcher: ``impl="shard_map"`` needs a mesh, and
+    on one device runs the gather path, as the reference's does with
+    none."""
+    return _moe_ffn_gather(cfg, lp, x)
 
 
 def _qkv(cfg: LMConfig, lp, x, cos, sin):
@@ -113,7 +236,7 @@ def _finish_layer(cfg: LMConfig, lp, x, att):
     B, S = x.shape[:2]
     x = x + att.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"]
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _dense_ffn(lp, h2)
+    return x + (_moe_ffn(cfg, lp, h2) if cfg.moe else _dense_ffn(lp, h2))
 
 
 def _layer(cfg: LMConfig, lp, x, cos, sin):
@@ -136,7 +259,6 @@ def forward(cfg: LMConfig, params, tokens):
     """tokens [B, S] → final hidden states [B, S, D]. With ``cfg.remat``
     each layer is checkpointed (the reference's ``jax.checkpoint`` of its
     scanned body): the backward recomputes it from its input."""
-    dense_only(cfg)
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     cos, sin = rope_tables(_positions(B, S, tokens.device), cfg.hd,
@@ -187,14 +309,55 @@ def logits_and_loss(cfg: LMConfig, params, tokens, labels,
     return total / G
 
 
-def init_cache(cfg: LMConfig, batch: int, max_seq: int, device):
-    """KV cache ``{"k", "v"}`` of zeros [L, B, max_seq, KV, hd] in the
-    model's dtype."""
-    dense_only(cfg)
+def _dense_cache(cfg: LMConfig, batch: int, max_seq: int, device):
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     dt = getattr(torch, cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int, device):
+    """KV cache of zeros: ``{"k", "v"}`` [L, B, max_seq, KV, hd] in the
+    model's dtype, or with ``cfg.kv_cache_dtype == "int8"`` int8 ``k``,
+    ``v`` and their float32 absmax scales ``k_scale``, ``v_scale`` [L, B,
+    max_seq, KV]."""
+    if cfg.kv_cache_dtype != "int8":
+        return _dense_cache(cfg, batch, max_seq, device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device)}
+
+
+def _quantize_token(x):
+    """x [..., hd] → (int8 values, float32 absmax scales [...]): scale =
+    max|x| / 127, at least 1e-8; values x / scale rounded half to even
+    and clipped to ±127. Both are true divisions, on a card too: there a
+    division by a Python number is a product with its reciprocal, which
+    can round the scale differently, so 127 is a tensor on x's device."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_cache(cache):
+    """A cache in the model's dtype (``prefill``'s) re-encoded as the int8
+    cache ``decode_step`` reads for an int8 config, a layer at a time
+    (the float32 copy of a whole cache would be 4x its bytes)."""
+    out = {}
+    for name in ("k", "v"):
+        x = cache[name]
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        s = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+        for i in range(x.shape[0]):
+            q[i], s[i] = _quantize_token(x[i])
+        out[name], out[f"{name}_scale"] = q, s
+    return out
 
 
 def _logits(cfg: LMConfig, params, x):
@@ -205,15 +368,16 @@ def _logits(cfg: LMConfig, params, x):
 
 def prefill(cfg: LMConfig, params, tokens, max_seq: int):
     """Process a full prompt tokens [B, S]: (last-token logits [B, V]
-    float32, cache with the prompt's keys and values in positions < S)."""
-    dense_only(cfg)
+    float32, cache with the prompt's keys and values in positions < S).
+    The cache is in the model's dtype for an int8 config too, as the
+    reference's is (``quantize_cache`` re-encodes it)."""
     B, S = tokens.shape
     if S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
     x = params["embed"][tokens.long()]
     cos, sin = rope_tables(_positions(B, S, tokens.device), cfg.hd,
                            cfg.rope_theta)
-    cache = init_cache(cfg, B, max_seq, tokens.device)
+    cache = _dense_cache(cfg, B, max_seq, tokens.device)
     for i in range(cfg.n_layers):
         x, k, v = _layer(cfg, _layer_params(params, i), x, cos, sin)
         cache["k"][i, :, :S] = k
@@ -228,9 +392,15 @@ def decode_step(cfg: LMConfig, params, cache, token, pos):
     The cache is updated IN PLACE (this token's keys and values written at
     ``pos`` in every layer) and returned, where the reference returns a
     new one: a copy of a 32k-token cache per token would double the
-    decode's memory traffic."""
-    dense_only(cfg)
+    decode's memory traffic. With ``cfg.kv_cache_dtype == "int8"`` the
+    cache is int8 (``init_cache``, or ``quantize_cache`` of a prefill's):
+    the token's keys and values are quantized (``_quantize_token``) and
+    written with their scales."""
     pos = int(pos)
+    quant = cfg.kv_cache_dtype == "int8"
+    if quant and "k_scale" not in cache:
+        raise ValueError(f"{cfg.arch_id} decodes from an int8 cache: "
+                         "re-encode the prefill's with quantize_cache")
     B = token.shape[0]
     x = params["embed"][token.long()]                       # [B, 1, D]
     cos, sin = rope_tables(_positions(B, 1, token.device, pos), cfg.hd,
@@ -238,8 +408,16 @@ def decode_step(cfg: LMConfig, params, cache, token, pos):
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
         q, k, v = _qkv(cfg, lp, x, cos, sin)
+        scales = {}
+        if quant:
+            (k, ks), (v, vs) = _quantize_token(k), _quantize_token(v)
+            cache["k_scale"][i, :, pos] = ks[:, 0]
+            cache["v_scale"][i, :, pos] = vs[:, 0]
+            scales = dict(k_scale=cache["k_scale"][i],
+                          v_scale=cache["v_scale"][i])
         cache["k"][i, :, pos] = k[:, 0]
         cache["v"][i, :, pos] = v[:, 0]
-        att = decode_attention(q, cache["k"][i], cache["v"][i], pos)
+        att = decode_attention(q, cache["k"][i], cache["v"][i], pos,
+                               **scales)
         x = _finish_layer(cfg, lp, x, att)
     return _logits(cfg, params, x), cache

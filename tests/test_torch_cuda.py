@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-engine, the recsys cells, the GNN forward, the LM's prefill and decode and
-the LM train cell on the card against the same on the CPU. Needs a CUDA device:
+engine, the recsys cells, the GNN forward, the LM's prefill and decode
+(dense and MoE, the int8 KV cache) and the LM train cell on the card against the same on the CPU. Needs a CUDA device:
 every test here carries the ``cuda`` marker and skips without one. The
 file imports neither JAX nor the reference package, so it runs on a
 machine with only PyTorch and the CUDA toolkit:
@@ -1384,6 +1384,118 @@ def test_serve_lm_full_config_on_card(dev):
     cfg = get_config("tinyllama-1.1b")
     assert res["tokens"].shape == (2, 4)
     assert _lib.LAUNCHES["flash_fwd"] == cfg.n_layers
+
+
+# ------------------------------------------------ MoE LMs, int8 KV cache --
+def _moe_smoke_hd64(arch="moonshot-v1-16b-a3b"):
+    """An MoE arch's SMOKE config at head dim 64 (kernel 6's smallest)."""
+    return dataclasses.replace(get_smoke(arch), head_dim=64)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch,dtype,b,s", [
+    ("moonshot-v1-16b-a3b", torch.float32, 4, 300),
+    ("phi3.5-moe-42b-a6.6b", torch.float32, 1, 1),
+    ("moonshot-v1-16b-a3b", torch.bfloat16, 2, 256)])
+def test_moe_ffn_on_card_matches_cpu(dev, arch, dtype, b, s):
+    """The MoE FFN on the card against the CPU on the same inputs: the
+    same route and [E, C] tables, the output within rounding."""
+    cfg = dataclasses.replace(get_smoke(arch),
+                              dtype=str(dtype).split(".")[-1])
+    lp = {k: v[0] for k, v in transformer.init_params(
+        cfg, torch.Generator().manual_seed(2), "cpu")["layers"].items()}
+    x = torch.randn(b, s, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(3)).to(dtype)
+    xf = x.reshape(b * s, -1)
+    C = transformer.capacity(cfg.moe, b * s)
+    tables = []
+    for where, lay, xx in (("cpu", lp, xf), ("card", _to(lp, dev),
+                                             xf.to(dev))):
+        gates, experts = transformer.route(cfg.moe, lay["router"], xx)
+        tables.append((experts.cpu(), *(t.cpu() for t in
+                       transformer.dispatch_tables(gates, experts,
+                                                   cfg.moe.n_experts, C))))
+    for got, want in zip(tables[1], tables[0]):
+        if got.dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(got, want)
+    want = transformer._moe_ffn(cfg, lp, x)
+    got = transformer._moe_ffn(cfg, _to(lp, dev), x.to(dev))
+    assert got.is_cuda and got.dtype == dtype
+    tol = (forward_tol(want) if dtype == torch.float32 else dict(
+        rtol=2e-2, atol=2e-2 * float(want.float().abs().max())))
+    _close(got.float(), want.float(), tol)
+
+
+def test_moe_route_ties_lower_index_first_on_card(dev):
+    """Equal probabilities on the card: the K experts are the lowest
+    indices (a stable sort, as ``jax.lax.top_k`` orders ties), and the
+    queue positions are the tokens' order, at moonshot's E 64, K 6."""
+    from repro_torch.configs.base import MoESpec
+    moe = MoESpec(n_experts=64, top_k=6)
+    G, D = 4096, 256
+    xf = torch.randn(G, D, device=dev)
+    gates, experts = transformer.route(
+        moe, torch.zeros(D, 64, device=dev), xf)
+    assert torch.equal(experts.cpu(), torch.arange(6).expand(G, 6))
+    pos = transformer.queue_positions(experts.reshape(-1), 64).cpu()
+    assert torch.equal(pos, torch.arange(G).repeat_interleave(6))
+    # ties among some experts only: two equal router columns
+    router = torch.randn(D, 64, device=dev)
+    router[:, 9] = router[:, 3]
+    _, e = transformer.route(moe, router, xf)
+    _, e_cpu = transformer.route(moe, router.cpu(), xf.cpu())
+    both = (e == 3).any(-1) & (e == 9).any(-1)
+    assert bool(both.any())
+    k3 = (e == 3).int().argmax(-1)
+    k9 = (e == 9).int().argmax(-1)
+    assert bool((k3[both] < k9[both]).all())
+    assert torch.equal(e.cpu(), e_cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_decode_attention_on_card_matches_cpu(dev, dtype):
+    from repro_torch.models.attention import decode_attention
+    g = torch.Generator().manual_seed(9)
+    q = torch.randn(2, 1, 32, 128, generator=g).to(dtype)
+    k, v = (torch.randn(1, 2, 1000, 8, 128, generator=g) for _ in range(2))
+    cache = transformer.quantize_cache({"k": k, "v": v})
+    args = (cache["k"][0], cache["v"][0])
+    scales = dict(k_scale=cache["k_scale"][0], v_scale=cache["v_scale"][0])
+    want = decode_attention(q, *args, 900, **scales)
+    got = decode_attention(q.to(dev), *(a.to(dev) for a in args), 900,
+                           **{n: t.to(dev) for n, t in scales.items()})
+    assert got.dtype == dtype == want.dtype
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 else
+           dict(rtol=1e-2, atol=1e-2 * float(want.float().abs().max())))
+    torch.testing.assert_close(got.float().cpu(), want.float(), **tol)
+    card = transformer.quantize_cache({"k": k.to(dev), "v": v.to(dev)})
+    for name, t in cache.items():
+        assert torch.equal(card[name].cpu(), t), name
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_generate_on_card_matches_cpu(dev, arch):
+    """A SMOKE MoE arch (head dim 64) through ``generate``: prefill with
+    kernel 6 once a layer, the cache re-encoded to int8, greedy decode;
+    the card's tokens are the CPU's."""
+    cfg = _moe_smoke_hd64(arch)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(5),
+                                     "cpu")
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 100)).astype(np.int32))
+    want = serve.generate(cfg, params, toks, 9)
+    _lib.LAUNCHES.reset()
+    got = serve.generate(cfg, _to(params, dev), toks.to(dev), 9)
+    assert _lib.LAUNCHES["flash_fwd"] == cfg.n_layers
+    assert torch.equal(got["tokens"], want["tokens"])
 
 
 # ------------------------------------------------ GNN and recsys training --

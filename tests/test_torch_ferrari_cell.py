@@ -46,8 +46,7 @@ def _t(a):
 
 def test_registry_and_configs_match_reference():
     assert ARCH in ARCHS and ARCH in REF_ARCHS
-    assert set(ARCHS) == set(REF_ARCHS) - {"phi3.5-moe-42b-a6.6b",
-                                           "moonshot-v1-16b-a3b"}
+    assert set(ARCHS) == set(REF_ARCHS)
     for port, ref in ((get_config, ref_get_config),
                       (get_smoke, ref_get_smoke)):
         assert dataclasses.asdict(port(ARCH)) == dataclasses.asdict(
@@ -59,8 +58,8 @@ def test_registry_and_configs_match_reference():
              for k, v in shapes_for_family("ferrari").items()}
             == {k: dataclasses.asdict(v)
                 for k, v in ref_shapes("ferrari").items()})
-    with pytest.raises(KeyError, match="Queue 1 item 8"):
-        get_config("phi3.5-moe-42b-a6.6b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("ferrari-web-2")
 
 
 @pytest.mark.parametrize("which,overrides", [

@@ -225,7 +225,7 @@ def test_decode_attention_matches_reference():
                            torch.from_numpy(vc), 17)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(ValueError, match="both"):   # int8: two scales
         decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
                          torch.from_numpy(vc), 17,
                          k_scale=torch.ones(2, 40, 2))

@@ -46,7 +46,9 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.core.distributed",
             "repro_torch.runtime.fault_tolerance",
             "repro_torch.data.graph_data",
-            "repro_torch.checkpoint.checkpoint"} <= mods
+            "repro_torch.checkpoint.checkpoint",
+            "repro_torch.configs.phi35_moe",
+            "repro_torch.configs.moonshot_v1_16b"} <= mods
 
 
 def test_no_source_file_imports_jax_or_reference():
