@@ -1,5 +1,5 @@
 """Fault-tolerant training entry point of the PyTorch/CUDA port (the
-dense LMs).
+dense and MoE LMs).
 
 Wires the config registry → the train cell (``models.api.build_cell``) →
 the token pipeline → the checkpoint manager → the heartbeat and straggler
@@ -14,7 +14,9 @@ cell, rolls back to the last committed checkpoint and resumes.
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20 \
         --ckpt-dir build/ckpt --ckpt-every 5
 
-There is no elastic re-meshing: a cell runs on one device.
+There is no elastic re-meshing: the Trainer's cell runs on one device
+(``models.api.build_cell(..., mesh=)`` runs an MoE cell expert-parallel
+over ranks the caller starts).
 """
 from __future__ import annotations
 

@@ -11,20 +11,35 @@ dense_batch, MIND's sampled softmax), serve and retrieval (recsys),
 prefill and decode (every LM), classify (ferrari-web, the paper's
 own system: phase-1 verdicts over the fused index layout, kernel 1 on a
 card). The MoE LMs and the int8 KV cache run the prefill and decode
-cells (a decode cell's state holds ``init_cache``'s int8 cache); their
-train cell is not ported. A train step takes the gradient, then one AdamW step in place; the
-LM step accumulates float32 gradients over ``cfg.microbatches``
-microbatches first. The GNN minibatch kind runs ``forward_full`` over the
-merged sampled subgraph, as the reference's step does; the dense-batch
-kind runs ``forward_dense``, whose aggregation is kernel 9 forward and
-backward on a card (the reference's step passes ``use_pallas=False``).
-A cell runs on one device, with one exception: given a
-``core.distributed.ServingMesh`` whose model axis divides n, the ferrari
-cell takes its published ``index_placement="sharded"``: its state is the
-rank's shard of the table rows and its step ``classify_sharded``
-(compute-at-owner, kernel 1's owned-rows entry on a card), as the
-reference's cell shards over 'model' on a mesh with that axis. Without a
-mesh it runs replicated, as the reference's cell does without one.
+cells (a decode cell's state holds ``init_cache``'s int8 cache) and the
+train cell. A train step takes the gradient, then one AdamW step in
+place; the LM step accumulates float32 gradients over
+``cfg.microbatches`` microbatches first. The GNN minibatch kind runs
+``forward_full`` over the merged sampled subgraph, as the reference's
+step does; the dense-batch kind runs ``forward_dense``, whose aggregation
+is kernel 9 forward and backward on a card (the reference's step passes
+``use_pallas=False``).
+A cell runs on one device, with two exceptions that take a
+``core.distributed.ServingMesh`` (one process a rank):
+
+  * the ferrari cell, whose model axis divides n, takes its published
+    ``index_placement="sharded"``: its state is the rank's shard of the
+    table rows and its step ``classify_sharded`` (compute-at-owner,
+    kernel 1's owned-rows entry on a card), as the reference's cell
+    shards over 'model' on a mesh with that axis. Without a mesh it runs
+    replicated, as the reference's cell does without one.
+  * the MoE LM cells run the MoE FFN expert-parallel
+    (``transformer.ExpertMesh``): each rank's state holds its model
+    rank's E / M experts (``materialize_state``; ``transformer.
+    shard_experts``) and every other leaf whole. Train and prefill take
+    the data rank's block of the batch (prefill gathers the answers back
+    over the data ranks), decode the whole batch with the experts' mlp
+    dim also split over the data ranks, as the reference's ``build_cell``
+    sets ``{"mlp": "data"}`` for MoE decode. The train step makes the
+    reference's implicit gradient sums explicit: the router's and the
+    activations' gradients are summed over the model group inside the FFN
+    (``parallel.copy_to_group``), every leaf is then averaged over the
+    data group, and the clipping norm counts each rank's experts once.
 """
 from __future__ import annotations
 
@@ -38,6 +53,7 @@ from ..configs.base import (FerrariServeConfig, GNNConfig, LMConfig,
 from ..core.query_torch import resolve_device
 from ..optim.optimizer import (OptConfig, _leaves, _map, adamw_init,
                                adamw_update)
+from ..parallel.collectives import all_reduce_
 from . import gnn as gnn_mod
 from . import recsys as rec_mod
 from . import transformer as tf_mod
@@ -62,6 +78,7 @@ class CellSpec:
     state_shapes: Optional[Dict[str, Tuple[Tuple[int, ...],
                                            torch.dtype]]] = None
     model_flops_fn: Optional[Callable] = None
+    expert_mesh: Optional[tf_mod.ExpertMesh] = None
 
 
 def value_and_grad(loss_fn, params):
@@ -200,14 +217,16 @@ def _recsys_cell(cfg: RecsysConfig, shape, opt_cfg: OptConfig):
     raise ValueError(shape.kind)
 
 
-def _lm_grads(cfg: LMConfig, params, tokens, labels, loss_chunk):
+def _lm_grads(cfg: LMConfig, params, tokens, labels, loss_chunk, ep=None):
     """(float32 loss, grads) of one batch: the grads in the params'
     dtypes, in ``params``'s tree with each stacked layer leaf replaced by
-    the list of its per-layer gradients (``transformer.layer_leaves``)."""
+    the list of its per-layer gradients (``transformer.layer_leaves``);
+    the MoE configs' float32 ``router`` among them."""
     leaves = tf_mod.layer_leaves(params)
-    loss = tf_mod.logits_and_loss(cfg, leaves, tokens, labels, loss_chunk)
+    loss = tf_mod.logits_and_loss(cfg, leaves, tokens, labels, loss_chunk,
+                                  ep)
     top = [name for name in leaves if name != "layers"]
-    names = tf_mod.LAYER_LEAVES
+    names = tf_mod.MOE_LAYER_LEAVES if cfg.moe else tf_mod.LAYER_LEAVES
     flat = [leaves[name] for name in top] + [
         lp[name] for lp in leaves["layers"] for name in names]
     g = iter(torch.autograd.grad(loss, flat))
@@ -217,17 +236,54 @@ def _lm_grads(cfg: LMConfig, params, tokens, labels, loss_chunk):
     return loss.detach(), tree
 
 
+def _data_block(t, mesh, mb: int):
+    """This data rank's rows of a batch ``t [B, ...]`` of ``mb``
+    microbatches: the d-th of the D blocks of each microbatch (the
+    reference's microbatch sharded over 'data'), in microbatch order, so
+    that ``chunk(mb)`` gives the rank's part of each."""
+    D = mesh.n_data
+    if D == 1:
+        return t
+    B, rest = t.shape[0], t.shape[1:]
+    return t.reshape(mb, D, B // (mb * D), *rest)[:, mesh.d].reshape(
+        B // D, *rest)
+
+
+def _mesh_grad_norm(cfg: LMConfig, grads, ep):
+    """The float32 L2 norm of the whole model's gradient on a mesh: each
+    model rank's own expert leaves summed over the model group, every
+    other leaf (the same on every rank) counted once."""
+    split = tf_mod.expert_slices(cfg, ep) is not None
+    lay = grads["layers"]
+    own = [lay[k] for k in tf_mod.EXPERT_LEAVES] if split else []
+    shared = [v for k, v in grads.items() if k != "layers"] + [
+        v for k, v in lay.items()
+        if not (split and k in tf_mod.EXPERT_LEAVES)]
+
+    def sq(ts):
+        return sum(torch.sum(torch.square(t.float())) for t in ts)
+    total = sq(shared)
+    if own:
+        total = total + all_reduce_(sq(own), ep.mesh.model_group)
+    return torch.sqrt(total)
+
+
 def _lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, B: int,
-                   loss_chunk: int = 16384):
+                   loss_chunk: int = 16384, ep=None):
     mb = max(1, cfg.microbatches)
-    if B % mb:
-        raise ValueError(f"batch {B} does not split into {mb} microbatches")
+    D = ep.mesh.n_data if ep is not None else 1
+    if B % (mb * D):
+        raise ValueError(f"batch {B} does not split into {mb} microbatches"
+                         f" over {D} data ranks")
 
     def step(state, batch):
         params = state["params"]
+        tokens, labels = batch["tokens"], batch["labels"]
+        if ep is not None:
+            tokens = _data_block(tokens, ep.mesh, mb)
+            labels = _data_block(labels, ep.mesh, mb)
         if mb == 1:
-            loss, g = _lm_grads(cfg, params, batch["tokens"],
-                                batch["labels"], loss_chunk)
+            loss, g = _lm_grads(cfg, params, tokens, labels, loss_chunk, ep)
             grads = {k: v for k, v in g.items() if k != "layers"}
             grads["layers"] = {k: torch.stack(v)
                                for k, v in g["layers"].items()}
@@ -238,9 +294,8 @@ def _lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, B: int,
             grads["layers"] = {k: torch.zeros_like(v, dtype=torch.float32)
                                for k, v in params["layers"].items()}
             losses = []
-            for toks, labs in zip(batch["tokens"].chunk(mb),
-                                  batch["labels"].chunk(mb)):
-                loss, g = _lm_grads(cfg, params, toks, labs, loss_chunk)
+            for toks, labs in zip(tokens.chunk(mb), labels.chunk(mb)):
+                loss, g = _lm_grads(cfg, params, toks, labs, loss_chunk, ep)
                 losses.append(loss)
                 for k, v in g.items():
                     if k != "layers":
@@ -253,32 +308,49 @@ def _lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, B: int,
                          *grads["layers"].values()]:
                 leaf.div_(mb)
             loss = torch.stack(losses).mean()
+        gnorm = None
+        if ep is not None:
+            # each data rank's loss is the mean over its own block
+            group = ep.mesh.data_group
+            for leaf in _leaves(grads):
+                all_reduce_(leaf, group).div_(D)
+            loss = all_reduce_(loss.clone(), group) / D
+            gnorm = _mesh_grad_norm(cfg, grads, ep)
         params, opt, metrics = adamw_update(opt_cfg, params, grads,
-                                            state["opt"])
+                                            state["opt"], gnorm=gnorm)
         metrics["loss"] = loss
         return {"params": params, "opt": opt}, metrics
 
     return step
 
 
-def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig):
+def _gather_rows(t, mesh, dim: int):
+    """The data ranks' blocks of ``t`` along ``dim``, in rank order."""
+    return mesh.gather_data(t.movedim(dim, 0)).movedim(0, dim)
+
+
+def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig, ep=None):
     B, S = shape.batch, shape.seq_len
     i32 = torch.int32
 
     if shape.kind == "train":
-        if cfg.moe:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: MoE training is not ported to repro_torch "
-                "yet (ROADMAP.md, Queue 1 item 8)")
         batch_shapes = {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
-        return _lm_train_step(cfg, opt_cfg, B), batch_shapes
+        return _lm_train_step(cfg, opt_cfg, B, ep=ep), batch_shapes
 
     if shape.kind == "prefill":
         batch_shapes = {"tokens": ((B, S), i32)}
+        sharded = ep is not None and ep.tokens_sharded
 
         def step(state, batch):
-            logits, cache = tf_mod.prefill(cfg, state["params"],
-                                           batch["tokens"], S)
+            tokens = batch["tokens"]
+            if sharded:
+                tokens = _data_block(tokens, ep.mesh, 1)
+            logits, cache = tf_mod.prefill(cfg, state["params"], tokens, S,
+                                           ep)
+            if sharded:
+                logits = _gather_rows(logits, ep.mesh, 0)
+                cache = {k: _gather_rows(v, ep.mesh, 1)
+                         for k, v in cache.items()}
             return state, {"logits": logits, "cache": cache}
 
         return step, batch_shapes
@@ -290,11 +362,25 @@ def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig):
             # the cache is updated in place (transformer.decode_step)
             logits, cache = tf_mod.decode_step(
                 cfg, state["params"], state["cache"], batch["token"],
-                batch["pos"])
+                batch["pos"], ep)
             return {"params": state["params"], "cache": cache}, logits
 
         return step, batch_shapes
     raise ValueError(shape.kind)
+
+
+def _expert_mesh(shape, mesh) -> tf_mod.ExpertMesh:
+    """An MoE LM cell's ``ExpertMesh`` on ``mesh``: decode keeps the whole
+    batch on every rank and splits the experts' mlp dim over the data
+    ranks (the reference's ``{"mlp": "data"}`` for MoE decode); train and
+    prefill take the data rank's block of the batch, but a prefill batch
+    the data ranks do not divide stays whole (the reference's
+    ``tokens_sharded`` rule)."""
+    if shape.kind == "decode":
+        return tf_mod.ExpertMesh(mesh, tokens_sharded=False,
+                                 mlp_over_data=True)
+    whole = shape.kind == "prefill" and shape.batch % mesh.n_data
+    return tf_mod.ExpertMesh(mesh, tokens_sharded=not whole)
 
 
 def _ferrari_cell(cfg: FerrariServeConfig, shape, opt_cfg: OptConfig,
@@ -341,16 +427,20 @@ def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
                opt_cfg: OptConfig | None = None, mesh=None) -> CellSpec:
     """The (arch, shape) cell on ``device``. ``mesh``: a
     ``core.distributed.ServingMesh`` for the ferrari cell's sharded
-    placement (its device is then the cell's); the other families run on
-    one device and refuse one."""
+    placement or the MoE LM cells' expert parallelism (its device is then
+    the cell's); the other cells run on one device and refuse one."""
     shape = shape_override or shapes_for_family(cfg.family)[shape_name]
     kw = {}
     if mesh is not None:
-        if cfg.family != "ferrari":
+        if cfg.family == "ferrari":
+            kw["mesh"] = mesh
+        elif cfg.family == "lm" and cfg.moe is not None:
+            kw["ep"] = _expert_mesh(shape, mesh)
+        else:
             raise NotImplementedError(
-                f"the {cfg.family} cells run on one device; only the "
-                "ferrari cell takes a serving mesh")
-        kw["mesh"] = mesh
+                f"the {cfg.family} cells of {cfg.arch_id} run on one "
+                "device; only the ferrari cell and the MoE LM cells take a "
+                "mesh (sharded training: ROADMAP.md, Queue 1 item 8.8)")
         device = mesh.device
     dev = resolve_device(device)
     step, batch_shapes, *extra = _CELLS[cfg.family](cfg, shape,
@@ -360,13 +450,14 @@ def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
     return CellSpec(arch=cfg.arch_id, shape_name=shape_name, kind=shape.kind,
                     step=step, batch_shapes=batch_shapes, device=dev,
                     shape=shape, state_shapes=state_shapes,
-                    model_flops_fn=flops_fn)
+                    model_flops_fn=flops_fn, expert_mesh=kw.get("ep"))
 
 
 def materialize_state(cell: CellSpec, cfg, shape_name: str,
                       gen: torch.Generator):
     """Real (allocated) state on the cell's device, drawn from ``gen`` (a
-    generator on that device)."""
+    generator on that device); on a mesh, every rank draws the whole
+    params from the same seed and keeps its own experts."""
     if cfg.family == "recsys":
         state = {"params": rec_mod.init_params(cfg, gen, cell.device)}
         if cell.kind == "train":
@@ -378,7 +469,9 @@ def materialize_state(cell: CellSpec, cfg, shape_name: str,
                                 cell.device)
         return {"params": p, "opt": adamw_init(p)}
     if cfg.family == "lm":
-        state = {"params": tf_mod.init_params(cfg, gen, cell.device)}
+        state = {"params": tf_mod.shard_experts(
+            cfg, tf_mod.init_params(cfg, gen, cell.device),
+            cell.expert_mesh)}
         if cell.kind == "train":
             state["opt"] = adamw_init(state["params"])
         if cell.kind == "decode":

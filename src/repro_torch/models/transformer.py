@@ -10,10 +10,14 @@ flash attention (kernel 6 on a card, kernels 7 and 8 in the backward)
 once per layer through ``chunked_attention``; decode runs the plain
 masked softmax over the cache. ``logits_and_loss`` is the training loss,
 a chunked and checkpointed cross-entropy; with ``cfg.remat`` the forward
-recomputes each layer in the backward. Unlike the reference there is no
-mesh and no sharding: a model runs on one device, so the MoE FFN is the
-reference's gather path (``_moe_ffn_gather``) whatever ``moe.impl``
-says, as the reference's is without a mesh.
+recomputes each layer in the backward. There is no sharding of the
+dense layers: they run whole on every rank. The MoE FFN alone takes a
+mesh (``ExpertMesh`` over a ``core.distributed.ServingMesh``): with
+``moe.impl == "shard_map"`` each model rank runs its E / M experts and
+the partial combines are summed over the model group
+(``_moe_ffn_expert_parallel``, the reference's ``_moe_ffn_shardmap``);
+without a mesh it is the reference's gather path (``_moe_ffn_gather``),
+as the reference's is without one.
 
 The MoE FFN is capacity-based top-K routing in small steps that the
 tests hold one by one (``route``, ``queue_positions``,
@@ -21,6 +25,9 @@ tests hold one by one (``route``, ``queue_positions``,
 the reference's: top-K ties go to the lower expert index (a stable
 descending sort; ``torch.topk`` orders ties otherwise), queue positions
 in the flat token-major order, assignments past the capacity dropped.
+Everything but those choices is differentiable: the gates through the
+softmax and the sort, the gather of the tokens, the three GEMMs and the
+combine, which sums each token's K slots in k order (no atomics).
 With ``cfg.kv_cache_dtype == "int8"`` the decode cache holds int8 keys
 and values with float32 absmax scales per (token, kv head);
 ``prefill`` returns its cache in the model's dtype, as the reference's
@@ -28,17 +35,21 @@ does, and ``quantize_cache`` re-encodes it for ``decode_step``.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
+from ..parallel.collectives import copy_to_group, sum_over_group
 from .attention import chunked_attention, decode_attention
 from .common import normal_init, rms_norm, rope_tables, rotate
 
 LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                 "w_up", "w_down")
 MOE_LAYER_LEAVES = LAYER_LEAVES + ("router",)
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")     # [L, E, ...] in an MoE layer
 
 
 def init_params(cfg: LMConfig, gen: torch.Generator, device):
@@ -159,23 +170,32 @@ def queue_positions(flat_e, n_experts: int):
     return torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
 
 
-def dispatch_tables(gates, experts, n_experts: int, cap: int):
-    """The [E, C] token table (int64) and gate table (float32) of a
-    routing: assignment (g, k) goes to slot (e, pos) of its expert e at
-    its queue position, unless pos >= C, when it goes to the sentinel
-    slot E·C and is dropped. An empty slot holds token 0 with gate 0."""
+def dispatch_tables(gates, experts, n_experts: int, cap: int, e0: int = 0,
+                    n_local: int | None = None):
+    """The [E_loc, C] token table (int64) and gate table (float32) of a
+    routing over experts ``e0 .. e0 + E_loc - 1`` (``n_local`` = E_loc,
+    default all ``n_experts``), and the slot [G, K] (int64) of each
+    assignment: assignment (g, k) of a local expert e goes to slot ((e −
+    e0)·C + pos) at its queue position pos, unless pos >= C, when it is
+    dropped; a dropped assignment, or one to an expert of another rank,
+    takes the sentinel slot E_loc·C. An empty slot holds token 0 with gate
+    0. Queue positions count every expert's assignments in the flat order,
+    as the reference's ``_expert_ffn_local`` does."""
     G, K = experts.shape
+    n_local = n_experts if n_local is None else n_local
     dev = experts.device
     flat_e = experts.reshape(-1)
     pos = queue_positions(flat_e, n_experts)
-    slot = torch.where(pos < cap, flat_e * cap + pos, n_experts * cap)
+    rel = flat_e - e0
+    keep = (rel >= 0) & (rel < n_local) & (pos < cap)
+    slot = torch.where(keep, rel * cap + pos, n_local * cap)
     tokens = torch.arange(G, device=dev).repeat_interleave(K)
-    token_of = torch.zeros(n_experts * cap + 1, dtype=torch.int64,
+    token_of = torch.zeros(n_local * cap + 1, dtype=torch.int64,
                            device=dev).scatter_(0, slot, tokens)
-    gate_of = torch.zeros(n_experts * cap + 1, dtype=torch.float32,
+    gate_of = torch.zeros(n_local * cap + 1, dtype=torch.float32,
                           device=dev).scatter_(0, slot, gates.reshape(-1))
-    return (token_of[:-1].view(n_experts, cap),
-            gate_of[:-1].view(n_experts, cap))
+    return (token_of[:-1].view(n_local, cap),
+            gate_of[:-1].view(n_local, cap), slot.view(G, K))
 
 
 def expert_ffn(lp, ex_in):
@@ -185,16 +205,33 @@ def expert_ffn(lp, ex_in):
     return torch.bmm(h, lp["w_down"])
 
 
-def combine(ex_out, gate_tbl, token_tbl, n_tokens: int):
+def combine(ex_out, gate_tbl, slot):
     """[G, D] in ``ex_out``'s dtype: each slot's output times its gate
-    (rounded to that dtype) summed into its token, in that dtype (the
-    reference's ``segment_sum``)."""
+    (rounded to that dtype), token g's K slots ``slot[g]`` summed in k
+    order in that dtype, the sentinel slot adding nothing. The reference's
+    ``segment_sum`` over the [E, C] table, in a fixed order: no atomics,
+    so a step gives the same bits on every run, and the backward is a
+    gather of the slots (it keeps only ``slot``)."""
     E, C, D = ex_out.shape
     weighted = ex_out * gate_tbl[..., None].to(ex_out.dtype)
-    out = torch.zeros((n_tokens, D), dtype=ex_out.dtype,
-                      device=ex_out.device)
-    return out.index_add_(0, token_tbl.reshape(-1),
-                          weighted.reshape(E * C, D))
+    rows = torch.cat([weighted.reshape(E * C, D),
+                      weighted.new_zeros((1, D))])[slot]      # [G, K, D]
+    out = rows[:, 0]
+    for k in range(1, slot.shape[1]):
+        out = out + rows[:, k]
+    return out
+
+
+def _expert_ffn_local(moe, router, lp, xf, cap: int, e0: int, n_local: int):
+    """Route the tokens ``xf [G, D]``, keep the assignments to experts
+    ``e0 .. e0 + n_local − 1`` (whose stacks ``lp`` holds), and return
+    their gate-weighted outputs combined per token, [G, D] in the experts'
+    dtype: the whole FFN when the rank holds every expert, else this
+    rank's partial sum."""
+    gates, experts = route(moe, router, xf)
+    token_tbl, gate_tbl, slot = dispatch_tables(
+        gates, experts, moe.n_experts, cap, e0, n_local)
+    return combine(expert_ffn(lp, xf[token_tbl]), gate_tbl, slot)
 
 
 def _moe_ffn_gather(cfg: LMConfig, lp, x):
@@ -204,19 +241,99 @@ def _moe_ffn_gather(cfg: LMConfig, lp, x):
     moe = cfg.moe
     B, S, D = x.shape
     G = B * S
-    xf = x.reshape(G, D)
-    gates, experts = route(moe, lp["router"], xf)
-    token_tbl, gate_tbl = dispatch_tables(gates, experts, moe.n_experts,
-                                          capacity(moe, G))
-    ex_out = expert_ffn(lp, xf[token_tbl])
-    return combine(ex_out, gate_tbl, token_tbl, G).reshape(B, S, D).to(
-        x.dtype)
+    out = _expert_ffn_local(moe, lp["router"], lp, x.reshape(G, D),
+                            capacity(moe, G), 0, moe.n_experts)
+    return out.reshape(B, S, D).to(x.dtype)
 
 
-def _moe_ffn(cfg: LMConfig, lp, x):
-    """The reference's dispatcher: ``impl="shard_map"`` needs a mesh, and
-    on one device runs the gather path, as the reference's does with
-    none."""
+# ----------------------------------------------------- expert parallelism --
+
+@dataclass(frozen=True)
+class ExpertMesh:
+    """How the MoE FFN runs over a ``core.distributed.ServingMesh``: the
+    experts split over the model ranks, E / M each. ``tokens_sharded``:
+    x is this data rank's block of the batch (train, prefill) and the
+    capacity is per data shard, as GShard's; else x is the whole batch on
+    every rank (decode) and the capacity global, with the experts' mlp
+    dim also split over the data ranks when ``mlp_over_data``."""
+    mesh: object
+    tokens_sharded: bool = True
+    mlp_over_data: bool = False
+
+    def groups(self) -> list:
+        """The process groups the combine is summed over (groups of one
+        rank left out)."""
+        m = self.mesh
+        over = [m.model_group] + ([m.data_group] if self.mlp_over_data
+                                  else [])
+        return [g for g in over if g is not None]
+
+
+def expert_slices(cfg: LMConfig, ep: ExpertMesh | None):
+    """(expert slice, mlp slice) of this rank's expert stacks under
+    ``ep``, or None where the gather path runs: no mesh, ``moe.impl`` not
+    "shard_map", or the model ranks not dividing the experts (the
+    reference's own fallback)."""
+    if ep is None or cfg.moe is None or cfg.moe.impl != "shard_map":
+        return None
+    m, E = ep.mesh, cfg.moe.n_experts
+    if E % m.n_model:
+        return None
+    e_loc = E // m.n_model
+    experts = slice(m.m * e_loc, (m.m + 1) * e_loc)
+    if not ep.mlp_over_data:
+        return experts, slice(None)
+    if cfg.d_ff % m.n_data:
+        raise ValueError(f"d_ff {cfg.d_ff} does not split over the "
+                         f"{m.n_data} data ranks")
+    f_loc = cfg.d_ff // m.n_data
+    return experts, slice(m.d * f_loc, (m.d + 1) * f_loc)
+
+
+def shard_experts(cfg: LMConfig, params, ep: ExpertMesh | None):
+    """``params`` with each layer's expert stacks cut to this rank's
+    slices (copies: the whole stacks can be freed); every other leaf
+    shared. Unchanged where ``expert_slices`` is None."""
+    sl = expert_slices(cfg, ep)
+    if sl is None:
+        return params
+    e, f = sl
+    lay = dict(params["layers"])
+    for name in EXPERT_LEAVES:           # w_down is [L, E, F, D]
+        cut = (e, f) if name == "w_down" else (e, slice(None), f)
+        lay[name] = lay[name][(slice(None), *cut)].clone()
+    return {**params, "layers": lay}
+
+
+def _moe_ffn_expert_parallel(cfg: LMConfig, lp, x, ep: ExpertMesh):
+    """The reference's ``_moe_ffn_shardmap`` on this rank: every token of
+    ``x`` routed, the assignments to the rank's E / M experts
+    (``lp``'s stacks, ``shard_experts``) run, and the partial combine, in
+    the activations' dtype, summed over the model group (and the data
+    group when the mlp dim is split there). ``x`` and the router enter
+    through ``copy_to_group`` over the same groups, so that their
+    gradients, partial on each rank, are summed as ``shard_map``
+    transposes a replicated input."""
+    moe, mesh = cfg.moe, ep.mesh
+    B, S, D = x.shape
+    G = B * S
+    e_loc = moe.n_experts // mesh.n_model
+    xf, router = x.reshape(G, D), lp["router"]
+    for g in ep.groups():
+        xf, router = copy_to_group(xf, g), copy_to_group(router, g)
+    out = _expert_ffn_local(moe, router, lp, xf, capacity(moe, G),
+                            mesh.m * e_loc, e_loc).to(x.dtype)
+    for g in ep.groups():
+        out = sum_over_group(out, g)
+    return out.reshape(B, S, D)
+
+
+def _moe_ffn(cfg: LMConfig, lp, x, ep: ExpertMesh | None = None):
+    """The reference's dispatcher: expert-parallel with ``impl=
+    "shard_map"`` and a mesh, the gather path otherwise (on a mesh, over
+    the rank's own tokens)."""
+    if expert_slices(cfg, ep) is not None:
+        return _moe_ffn_expert_parallel(cfg, lp, x, ep)
     return _moe_ffn_gather(cfg, lp, x)
 
 
@@ -231,19 +348,19 @@ def _qkv(cfg: LMConfig, lp, x, cos, sin):
     return rotate(q, cos, sin), rotate(k, cos, sin), v
 
 
-def _finish_layer(cfg: LMConfig, lp, x, att):
+def _finish_layer(cfg: LMConfig, lp, x, att, ep=None):
     """Output projection, residual, FFN, residual."""
     B, S = x.shape[:2]
     x = x + att.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"]
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + (_moe_ffn(cfg, lp, h2) if cfg.moe else _dense_ffn(lp, h2))
+    return x + (_moe_ffn(cfg, lp, h2, ep) if cfg.moe else _dense_ffn(lp, h2))
 
 
-def _layer(cfg: LMConfig, lp, x, cos, sin):
+def _layer(cfg: LMConfig, lp, x, cos, sin, ep=None):
     """One layer over a prompt: (new x, its k and v [B, S, KV, hd])."""
     q, k, v = _qkv(cfg, lp, x, cos, sin)
     att = chunked_attention(q, k, v, causal=True)
-    return _finish_layer(cfg, lp, x, att), k, v
+    return _finish_layer(cfg, lp, x, att, ep), k, v
 
 
 def _positions(B: int, S: int, device, start: int = 0):
@@ -251,14 +368,16 @@ def _positions(B: int, S: int, device, start: int = 0):
             ).expand(B, S)
 
 
-def _layer_out(cfg: LMConfig, lp, x, cos, sin):
-    return _layer(cfg, lp, x, cos, sin)[0]
+def _layer_out(cfg: LMConfig, lp, x, cos, sin, ep=None):
+    return _layer(cfg, lp, x, cos, sin, ep)[0]
 
 
-def forward(cfg: LMConfig, params, tokens):
+def forward(cfg: LMConfig, params, tokens, ep: ExpertMesh | None = None):
     """tokens [B, S] → final hidden states [B, S, D]. With ``cfg.remat``
     each layer is checkpointed (the reference's ``jax.checkpoint`` of its
-    scanned body): the backward recomputes it from its input."""
+    scanned body): the backward recomputes it from its input, routing
+    included (the stable sort routes it the same). ``ep``: the MoE FFN's
+    expert parallelism (``ExpertMesh``), None on one device."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()]
     cos, sin = rope_tables(_positions(B, S, tokens.device), cfg.hd,
@@ -266,31 +385,51 @@ def forward(cfg: LMConfig, params, tokens):
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
         if cfg.remat:
-            x = checkpoint(_layer_out, cfg, lp, x, cos, sin,
+            x = checkpoint(_layer_out, cfg, lp, x, cos, sin, ep,
                            use_reentrant=False)
         else:
-            x = _layer_out(cfg, lp, x, cos, sin)
+            x = _layer_out(cfg, lp, x, cos, sin, ep)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def _chunk_loss(h, head, labels, weight):
+class _ChunkLoss(torch.autograd.Function):
     """Σ weight · (logsumexp − the label's logit) over one chunk of rows;
     the product rounds to the params' dtype before the float32 softmax,
-    as the reference's einsum does."""
-    logits = (h @ head).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, 1, labels[:, None])[:, 0]
-    return torch.sum((lse - ll) * weight)
+    as the reference's einsum does. The backward recomputes the chunk's
+    float32 logits and turns them into their gradient in place, (softmax
+    − one-hot) · weight · g, rounded to the params' dtype: it holds one
+    [chunk, V] float32 buffer where autograd of the same expression under
+    a checkpoint holds three or four (at 16,384 rows × 163,840 vocab each
+    is 10.7 GB)."""
+
+    @staticmethod
+    def forward(ctx, h, head, labels, weight):
+        logits = (h @ head).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, 1, labels[:, None])[:, 0]
+        ctx.save_for_backward(h, head, labels, weight, lse)
+        return torch.sum((lse - ll) * weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, head, labels, weight, lse = ctx.saved_tensors
+        d = (h @ head).float()
+        d.sub_(lse[:, None]).exp_()
+        d.scatter_add_(1, labels[:, None],
+                       torch.full_like(lse[:, None], -1.0))
+        d.mul_((weight * g)[:, None])
+        d = d.to(h.dtype)
+        return d @ head.T, h.T @ d, None, None
 
 
 def logits_and_loss(cfg: LMConfig, params, tokens, labels,
-                    loss_chunk=16384):
+                    loss_chunk=16384, ep: ExpertMesh | None = None):
     """Mean next-token cross-entropy of ``tokens [B, S]`` against ``labels
     [B, S]``, float32. The [B·S, V] logits are produced and reduced chunk
     by chunk (rows padded to a multiple of ``loss_chunk`` with weight 0),
-    each chunk checkpointed so that the backward recomputes its [chunk, V]
-    logits instead of keeping them. ``loss_chunk=None``: one chunk."""
-    hs = forward(cfg, params, tokens)
+    the backward recomputing each chunk's [chunk, V] logits instead of
+    keeping them (``_ChunkLoss``). ``loss_chunk=None``: one chunk."""
+    hs = forward(cfg, params, tokens, ep)
     B, S, D = hs.shape
     G = B * S
     chunk = min(loss_chunk or G, G)
@@ -304,8 +443,8 @@ def logits_and_loss(cfg: LMConfig, params, tokens, labels,
     total = torch.zeros((), dtype=torch.float32, device=hs.device)
     for c in range(nc):
         rows = slice(c * chunk, (c + 1) * chunk)
-        total = total + checkpoint(_chunk_loss, hf[rows], head, lf[rows],
-                                   wmask[rows], use_reentrant=False)
+        total = total + _ChunkLoss.apply(hf[rows], head, lf[rows],
+                                         wmask[rows])
     return total / G
 
 
@@ -366,7 +505,8 @@ def _logits(cfg: LMConfig, params, x):
     return (x @ _head(cfg, params))[:, 0].float()
 
 
-def prefill(cfg: LMConfig, params, tokens, max_seq: int):
+def prefill(cfg: LMConfig, params, tokens, max_seq: int,
+            ep: ExpertMesh | None = None):
     """Process a full prompt tokens [B, S]: (last-token logits [B, V]
     float32, cache with the prompt's keys and values in positions < S).
     The cache is in the model's dtype for an int8 config too, as the
@@ -379,13 +519,14 @@ def prefill(cfg: LMConfig, params, tokens, max_seq: int):
                            cfg.rope_theta)
     cache = _dense_cache(cfg, B, max_seq, tokens.device)
     for i in range(cfg.n_layers):
-        x, k, v = _layer(cfg, _layer_params(params, i), x, cos, sin)
+        x, k, v = _layer(cfg, _layer_params(params, i), x, cos, sin, ep)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     return _logits(cfg, params, x[:, -1:]), cache
 
 
-def decode_step(cfg: LMConfig, params, cache, token, pos):
+def decode_step(cfg: LMConfig, params, cache, token, pos,
+                ep: ExpertMesh | None = None):
     """One decode step. token [B, 1] int; pos: int (or a 0-d tensor), the
     position being decoded. Returns (logits [B, V] float32, cache).
 
@@ -419,5 +560,5 @@ def decode_step(cfg: LMConfig, params, cache, token, pos):
         cache["v"][i, :, pos] = v[:, 0]
         att = decode_attention(q, cache["k"][i], cache["v"][i], pos,
                                **scales)
-        x = _finish_layer(cfg, lp, x, att)
+        x = _finish_layer(cfg, lp, x, att, ep)
     return _logits(cfg, params, x), cache

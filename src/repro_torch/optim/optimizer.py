@@ -83,24 +83,27 @@ def adamw_init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32)}
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, gnorm=None):
     """Scale every gradient, in place, by min(1, max_norm / (norm + 1e-9))
-    cast to its dtype, where norm is the float32 L2 norm over every leaf.
-    Returns (grads, norm as a float32 0-d tensor on the grads' device)."""
+    cast to its dtype, where norm is the float32 L2 norm over every leaf,
+    or ``gnorm`` where the caller gives it (the whole model's norm when
+    ``grads`` is one rank's share of it). Returns (grads, norm as a
+    float32 0-d tensor on the grads' device)."""
     leaves = _leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in leaves))
+    if gnorm is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in leaves))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     for g in leaves:
         g.mul_(scale.to(g.dtype))
     return grads, gnorm
 
 
-def adamw_update(cfg: OptConfig, params, grads, opt_state):
+def adamw_update(cfg: OptConfig, params, grads, opt_state, gnorm=None):
     """One AdamW step, in place on ``params`` and ``opt_state`` (and on
-    ``grads``, which are clipped). Returns (params, opt_state, metrics
-    {"grad_norm", "lr"})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    ``grads``, which are clipped; ``gnorm``: as ``clip_by_global_norm``'s).
+    Returns (params, opt_state, metrics {"grad_norm", "lr"})."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
     step = opt_state["step"] + 1
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

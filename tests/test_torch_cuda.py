@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
 engine, the recsys cells, the GNN forward, the LM's prefill and decode
-(dense and MoE, the int8 KV cache) and the LM train cell on the card against the same on the CPU. Needs a CUDA device:
+(dense and MoE, the int8 KV cache), the LM train cell (dense and MoE) and
+the expert-parallel MoE at world 1 over NCCL on the card against the same
+on the CPU. Needs a CUDA device:
 every test here carries the ``cuda`` marker and skips without one. The
 file imports neither JAX nor the reference package, so it runs on a
 machine with only PyTorch and the CUDA toolkit:
@@ -1627,3 +1629,121 @@ def test_trainer_recovery_on_card_bit_for_bit(dev, tmp_path):
     for (path, a), (_, b) in zip(_flatten_with_paths(failed.state),
                                  _flatten_with_paths(clean.state)):
         assert torch.equal(a, b), path
+
+
+# ------------------------------------------- MoE training, expert parallel --
+def _moe_train_smoke(arch="moonshot-v1-16b-a3b", dtype="float32"):
+    """An MoE arch's SMOKE config at head dim 64 with its published MoE
+    spec (moonshot: 64 experts top 6), remat and 2 microbatches."""
+    return dataclasses.replace(get_smoke(arch), head_dim=64, remat=True,
+                               microbatches=2, dtype=dtype,
+                               moe=get_config(arch).moe)
+
+
+def _moe_batch(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32))
+    return {"tokens": toks, "labels": torch.roll(toks, -1, dims=1)}
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_moe_train_cell_on_card_matches_cpu(dev, arch):
+    """One MoE train step, card vs CPU on the same state: the loss at
+    rtol 1e-5, m (every leaf's gradient) and v at rtol 1e-4 and atol 5e-4
+    × max|want|, params at atol 2·lr; kernel 6 twice per layer and
+    microbatch (remat), kernels 7 and 8 once."""
+    cfg = _moe_train_smoke(arch)
+    shp = dataclasses.replace(shapes_for_family("lm")["train_4k"], batch=4,
+                              seq_len=128)
+    cells = {d: api.build_cell(cfg, "train_4k", device=d, shape_override=shp)
+             for d in ("cpu", dev)}
+    host = api.materialize_state(cells["cpu"], cfg, "train_4k",
+                                 torch.Generator().manual_seed(6))
+    card = _to(host, dev)
+    batch = _moe_batch(cfg, 4, 128, 7)
+    _lib.LAUNCHES.reset()
+    card, got = cells[dev].step(card, {k: v.to(dev) for k, v in
+                                       batch.items()})
+    L, mb = cfg.n_layers, cfg.microbatches
+    assert _lib.LAUNCHES["flash_fwd"] == 2 * L * mb
+    assert _lib.LAUNCHES["flash_bwd_dq"] == _lib.LAUNCHES[
+        "flash_bwd_dkv"] == L * mb
+    host, want = cells["cpu"].step(host, batch)
+    torch.testing.assert_close(got["loss"].cpu(), want["loss"], rtol=1e-5,
+                               atol=0)
+    lr = float(want["lr"])
+    for name, t in card["params"]["layers"].items():
+        _close(t, host["params"]["layers"][name], dict(rtol=0, atol=2 * lr))
+        for mv in ("m", "v"):
+            w = host["opt"][mv]["layers"][name]
+            _close(card["opt"][mv]["layers"][name], w,
+                   dict(rtol=1e-4, atol=5e-4 * float(w.abs().max())))
+
+
+def test_moe_train_step_same_bits_on_every_run_on_card(dev):
+    """The combine sums each token's K slots in a fixed order (no
+    atomics): two bf16 train steps from one state give the same bits,
+    at moonshot's 64 experts top 6."""
+    cfg = _moe_train_smoke(dtype="bfloat16")
+    shp = dataclasses.replace(shapes_for_family("lm")["train_4k"], batch=4,
+                              seq_len=256)
+    cell = api.build_cell(cfg, "train_4k", device=dev, shape_override=shp)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    first = api.materialize_state(cell, cfg, "train_4k", gen)
+    second = _to(first, "cpu")
+    second = _to(second, dev)
+    batch = {k: v.to(dev) for k, v in _moe_batch(cfg, 4, 256, 9).items()}
+    first, m1 = cell.step(first, batch)
+    second, m2 = cell.step(second, batch)
+    assert torch.equal(m1["loss"], m2["loss"])
+    for name, t in first["params"]["layers"].items():
+        assert torch.equal(t, second["params"]["layers"][name]), name
+
+
+def test_moe_expert_parallel_world_one_nccl(dev, tmp_path):
+    """A world-1 NCCL group (mesh 1x1): the expert-parallel FFN holds every
+    expert and equals the gather path bit for bit; the train cell built
+    with the mesh steps as the one without, launching no collective."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import ServingMesh
+    from repro_torch.parallel import CALLS
+    cfg = _moe_train_smoke(dtype="bfloat16")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        mesh = ServingMesh("sharded", (1, 1))
+        CALLS.clear()
+        lp = {k: v[0] for k, v in transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(3), dev)[
+                "layers"].items()}
+        x = torch.randn(2, 256, cfg.d_model, device=dev).bfloat16()
+        got = transformer._moe_ffn(cfg, lp, x, transformer.ExpertMesh(mesh))
+        assert torch.equal(got, transformer._moe_ffn(cfg, lp, x))
+        shp = dataclasses.replace(shapes_for_family("lm")["train_4k"],
+                                  batch=4, seq_len=128)
+        cells = [api.build_cell(cfg, "train_4k", mesh=mesh,
+                                shape_override=shp),
+                 api.build_cell(cfg, "train_4k", device=dev,
+                                shape_override=shp)]
+        assert cells[0].device.type == "cuda"
+        state = api.materialize_state(cells[0], cfg, "train_4k",
+                                      torch.Generator(device=dev)
+                                      .manual_seed(4))
+        states = [state, _to(_to(state, "cpu"), dev)]
+        batch = {k: v.to(dev) for k, v in _moe_batch(cfg, 4, 128, 5).items()}
+        (s0, m0), (s1, m1) = (c.step(s, batch) for c, s in zip(cells,
+                                                               states))
+        assert torch.equal(m0["loss"], m1["loss"])
+        torch.testing.assert_close(m0["grad_norm"], m1["grad_norm"],
+                                   rtol=1e-5, atol=0)
+        lr = float(m1["lr"])
+        for name, t in s0["params"]["layers"].items():
+            _close(t.float(), s1["params"]["layers"][name].float(),
+                   dict(rtol=0, atol=2 * lr))
+        assert sum(CALLS.values()) == 0
+    finally:
+        dist.destroy_process_group()

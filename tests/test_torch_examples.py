@@ -3,7 +3,8 @@
 ``examples/torch_{quickstart,reachability_serve,shortest_path_pruning,
 lm_train,gnn_train}.py`` run end to end with ``--device cpu`` at a small
 size (each in its own process, as a user runs them; the LM example
-through its injected failure and recovery). The CLI's ``--updates`` / ``--update-batch``
+through its injected failure and recovery), and
+``examples/torch_moe_expert_parallel.py`` on its four gloo ranks. The CLI's ``--updates`` / ``--update-batch``
 churn loop gives the reference CLI's answers, phase mix and overlay
 counters on the same graph and seed (the reference on its XLA loop, whose
 overflow rule differs from the fused rule the port keeps, so
@@ -71,6 +72,22 @@ def test_gnn_train_example():
     losses = [float(line.split()[-1]) for line in out.splitlines()
               if line.startswith("step ")]
     assert len(losses) == 2 and losses[1] < losses[0]
+
+
+def test_moe_expert_parallel_example():
+    """The gather and the expert-parallel dispatch train the same losses
+    on a 2x2 mesh; only the expert-parallel one sums combines (one a
+    layer and microbatch) and copies' gradients over the model group."""
+    out = _run("torch_moe_expert_parallel.py", "--steps", "4")
+    rows = [line.split() for line in out.splitlines()
+            if line.strip()[:1].isdigit()]
+    assert [int(r[0]) for r in rows] == [0, 1, 2, 3]
+    for _, gather, ep in rows:
+        assert abs(float(gather) - float(ep)) <= 1e-5 * abs(float(gather))
+    assert "max loss drift:" in out
+    assert "gather:          {'all_reduce': 14}" in out
+    assert ("expert-parallel: {'all_reduce': 15, 'copy_to_group': 16, "
+            "'sum_over_group': 8}") in out
 
 
 ARGV = ["--nodes", "2000", "--queries", "2048", "--k", "1", "--no-seeds",

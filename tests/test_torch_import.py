@@ -48,7 +48,9 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.data.graph_data",
             "repro_torch.checkpoint.checkpoint",
             "repro_torch.configs.phi35_moe",
-            "repro_torch.configs.moonshot_v1_16b"} <= mods
+            "repro_torch.configs.moonshot_v1_16b",
+            "repro_torch.parallel",
+            "repro_torch.parallel.collectives"} <= mods
 
 
 def test_no_source_file_imports_jax_or_reference():
@@ -88,11 +90,12 @@ print(len(sys.argv) - 1)
 
 
 def test_examples_import_neither_jax_nor_reference():
-    """The port's five examples name neither jax nor the reference, and
+    """The port's six examples name neither jax nor the reference, and
     importing them (their ``__main__`` blocks aside) pulls in neither."""
     files = sorted((ROOT / "examples").glob("torch_*.py"))
     assert [f.name for f in files] == [
-        "torch_gnn_train.py", "torch_lm_train.py", "torch_quickstart.py",
+        "torch_gnn_train.py", "torch_lm_train.py",
+        "torch_moe_expert_parallel.py", "torch_quickstart.py",
         "torch_reachability_serve.py", "torch_shortest_path_pruning.py"]
     assert [f.name for f in files if IMPORT.search(f.read_text())] == []
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -100,4 +103,4 @@ def test_examples_import_neither_jax_nor_reference():
                         *map(str, files)], env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.split() == ["5"]
+    assert r.stdout.split() == ["6"]

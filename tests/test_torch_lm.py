@@ -4,8 +4,8 @@ the SMOKE configs of llama3-8b, tinyllama-1.1b and smollm-360m (head dims
 32, 16 and 32; GQA groups of 2, 4 and 3), with the
 reference's params carried across by ``params_from_arrays("lm", ...)``;
 the prefill and decode cells of both packages' ``build_cell``; the
-building blocks; and what is not ported (the MoE archs, the trainer's
-checkpoint manager).
+building blocks; and what is not ported (sharded training of the dense
+LMs).
 Tokens are numpy, from a seed.
 
 Tolerance: rtol 1e-4, atol 1e-5 (float32 layers of matmuls, softmax and
@@ -178,19 +178,22 @@ def test_generate_greedy_on_cpu():
 
 
 def test_unported_lm_parts_raise():
-    """What stays unported: MoE training (the train cell of an MoE config,
-    published or SMOKE). The MoE archs and the int8 cache resolve and
-    serve (tests/test_torch_moe.py)."""
+    """What stays unported: sharded training of the dense LMs (a mesh
+    given to a dense LM cell). The MoE archs and the int8 cache resolve,
+    serve (tests/test_torch_moe.py) and train (tests/test_torch_moe_train.py),
+    expert-parallel on a mesh (tests/test_torch_moe_ep.py)."""
     for arch in ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b"):
         for get in (get_config, get_smoke):
             cfg = get(arch)
             assert cfg.moe is not None and cfg.kv_cache_dtype == "int8"
-            with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-                api.build_cell(cfg, "train_4k", device="cpu")
+            assert api.build_cell(cfg, "train_4k",
+                                  device="cpu").kind == "train"
     moe = dataclasses.replace(get_smoke("llama3-8b"),
                               moe=MoESpec(n_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        api.build_cell(moe, "train_4k", device="cpu")
+    assert api.build_cell(moe, "train_4k", device="cpu").kind == "train"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8.8"):
+        api.build_cell(get_smoke("llama3-8b"), "train_4k", device="cpu",
+                       mesh=object())
     cfg = dataclasses.replace(get_smoke("llama3-8b"), kv_cache_dtype="int8")
     assert api.build_cell(cfg, "decode_32k", device="cpu").kind == "decode"
     assert transformer.init_cache(cfg, 1, 8, "cpu")["k"].dtype == torch.int8

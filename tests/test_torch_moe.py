@@ -201,8 +201,10 @@ def test_moe_ffn_matches_reference(arch, dispatch, cf, b, s):
     np.testing.assert_array_equal(
         tf.queue_positions(experts.reshape(-1), pcfg.moe.n_experts).numpy(),
         pos)
-    tok, gate = tf.dispatch_tables(gates, experts, pcfg.moe.n_experts, C)
+    tok, gate, slot = tf.dispatch_tables(gates, experts, pcfg.moe.n_experts,
+                                         C)
     assert tok.shape == (pcfg.moe.n_experts, C)
+    assert tuple(slot.shape) == top_e.shape
     np.testing.assert_array_equal(tok.numpy(), token_tbl)
     np.testing.assert_allclose(gate.numpy(), gate_tbl, **FFN_TOL)
     dropped = int((pos >= C).sum())
@@ -232,8 +234,8 @@ def test_zero_router_ties_go_to_the_lower_expert(arch):
             cfg, moe=dataclasses.replace(cfg.moe, dispatch=dispatch))
         top_e, _, token_tbl, gate_tbl = _ref_tables(dcfg, lp["router"], xf)
         np.testing.assert_array_equal(experts.numpy(), top_e)
-        tok, gate = tf.dispatch_tables(gates, experts, E,
-                                       tf.capacity(pcfg.moe, 24))
+        tok, gate, _ = tf.dispatch_tables(gates, experts, E,
+                                          tf.capacity(pcfg.moe, 24))
         np.testing.assert_array_equal(tok.numpy(), token_tbl)
         np.testing.assert_array_equal(gate.numpy(), gate_tbl)
         want = ref_tf._moe_ffn_gather(dcfg, lp, jnp.asarray(x), NO_SHARDING)
