@@ -169,6 +169,39 @@ card:
            gradient), v and the params; and the Trainer's recovery from a
            WorkerFailure at step 5 on moonshot's MoE spec at SMOKE widths
            (head dim 64), bit for bit.
+  sharded_train
+           sharded and elastic training of tinyllama-1.1b (one card, so in
+           three ways): the Trainer on a world-1 NCCL mesh (1x1,
+           ``launch.mesh.make_debug_mesh``) at the published config and
+           full depth (22 layers, bf16, remat, 4 microbatches; train_4k's
+           batch 256 -> 16), 2 steps, against the Trainer without a mesh,
+           losses and every leaf bit for bit, no collective launched; then
+           two gloo ranks sharing cuda:0 (subprocesses, a FileStore under
+           build/) at the published widths, depth 22 -> 2: float32, batch
+           2 x 512 (1 microbatch), meshes 1x2 (tensor parallel: 16 of
+           the 32 heads and 2 of the 4 kv heads a rank, vocab-parallel
+           embedding and loss) and 2x1 (data parallel, ZeRO-1), 2 steps
+           each, every leaf's block of its spec's shape, the state
+           gathered on rank 0 against the one-device steps on the card
+           (loss rtol 1e-4; m, v rtol 1e-4, atol 1e-5 x max|want|; params
+           atol 2 lr); bf16, batch 16 x 4096, 4 microbatches, remat, both
+           meshes, a warm-up and 2 timed steps (s, tokens/s with the two
+           ranks sharing the card, peak memory a rank, collectives and
+           bytes a step by name, launches of kernels 6-8 a step, checked);
+           rank 0's layer-0 call at 1x2 (q [4, 4096, 16, 64], k, v [4,
+           4096, 2, 64]) held against the plain version on sequence 0 and
+           timed beside SDPA (forward and backward); the elastic Trainer
+           on the float32 cut from 2x1 (ElasticMeshManager(prefer_model=
+           1), a checkpoint every 2 steps) with worker 1 failing at step
+           5: rank 1 leaves, rank 0 re-meshes to one device, restores step
+           4 and finishes 6 steps, its losses and state bit for bit those
+           of a one-device Trainer resumed from that checkpoint;
+           ``compressed_psum`` of 2^20 float32 a rank within 4 x scale of
+           the exact sum and equal to the CPU tensors' bit for bit, and
+           ``pipeline_forward`` over 2 stages against the sequential
+           forward. Cuts: depth 22 -> 2 and batch 256 -> 16 on the pair
+           (two ranks' state and activations on one card), batch 256 -> 2
+           and seq 4096 -> 512 in the float32 parts.
   ferrari  ferrari-web (the paper's own system) at its published n =
            16,777,216, after every other phase is driven and timed and
            the card's cache emptied: a condensed DAG
@@ -223,8 +256,9 @@ dense phase's largest call, and kernels 1 to 4 beside their launch floor
 (``zero_()`` of an output as large, timed the same way).
 ``--ferrari-only`` runs the kernels' build and the ferrari phase alone
 and prints no result lines; only with it, ``--ferrari-nodes`` cuts the
-phase's graph. ``--moe-only`` and ``--moe-train-only`` do the same for
-the moe and moe_train phases.
+phase's graph. ``--moe-only``, ``--moe-train-only`` and
+``--sharded-train-only`` do the same for the moe, moe_train and
+sharded_train phases.
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -364,17 +398,17 @@ KERNELS = {
     "flash_fwd": dict(
         source="src/repro_torch/csrc/flash_fwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:101", phase="lm",
-        also=("moe", "moe_train")),
+        also=("moe", "moe_train", "sharded_train")),
     "flash_bwd_dq": dict(
         source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:172",
         call="src/repro/kernels/flash_attention.py:207", phase="train",
-        also=("moe_train",)),
+        also=("moe_train", "sharded_train")),
     "flash_bwd_dkv": dict(
         source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:172",
         call="src/repro/kernels/flash_attention.py:224", phase="train",
-        also=("moe_train",)),
+        also=("moe_train", "sharded_train")),
     # the sharded placement's entries of kernels 1 and 3: the reference's
     # kernels on gathered rows inside its shard_map
     "stab_packed_owned": dict(
@@ -3925,16 +3959,18 @@ def _leaves(tree):
 
 def _train_state_close(label, got, want, metrics, want_metrics,
                        loss_rtol: float = FORWARD_RTOL,
-                       atol: float = FORWARD_ATOL) -> None:
-    """The card's train state and metrics against the CPU's at the CPU
-    tests' tolerances: the loss at rtol ``loss_rtol``, grad_norm and lr at
-    rtol 1e-4; m and v at rtol 1e-4, atol ``atol`` x max|want|; params at
-    atol 2 lr. Compared on the card (each CPU leaf copied there in turn:
-    a full-width cut's float32 leaves are slow to compare on the host)."""
+                       atol: float = FORWARD_ATOL,
+                       what: str = "card vs CPU") -> None:
+    """The card's train state and metrics against the CPU's (``what``
+    names the two) at the CPU tests' tolerances: the loss at rtol
+    ``loss_rtol``, grad_norm and lr at rtol 1e-4; m and v at rtol 1e-4,
+    atol ``atol`` x max|want|; params at atol 2 lr. Compared on the card
+    (each CPU leaf copied there in turn: a full-width cut's float32 leaves
+    are slow to compare on the host)."""
     for key in ("loss", "grad_norm", "lr"):
         rtol = loss_rtol if key == "loss" else FORWARD_RTOL
         a, b = float(metrics[key]), float(want_metrics[key])
-        print(f"  card vs CPU {label} {key}: {a:.7f} vs {b:.7f}", flush=True)
+        print(f"  {what} {label} {key}: {a:.7f} vs {b:.7f}", flush=True)
         check(abs(a - b) <= rtol * abs(b),
               f"train {label}: {key} differs between card and CPU")
     two_lr = 2 * float(want_metrics["lr"])
@@ -3947,7 +3983,7 @@ def _train_state_close(label, got, want, metrics, want_metrics,
                    (FORWARD_RTOL, atol * float(b.abs().max())))
             err, n_bad, _ = close_stats(a, b, *tol)
             bad, worst = bad + n_bad, max(worst, err)
-    print(f"  card vs CPU {label} params, m, v: {bad} mismatches, max abs err "
+    print(f"  {what} {label} params, m, v: {bad} mismatches, max abs err "
           f"{worst:.3e} (params at atol 2 lr = {two_lr:.3e}; m, v at rtol "
           f"{FORWARD_RTOL}, atol {atol} x max|want|)", flush=True)
     check(bad == 0, f"train {label}: the card's state differs from the CPU's")
@@ -4585,6 +4621,432 @@ def moe_train_phase(dev, seed: int) -> dict:
     print(f"  moe_train: {out['seconds']:.1f} s (" + ", ".join(
         f"{k} {v:.1f} s" for k, v in parts.items()) + ")", flush=True)
     return out
+
+
+# ---------------------------------------------------- sharded_train ----
+# the sharded_train phase (one card, so three ways, as the distributed
+# phase holds serving): tinyllama-1.1b through the Trainer on a mesh at
+# world 1 over NCCL at full width and depth (train_4k's batch 256 -> 16,
+# 2 steps, against the same Trainer without a mesh, bit for bit); then
+# two gloo ranks sharing cuda:0 at the published widths with depth 22 ->
+# 2: a float32 cut (batch 2 x 512) on meshes 1x2 (tensor parallel) and
+# 2x1 (data parallel + ZeRO-1) against the one-device step, the bf16
+# config (batch 16 x 4096, 4 microbatches, remat) on both meshes timed,
+# the elastic Trainer from 2x1 losing worker 1 at step 5, and the
+# compressed sum and the 2-stage pipeline on CUDA tensors
+SHARDED_BATCH = 16
+SHARDED_STEPS = 2
+SHARDED_MESHES = ((1, 2), (2, 1))
+SHARDED_CHECK = dict(layers=2, batch=2, seq=512, microbatches=1, steps=2)
+SHARDED_BF16 = dict(layers=2, batch=16, steps=2)    # + a warm-up step
+SHARDED_ELASTIC = dict(steps=6, ckpt_every=2, fail_at=5)
+SHARDED_PSUM = 1 << 20          # elements a rank, compressed_psum
+SHARDED_PIPE = dict(d=1024, batch=256, microbatches=4)
+SHARDED_TIMEOUT = 600           # seconds, each rank of the pair
+TP_LABEL = "the 1x2 mesh's layer-0 call (tensor parallel)"
+
+# One rank of the gloo pair that shares cuda:0 in the sharded_train
+# phase; prints its lines (rank 0's the parity and timings) and writes
+# its numbers as JSON.
+SHARDED_RANK = r"""
+import json, shutil, sys, time
+from dataclasses import replace
+from pathlib import Path
+cfg = json.loads(sys.argv[1])
+rank = int(sys.argv[2])
+sys.path.insert(0, cfg["src"])
+sys.path.insert(0, cfg["root"])
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", rank=rank, world_size=2,
+                        store=dist.FileStore(cfg["store"], 2))
+import chip_smoke as cs
+from repro_torch.checkpoint.checkpoint import _flatten_with_paths, gather_state
+from repro_torch.configs import get_config
+from repro_torch.configs.base import shapes_for_family
+from repro_torch.data import TokenPipeline
+from repro_torch.kernels import _lib, ops
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch.mesh import Mesh, make_debug_mesh
+from repro_torch.launch.train import Trainer
+from repro_torch.models import api
+from repro_torch.optim.compression import compressed_psum
+from repro_torch.optim.optimizer import OptConfig
+from repro_torch.parallel import BYTES, CALLS, sharding as shd
+from repro_torch.parallel.pipeline import demo_stage_fn, pipeline_forward
+from repro_torch.runtime.elastic import ElasticMeshManager
+from repro_torch.runtime.fault_tolerance import (FaultInjector,
+                                                 HeartbeatMonitor)
+dev = torch.device("cuda", 0)
+seed, work = cfg["seed"], Path(cfg["work"])
+base = get_config("tinyllama-1.1b")
+lm = shapes_for_family("lm")
+opt = OptConfig(warmup_steps=10)
+out = {"float32": {}, "bf16": {}}
+
+def say(line):
+    print(f"  [rank {rank}] {line}", flush=True)
+
+# ---- float32 cut: 1x2 and 2x1 against the one-device step
+c = cfg["check"]
+small = replace(base, n_layers=c["layers"], dtype="float32",
+                microbatches=c["microbatches"])
+shp = replace(lm["train_4k"], batch=c["batch"], seq_len=c["seq"])
+pipe = TokenPipeline(small.vocab, c["batch"], c["seq"], seed=seed + 1)
+batches = [{k: torch.from_numpy(a).to(dev) for k, a in
+            zip(("tokens", "labels"), pipe.batch_at(i))}
+           for i in range(c["steps"])]
+
+def fresh(cell):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    return api.materialize_state(cell, small, "train_4k", gen)
+
+if rank == 0:
+    one = api.build_cell(small, "train_4k", device=dev, shape_override=shp,
+                         opt_cfg=opt)
+    want = fresh(one)
+    for b in batches:
+        want, want_m = one.step(want, b)
+for d, m in cfg["meshes"]:
+    mesh = make_debug_mesh(model=m, device=dev)
+    cell = api.build_cell(small, "train_4k", mesh=mesh, shape_override=shp,
+                          opt_cfg=opt)
+    state, pl = fresh(cell), cell.state_shardings()
+    CALLS.clear(); BYTES.clear()
+    for b in batches:
+        state, metrics = cell.step(state, b)
+    calls, nbytes = dict(CALLS), dict(BYTES)
+    whole = gather_state(state, pl)
+    shapes_ok = all(
+        tuple(leaf.shape) == shd.local_shape(w.shape, p.spec, mesh)
+        for (_, leaf), (_, w), (_, p) in zip(_flatten_with_paths(state),
+                                             _flatten_with_paths(whole),
+                                             _flatten_with_paths(pl)))
+    cs.check(shapes_ok, f"sharded_train: a leaf's block at {d}x{m} is not "
+             "its spec's")
+    say(f"float32 {d}x{m}: {c['steps']} steps of batch {c['batch']} x "
+        f"{c['seq']}, loss {float(metrics['loss']):.7f}, grad_norm "
+        f"{float(metrics['grad_norm']):.7f}; every leaf's block of its "
+        f"spec's shape; collectives over the 2 steps {calls}, bytes {nbytes}")
+    if rank == 0:
+        cs._train_state_close(f"{d}x{m} gathered", whole, want, metrics,
+                              want_m, what="gloo pair vs one device")
+    out["float32"][f"{d}x{m}"] = dict(loss=float(metrics["loss"]),
+                                      calls=calls, bytes=nbytes)
+    del cell, state, whole
+    dist.barrier()
+if rank == 0:
+    del one, want
+torch.cuda.empty_cache()
+
+# ---- bf16 at the published widths, depth cut: both meshes timed
+b = cfg["bf16"]
+cut = replace(base, n_layers=b["layers"])
+mb = cut.microbatches
+S = lm["train_4k"].seq_len
+launch_want = {"flash_fwd": (2 if cut.remat else 1) * cut.n_layers * mb,
+               "flash_bwd_dq": cut.n_layers * mb,
+               "flash_bwd_dkv": cut.n_layers * mb}
+launches_total = dict.fromkeys(launch_want, 0)
+for d, m in cfg["meshes"]:
+    mesh = make_debug_mesh(model=m, device=dev)
+    tr = Trainer("tinyllama-1.1b", cfg_override=cut, mesh=mesh, seed=seed,
+                 batch_override=b["batch"], seq_override=S)
+    tr.init_state()
+    captured, forward = [], []
+    flash_bwd, attention = fa.flash_bwd, ops.attention
+    tp = (d, m) == (1, 2) and rank == 0
+
+    def capture(*args, **kw):
+        captured.append((*(t.detach() for t in args), kw["causal"],
+                         kw["q_offset"]))
+        return flash_bwd(*args, **kw)
+
+    def capture_fwd(q, k, v, **kw):
+        if not forward:
+            forward.append((q.detach(), k.detach(), v.detach(),
+                            kw["causal"], kw["q_offset"]))
+        return attention(q, k, v, **kw)
+    if tp:
+        fa.flash_bwd, ops.attention = capture, capture_fwd
+    try:
+        tr.run(1)                                  # warm-up
+    finally:
+        fa.flash_bwd, ops.attention = flash_bwd, attention
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = []
+    for _ in range(b["steps"]):
+        before = dict(_lib.LAUNCHES)
+        CALLS.clear(); BYTES.clear()
+        tr.run(tr.step_idx + 1)
+        step = {k: _lib.LAUNCHES[k] - before.get(k, 0) for k in launch_want}
+        h = tr.history[-1]
+        rows.append(dict(seconds=h["seconds"],
+                         tokens_per_s=b["batch"] * S / h["seconds"],
+                         loss=tr.metrics["loss"], calls=dict(CALLS),
+                         bytes=dict(BYTES), launches=step))
+        cs.check(step == launch_want, f"sharded_train: launches a step "
+                 f"{step} at {d}x{m}, expected {launch_want}")
+        cs.check(np.isfinite(tr.metrics["loss"]), "sharded_train: loss")
+        for k in step:
+            launches_total[k] += step[k]
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, r in enumerate(rows):
+        say(f"bf16 {d}x{m} step {i}: {r['seconds']:.3f} s, "
+            f"{r['tokens_per_s']:.0f} tokens/s (the two ranks share one "
+            f"card), loss {r['loss']:.4f}, launches {r['launches']}; "
+            f"collectives {r['calls']}, bytes {r['bytes']}")
+    say(f"bf16 {d}x{m}: peak device memory {peak / 1e9:.2f} GB a rank")
+    out["bf16"][f"{d}x{m}"] = dict(rows=rows, peak_bytes=peak)
+    del tr
+    torch.cuda.empty_cache()
+    dist.barrier()               # rank 1 idle while rank 0 times the call
+    if tp:
+        layer0 = captured[cut.n_layers - 1]
+        del captured
+        seq0 = tuple(t[:1].contiguous() for t in layer0[:6]) + layer0[6:]
+        res = cs.flash_bwd_parity(f"on {cs.TP_LABEL}, sequence 0", seq0)
+        timing = cs.time_flash_bwd(layer0, cs.TP_LABEL, seq0)
+        for name in timing:
+            timing[name]["err"] = list(res[name])
+        q, k, v, causal, qo = forward.pop()
+        n = cs.LM_PARITY_ROWS
+        tail = (q[:1, -n:].contiguous(), k[:1].contiguous(),
+                v[:1].contiguous(), causal, qo + S - n)
+        err = cs.flash_tail_parity(tail, f"{cs.TP_LABEL}, sequence 0's last "
+                                         f"{n} query rows")
+        timing["flash_fwd"] = cs.time_flash((q, k, v, causal, qo), tail,
+                                            cs.TP_LABEL)
+        timing["flash_fwd"]["err"] = list(err)
+        timing["shapes"] = [list(q.shape), list(k.shape)]
+        out["tp_call"] = timing
+        del layer0, seq0, q, k, v, tail
+        torch.cuda.empty_cache()
+    dist.barrier()
+out["launches"] = launches_total
+
+# ---- elastic: 2x1 loses worker 1 (rank 1) at step 5
+e = cfg["elastic"]
+mgr = ElasticMeshManager(prefer_model=1, device=str(dev))
+
+def elastic_trainer(**kw):
+    return Trainer("tinyllama-1.1b", cfg_override=small, seed=seed,
+                   batch_override=c["batch"], seq_override=c["seq"], **kw)
+t0 = time.perf_counter()
+tr = elastic_trainer(mesh=mgr.current_mesh(), elastic=mgr,
+                     ckpt_dir=str(work / "ckpt_elastic"),
+                     fault_injector=FaultInjector.worker_failure_at(
+                         e["fail_at"], worker=1))
+tr.monitor = HeartbeatMonitor(n_workers=2, timeout_s=3600)
+start = dict(tr.mesh.sizes)
+tr.restore_or_init()
+hist = tr.run(e["steps"], ckpt_every=e["ckpt_every"], log_every=100)
+el = dict(start=start, left=tr.left, step=tr.step_idx,
+          generation=mgr.generation, recoveries=tr.recoveries,
+          losses=[h["loss"] for h in hist],
+          seconds=time.perf_counter() - t0)
+say(f"elastic: mesh {start}, worker 1 fails at step {e['fail_at']}: "
+    f"generation {el['generation']}, {'left' if tr.left else 'stayed'} at "
+    f"step {tr.step_idx}, mesh after "
+    f"{None if tr.mesh is None else dict(tr.mesh.sizes)}; losses "
+    f"{el['losses']}; {el['seconds']:.1f} s")
+cs.check(el["generation"] == 1 and tr.recoveries == 1,
+         "sharded_train: the elastic Trainer did not re-mesh once")
+cs.check(tr.left == (rank == 1), "sharded_train: the wrong rank left")
+dist.barrier()
+if rank == 0:
+    cs.check(tr.mesh is None and tr.step_idx == e["steps"],
+             "sharded_train: rank 0 did not finish on one device")
+    last = (e["fail_at"] // e["ckpt_every"]) * e["ckpt_every"]
+    resume = work / "ckpt_resume"
+    shutil.copytree(work / "ckpt_elastic" / f"step_{last}",
+                    resume / f"step_{last}")
+    (resume / f"step_{last}.done").touch()
+    again = elastic_trainer(ckpt_dir=str(resume), device=dev)
+    cs.check(again.restore_or_init() and again.step_idx == last,
+             "sharded_train: no checkpoint to resume from")
+    again.ckpt = None                 # nothing to write: compared below
+    h2 = again.run(e["steps"], log_every=100)
+    after = el["losses"][-(e["steps"] - last):]
+    same = after == [h["loss"] for h in h2] and all(
+        torch.equal(a, b_) for (_, a), (_, b_) in zip(
+            _flatten_with_paths(tr.state), _flatten_with_paths(again.state)))
+    say(f"elastic: losses after the recovery {after} against a one-device "
+        f"Trainer resumed from step {last}: "
+        f"{[h['loss'] for h in h2]}; state bit for bit: {same}")
+    cs.check(same, "sharded_train: the recovered run differs from the "
+             "resumed one")
+    el["bit_for_bit"] = same
+    del again
+out["elastic"] = el
+del tr
+torch.cuda.empty_cache()
+dist.barrier()
+
+# ---- compressed_psum and the 2-stage pipeline on CUDA tensors
+mesh = Mesh((2,), ("data",), device=dev)
+g = torch.Generator().manual_seed(seed + 3)
+shards = torch.randn((2, cfg["psum"]), generator=g)
+got = compressed_psum(shards[rank].to(dev), mesh.group("data"))
+host = compressed_psum(shards[rank], mesh.group("data"))
+exact = shards.sum(0)
+scale = float(shards.abs().max()) / 127.0
+err = float((got.cpu() - exact).abs().max())
+same = bool(torch.equal(got.cpu(), host))
+say(f"compressed_psum of {cfg['psum']} float32 a rank over the pair: max "
+    f"error {err:.3e} against the exact sum (limit 4 x scale = "
+    f"{4 * scale:.3e}); equal to the CPU tensors' bit for bit: {same}")
+cs.check(err <= 4 * scale + 1e-6 and same, "sharded_train: compressed_psum")
+p = cfg["pipe"]
+pm = Mesh((2,), ("pod",), device=dev)
+g = torch.Generator(device=dev)
+g.manual_seed(seed + 4)
+w, w2 = (torch.randn((2, p["d"], p["d"]), generator=g, device=dev)
+         / p["d"] ** 0.5 for _ in range(2))
+x = torch.randn((p["batch"], p["d"]), generator=g, device=dev)
+i = pm.index("pod")
+y = pipeline_forward(pm, demo_stage_fn, 2, p["microbatches"])(
+    {"w": w[i:i + 1], "w2": w2[i:i + 1]}, x)
+ref = x
+for s in range(2):
+    ref = demo_stage_fn({"w": w[s], "w2": w2[s]}, ref)
+perr = float((y - ref).abs().max())
+top = float(ref.abs().max())
+say(f"pipeline_forward, 2 stages, {p['microbatches']} microbatches of "
+    f"{p['batch'] // p['microbatches']} x {p['d']}: max error {perr:.3e} "
+    f"against the sequential forward (limit 2e-4 x (1 + max|want| "
+    f"{top:.3e}))")
+cs.check(perr <= 2e-4 * (1 + top), "sharded_train: pipeline_forward")
+out["psum"] = dict(err=err, scale=scale, bit_for_bit=same)
+out["pipeline"] = dict(err=perr, top=top)
+with open(cfg["out"] % rank, "w") as f:
+    json.dump(out, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def sharded_world_one(dev, seed: int) -> dict:
+    """The Trainer on a world-1 NCCL mesh (1x1, a FileStore under build/)
+    at full width and depth against the Trainer without a mesh, bit for
+    bit: losses and every leaf after ``SHARDED_STEPS`` steps. Returns the
+    mesh run's launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.train import Trainer
+    from repro_torch.parallel import CALLS
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(work / "store"), 1))
+    try:
+        runs = {}
+        for label, mesh in (("mesh 1x1", make_debug_mesh(device=dev)),
+                            ("no mesh", None)):
+            tr = Trainer(TRAIN_ARCH, smoke=False, mesh=mesh, device=dev,
+                         batch_override=SHARDED_BATCH, seed=seed)
+            tr.init_state()
+            CALLS.clear()
+            if mesh is not None:
+                reset_counters()
+            tr.run(SHARDED_STEPS)
+            if mesh is not None:
+                counts = read_counters()
+                calls = dict(CALLS)
+            runs[label] = tr
+            print(f"  world 1 over NCCL, {label}: {tr.cfg.n_layers} layers, "
+                  f"{tr.cfg.dtype}, batch {SHARDED_BATCH} x "
+                  f"{tr.shape.seq_len}: losses "
+                  f"{[h['loss'] for h in tr.history]}, "
+                  f"{[round(h['seconds'], 3) for h in tr.history]} s",
+                  flush=True)
+        a, b = runs["mesh 1x1"], runs["no mesh"]
+        same = [h["loss"] for h in a.history] == \
+            [h["loss"] for h in b.history] and all(
+                torch.equal(x, y) for x, y in zip(_leaves(a.state),
+                                                  _leaves(b.state)))
+        print(f"  world 1 over NCCL: the mesh Trainer's losses and state "
+              f"equal the one-device Trainer's bit for bit: {same}; "
+              f"collectives {calls}; launches {counts}", flush=True)
+        check(same, "sharded_train: the 1x1 mesh differs from no mesh")
+        check(not calls, "sharded_train: a collective launched at world 1")
+        del runs, a, b
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def sharded_pair(seed: int) -> tuple:
+    """The gloo pair's parts of the sharded_train phase
+    (``SHARDED_RANK``): every rank's JSON and wall seconds."""
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    cfg = {"src": str(SRC), "root": str(ROOT), "store": str(work / "store"),
+           "work": str(work), "out": str(work / "rank%d.json"),
+           "seed": seed, "meshes": [list(m) for m in SHARDED_MESHES],
+           "check": SHARDED_CHECK, "bf16": SHARDED_BF16,
+           "elastic": SHARDED_ELASTIC, "psum": SHARDED_PSUM,
+           "pipe": SHARDED_PIPE}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARDED_RANK, json.dumps(cfg), str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=SHARDED_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    try:
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            print("\n".join(line for line in log.splitlines()
+                            if line.startswith("  ")), flush=True)
+            check(proc.returncode == 0,
+                  f"sharded_train rank {r} exited {proc.returncode}:\n"
+                  f"{log[-4000:]}")
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ranks, wall
+
+
+def sharded_train_phase(dev, seed: int) -> dict:
+    """The sharded_train phase: world 1 over NCCL, then the gloo pair.
+    Returns the launches of kernels 6-8 (the world-1 mesh run's and the
+    pair's timed bf16 steps', both ranks) and rank 0's timings at the
+    tensor-parallel call."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sharded_train: {TRAIN_ARCH} on a mesh (world 1 over NCCL at "
+          f"full depth; two gloo ranks sharing cuda:0, depth 22 -> "
+          f"{SHARDED_BF16['layers']})", flush=True)
+    counts = sharded_world_one(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks, wall = sharded_pair(seed)
+    launches = dict(counts)
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    print(f"  sharded_train: world 1 {t1 - t0:.1f} s, the gloo pair "
+          f"{wall:.1f} s; launches of kernels 6-8 (world-1 mesh run and "
+          f"the pair's timed steps) "
+          f"{ {k: launches[k] for k in ranks[0]['launches']} }", flush=True)
+    return dict(counts=launches, tp_call=ranks[0]["tp_call"],
+                seconds=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------- ferrari ----
@@ -5336,6 +5798,10 @@ def main() -> int:
                         help="build the kernels and run the moe_train "
                              "phase alone (a quick check; no result "
                              "lines)")
+    parser.add_argument("--sharded-train-only", action="store_true",
+                        help="build the kernels and run the sharded_train "
+                             "phase alone (a quick check; no result "
+                             "lines)")
     args = parser.parse_args()
     if args.ferrari_nodes != FERRARI_NODES and not args.ferrari_only:
         parser.error("--ferrari-nodes cuts the ferrari phase's width: "
@@ -5431,6 +5897,12 @@ def run(args, t_start: float) -> int:
         print(card_line(), flush=True)
         return 0
 
+    if args.sharded_train_only:
+        sharded_train_phase(dev, args.seed)
+        done("sharded_train")
+        print(card_line(), flush=True)
+        return 0
+
     print("parity (kernel vs plain; integer kernels bit for bit):",
           flush=True)
     err, stab_calls = kernel_parity(dev)
@@ -5491,6 +5963,8 @@ def run(args, t_start: float) -> int:
         done("train")
         moe_train = moe_train_phase(dev, args.seed)
         done("moe_train")
+        sharded = sharded_train_phase(dev, args.seed)
+        done("sharded_train")
     finally:
         rec.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -5504,6 +5978,7 @@ def run(args, t_start: float) -> int:
                                          for a, _ in MOE_TRAIN)
                                   for k in train_counts},
                     "train": train_counts, "gnn_train": gnn_train_counts,
+                    "sharded_train": sharded["counts"],
                     "recsys_train": rs_train_counts,
                     "reach_service": reach_counts}
     for kname, meta in KERNELS.items():
@@ -5554,13 +6029,16 @@ def run(args, t_start: float) -> int:
     train_fwd = train_time.pop("flash_fwd")
     moe_fwd = {"at_moonshot_call": moe["moonshot"]["timing"],
                "at_phi35_call": moe["phi"]["timing"]}
-    for t in (train_fwd, *moe_fwd.values()):  # each held against plain
+    tp_call = sharded["tp_call"]          # rank 0 of the gloo pair, 1x2
+    for t in (train_fwd, *moe_fwd.values(), tp_call["flash_fwd"]):
+        # each held against plain
         a, b = lm_time["err"], t["err"]
         lm_time["err"] = (max(a[0], b[0]), a[1] + b[1], max(a[2], b[2]))
     bwd_hd128 = train_time.pop("hd128")
     moe_bwd = {f"at_{MOE_AT[a]}_train_call": moe_train[a]["timing"]
                for a, _ in MOE_TRAIN}
-    for at in (bwd_hd128, *moe_bwd.values()):   # held against plain there
+    tp_bwd = {k: tp_call[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+    for at in (bwd_hd128, *moe_bwd.values(), tp_bwd):  # held against plain
         for kname, t in at.items():
             a, b = train_time[kname]["err"], t["err"]
             train_time[kname]["err"] = (max(a[0], b[0]), a[1] + b[1],
@@ -5625,6 +6103,16 @@ def run(args, t_start: float) -> int:
                 "library_expanded_ms", "plain_at", "ms_at_plain_shape")
         if "also" in meta:
             rows[-1]["phases"] = [meta["phase"], *meta["also"]]
+        if kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            # the 1x2 mesh's layer-0 call (half the heads a rank), rank 0
+            # of the gloo pair, timed while rank 1 waits
+            rows[-1]["launches_on_sharded_train"] = phase_counts[
+                "sharded_train"][kname]
+            rows[-1]["at_sharded_train_tp_call"] = {
+                "q_shape": tp_call["shapes"][0],
+                "kv_shape": tp_call["shapes"][1],
+                **{key: tp_call[kname][key] for key in keys
+                   if key in tp_call[kname]}}
         if kname == "flash_fwd":
             rows[-1]["at_train_call"] = {key: train_fwd[key] for key in keys}
             rows[-1]["launches_on_moe"] = phase_counts["moe"][kname]

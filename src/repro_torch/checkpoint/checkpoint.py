@@ -13,6 +13,14 @@ each package reads the other's files. bfloat16 leaves are stored as the
 reference stores them (2-byte void, dtype name ``bfloat16`` in the
 manifest). An interrupted save leaves no ``.done`` marker, so a restore
 always picks the last committed step.
+
+On a mesh (one process a rank) each rank holds blocks of the leaves:
+``CheckpointManager.save(..., mesh=, placements=)`` gathers every leaf
+whole (every rank of the mesh takes part), and the mesh's first rank
+writes it with the mesh in the manifest (``{"axis_names", "shape"}``),
+as the reference's single process writes whole arrays. A restore with
+``placements`` loads the whole leaves on every rank and keeps the rank's
+block under them, whatever mesh wrote the files (the elastic restore).
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import gather, local_slice
 
 
 def _flatten_with_paths(tree, prefix: str = "") -> list:
@@ -64,11 +74,19 @@ def _to_tensor(a: np.ndarray, dtype_name: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _mesh_entry(mesh) -> Optional[dict]:
+    if mesh is None:
+        return None
+    return {"axis_names": list(mesh.axis_names),
+            "shape": [int(n) for n in mesh.shape]}
+
+
 def save_checkpoint(ckpt_dir, step: int, state,
-                    extra: Optional[dict] = None) -> Path:
-    """Write ``state`` as step ``step`` and commit it: write to a
-    temporary directory, rename it into place, then touch
-    ``step_<step>.done``. Returns the step directory."""
+                    extra: Optional[dict] = None, mesh=None) -> Path:
+    """Write ``state`` (whole leaves) as step ``step`` and commit it:
+    write to a temporary directory, rename it into place, then touch
+    ``step_<step>.done``; ``mesh``: the mesh that trained it, recorded in
+    the manifest. Returns the step directory."""
     ckpt_dir = Path(ckpt_dir)
     tmp = ckpt_dir / f"_tmp_step_{step}"
     final = ckpt_dir / f"step_{step}"
@@ -87,7 +105,7 @@ def save_checkpoint(ckpt_dir, step: int, state,
         "leaf_paths": paths,
         "leaf_dtypes": [name for _, name in written],
         "leaf_shapes": [list(a.shape) for a, _ in written],
-        "mesh": None,
+        "mesh": _mesh_entry(mesh),
         "extra": extra or {},
     }
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
@@ -130,12 +148,15 @@ def restore_checkpoint(ckpt_dir, step: Optional[int] = None):
     return state, manifest
 
 
-def restore_like(ckpt_dir, state_like, step: Optional[int] = None):
+def restore_like(ckpt_dir, state_like, step: Optional[int] = None,
+                 placements=None):
     """(state, manifest) of step ``step`` (default: the latest committed
     one) in the tree of ``state_like``, each leaf a tensor on that leaf's
     device and of its dtype; (None, None) when nothing is committed.
-    Raises ``ValueError`` where the leaf paths or shapes differ from
-    ``state_like``'s."""
+    ``placements`` (a tree of ``parallel.sharding.Placement`` matching
+    ``state_like``): each leaf is this rank's block of the whole under
+    its placement. Raises ``ValueError`` where the leaf paths or shapes
+    differ from ``state_like``'s."""
     arrays, manifest = restore_checkpoint(ckpt_dir, step)
     if arrays is None:
         return None, None
@@ -147,10 +168,13 @@ def restore_like(ckpt_dir, state_like, step: Optional[int] = None):
             f"{sorted(set(like) - set(arrays))}")
     names = dict(zip(manifest["leaf_paths"], manifest["leaf_dtypes"]))
     paths = iter(p for p, _ in _flatten_with_paths(state_like))
+    where = dict(_flatten_with_paths(placements)) if placements else {}
 
     def one(leaf):
         path = next(paths)
         t = _to_tensor(arrays[path], names[path])
+        if path in where:
+            t = local_slice(t, where[path].spec, where[path].mesh)
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"checkpoint leaf {path}: shape "
                              f"{tuple(t.shape)}, state {tuple(leaf.shape)}")
@@ -165,11 +189,27 @@ def _host_copy(leaf):
     return np.array(leaf)
 
 
+def gather_state(state, placements):
+    """``state`` with every leaf made whole from the ranks' blocks under
+    ``placements`` (``parallel.sharding.gather``; every rank of the mesh
+    must call it)."""
+    where = dict(_flatten_with_paths(placements))
+    paths = iter(p for p, _ in _flatten_with_paths(state))
+
+    def one(leaf):
+        p = where[next(paths)]
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() == 0:
+            return leaf
+        return gather(leaf, p.spec, p.mesh)
+    return _tree_map(one, state)
+
+
 class CheckpointManager:
     """Background writer with retention: ``save`` copies the state to the
     host before it returns (the next step updates the params in place),
     then writes on a thread, one write in flight at a time; the last
-    ``keep_last`` committed steps are kept."""
+    ``keep_last`` committed steps are kept. On a mesh, ``save`` gathers
+    the leaves on every rank and only the mesh's first rank writes."""
 
     def __init__(self, ckpt_dir, keep_last: int = 3, async_save: bool = True):
         self.dir = Path(ckpt_dir)
@@ -188,13 +228,24 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def save(self, step: int, state, extra: Optional[dict] = None):
+    def save(self, step: int, state, extra: Optional[dict] = None,
+             mesh=None, placements=None):
+        """Commit ``state`` as step ``step``. ``placements``: the state is
+        this rank's blocks, gathered whole first (a collective over the
+        mesh); ``mesh``: recorded in the manifest, and only its first
+        rank writes."""
         self.wait()                               # one in flight at a time
+        if placements is not None:
+            state = gather_state(state, placements)
+            mesh = mesh if mesh is not None else next(
+                p for _, p in _flatten_with_paths(placements)).mesh
+        if mesh is not None and mesh.rank != mesh.ranks[0]:
+            return
         host_state = _tree_map(_host_copy, state)
 
         def _do():
             try:
-                save_checkpoint(self.dir, step, host_state, extra)
+                save_checkpoint(self.dir, step, host_state, extra, mesh)
                 self._gc()
             except Exception as e:                # re-raised by wait()
                 self._error = e
@@ -214,9 +265,10 @@ class CheckpointManager:
             shutil.rmtree(self.dir / f"step_{s}", ignore_errors=True)
             (self.dir / f"step_{s}.done").unlink(missing_ok=True)
 
-    def restore_latest(self, state_like):
+    def restore_latest(self, state_like, placements=None):
         """(state, manifest) of the last committed step in ``state_like``'s
-        tree, devices and dtypes (``restore_like``); (None, None) when
+        tree, devices and dtypes, each leaf this rank's block under
+        ``placements`` where given (``restore_like``); (None, None) when
         nothing is committed."""
         self.wait()
-        return restore_like(self.dir, state_like)
+        return restore_like(self.dir, state_like, placements=placements)

@@ -50,15 +50,17 @@ import torch.distributed as dist
 
 from ..kernels import frontier_fused, ops
 from ..kernels.frontier_fused import emit_plain
-from .query_torch import DeviceQueryEngine, StagedIds, resolve_device
+from ..launch.mesh import Mesh
+from .query_torch import DeviceQueryEngine, StagedIds
 
 PLACEMENTS = ("replicated", "sharded")
 
 
-class ServingMesh:
-    """The (data, model) serving mesh over the initialised process group:
-    ``shape`` (D, M) with D·M = world, this rank at (``d``, ``m``) = divmod
-    (rank, M), its model group (the M ranks of its data row) and data group
+class ServingMesh(Mesh):
+    """The (data, model) serving mesh, the (data, model) case of
+    ``launch.mesh.Mesh`` over the initialised process group: ``shape``
+    (D, M) with D·M = world, this rank at (``d``, ``m``) = divmod (rank,
+    M), its model group (the M ranks of its data row) and data group
     (the D ranks of its model column), and its ``device``
     (``query_torch.resolve_device``: "cuda" names the current card, which
     the caller sets to the rank's, ``torch.cuda.set_device``).
@@ -80,7 +82,7 @@ class ServingMesh:
                 f"placement={placement!r} serves over torch.distributed: "
                 "initialise the process group first (torchrun, or "
                 "init_process_group with this rank's world and rank)")
-        world, rank = dist.get_world_size(), dist.get_rank()
+        world = dist.get_world_size()
         if shape is None:
             shape = (world, 1) if placement == "replicated" else (1, world)
         d, m = (int(x) for x in shape)
@@ -90,24 +92,8 @@ class ServingMesh:
         if placement == "replicated" and m != 1:
             raise ValueError("replicated placement holds whole tables per "
                              "device: the model axis must be 1")
+        super().__init__((d, m), ("data", "model"), device=device)
         self.placement = placement
-        self.shape = (d, m)
-        self.n_data, self.n_model = d, m
-        self.world, self.rank = world, rank
-        self.d, self.m = divmod(rank, m)
-        self.device = resolve_device(device)
-        # every rank creates every group, in the same order
-        self.model_group = self._groups(
-            [[dd * m + mm for mm in range(m)] for dd in range(d)], self.d)
-        self.data_group = self._groups(
-            [[dd * m + mm for dd in range(d)] for mm in range(m)], self.m)
-
-    @staticmethod
-    def _groups(members, mine: int):
-        if len(members[0]) == 1:
-            return None
-        groups = [dist.new_group(ranks) for ranks in members]
-        return groups[mine]
 
     def __repr__(self) -> str:
         return (f"ServingMesh({self.placement}, {self.n_data}x{self.n_model}"

@@ -3,20 +3,28 @@ dense and MoE LMs).
 
 Wires the config registry → the train cell (``models.api.build_cell``) →
 the token pipeline → the checkpoint manager → the heartbeat and straggler
-monitors, and steps the model on one device: on a card the arch's
-published config (flash attention through kernels 6, 7 and 8), on the
-CPU its SMOKE config (the kernels' plain versions). The supervisor loop
-(``Trainer.run``) catches ``WorkerFailure`` / ``Preemption``, rebuilds the
-cell, rolls back to the last committed checkpoint and resumes.
+monitors, and steps the model on one device or, given a mesh
+(``launch.mesh.Mesh``, one process a rank, ranks the caller starts), a
+dense LM sharded over it: on a card the arch's published config (flash
+attention through kernels 6, 7 and 8), on the CPU its SMOKE config (the
+kernels' plain versions). The supervisor loop (``Trainer.run``) catches
+``WorkerFailure`` / ``Preemption``, rolls back to the last committed
+checkpoint and resumes. With ``elastic`` (a ``runtime.elastic.
+ElasticMeshManager``) a ``WorkerFailure`` also re-meshes: the worker's
+ranks are excluded, every rank lays out the survivors' mesh (its process
+groups are made while every rank is still there), an excluded rank
+returns from ``run``, and the survivors rebuild the cell on the new mesh
+(one device for one survivor) and restore the last committed checkpoint
+onto it, each its own blocks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
         --steps 3 --batch 16 --seq 4096
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20 \
         --ckpt-dir build/ckpt --ckpt-every 5
 
-There is no elastic re-meshing: the Trainer's cell runs on one device
-(``models.api.build_cell(..., mesh=)`` runs an MoE cell expert-parallel
-over ranks the caller starts).
+The command line trains on one device, as the reference's does;
+``examples/torch_sharded_train.py`` drives the Trainer on a mesh under
+``torchrun``.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from dataclasses import replace
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke
@@ -44,7 +53,10 @@ class Trainer:
     takes the published config on a card and SMOKE on the CPU.
     ``ckpt_dir``: where ``run`` commits checkpoints and ``restore_or_init``
     finds them; ``fault_injector``: scripted failures (tests, examples).
-    ``cfg_override``: a config to train instead of the arch's (a cut)."""
+    ``cfg_override``: a config to train instead of the arch's (a cut).
+    ``mesh``: train a dense LM sharded over it (its device is the
+    Trainer's; every rank of it runs the same Trainer on the same
+    batches); ``elastic``: re-mesh on a ``WorkerFailure``."""
 
     def __init__(self, arch: str, smoke: Optional[bool] = None,
                  shape: str = "train_4k", ckpt_dir: Optional[str] = None,
@@ -52,8 +64,12 @@ class Trainer:
                  fault_injector: Optional[FaultInjector] = None,
                  batch_override: Optional[int] = None,
                  seq_override: Optional[int] = None, seed: int = 0,
-                 device="cuda", cfg_override=None):
-        self.device = resolve_device(device)
+                 device="cuda", cfg_override=None, mesh=None, elastic=None):
+        self.mesh = mesh
+        self.elastic = elastic
+        self.left = False                # excluded by an elastic re-mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         if smoke is None:
             smoke = self.device.type == "cpu"
         self.cfg = cfg_override or (get_smoke(arch) if smoke
@@ -64,6 +80,10 @@ class Trainer:
                           seq_len=seq_override or shp.seq_len)
         if shp.kind != "train":
             raise ValueError("Trainer drives train shapes only")
+        if (mesh is not None or elastic is not None) and self.cfg.moe:
+            raise NotImplementedError(
+                "the Trainer shards the dense LMs; an MoE cell on a mesh "
+                "runs through models.api.build_cell(..., mesh=)")
         self.shape = shp
         self.shape_name = shape
         self.opt_cfg = opt_cfg or OptConfig(warmup_steps=10)
@@ -82,9 +102,10 @@ class Trainer:
         self.history: list = []
 
     def _build_cell(self):
-        # rebuilt after every failure (the reference's re-mesh hook)
+        # rebuilt after every failure (the re-mesh hook)
         return build_cell(self.cfg, self.shape_name, device=self.device,
-                          shape_override=self.shape, opt_cfg=self.opt_cfg)
+                          shape_override=self.shape, opt_cfg=self.opt_cfg,
+                          mesh=self.mesh)
 
     # ----------------------------------------------------------- lifecycle
     def _fresh_state(self):
@@ -101,7 +122,8 @@ class Trainer:
         if self.ckpt is not None:
             like = self.state if self.state is not None else \
                 self._fresh_state()
-            restored, manifest = self.ckpt.restore_latest(like)
+            restored, manifest = self.ckpt.restore_latest(
+                like, self.cell.state_shardings())
             if restored is not None:
                 self.state = restored
                 self.step_idx = manifest["extra"]["data_state"]["step"]
@@ -114,7 +136,39 @@ class Trainer:
 
     def _save(self):
         self.ckpt.save(self.step_idx, self.state, extra={
-            "data_state": self.pipeline.state(self.step_idx)})
+            "data_state": self.pipeline.state(self.step_idx)},
+            mesh=self.mesh, placements=self.cell.state_shardings())
+
+    def _says(self) -> bool:
+        """Whether this rank prints (the mesh's first rank, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == self.mesh.ranks[0]
+
+    def _settle(self):
+        """Wait for the checkpoint in flight (its writer's), then for every
+        rank of the mesh, so that all of them restore the same step."""
+        if self.ckpt is not None:
+            self.ckpt.wait()
+        if self.mesh is not None:
+            group = self.mesh.group(self.mesh.axis_names)
+            if group is not None:
+                dist.barrier(group=group)
+
+    def _remesh(self, worker: int) -> bool:
+        """Exclude ``worker``'s ranks and lay the survivors' mesh out (on
+        every rank of the old mesh). False where this rank is no longer
+        in it."""
+        self.elastic.exclude(self.elastic.devices_of_worker(
+            worker, self.monitor.n_workers))
+        self.mesh = self.elastic.current_mesh()
+        if not self.elastic.is_alive():
+            self.left = True
+            return False
+        if self._says():
+            print(f"[FT] re-meshed (gen {self.elastic.generation}) over "
+                  f"{len(self.elastic.alive)} ranks: "
+                  f"{dict(self.mesh.sizes) if self.mesh else 'one device'}",
+                  flush=True)
+        return True
 
     def _one_step(self) -> float:
         toks, labs = self.pipeline.batch_at(self.step_idx)
@@ -142,14 +196,16 @@ class Trainer:
         checkpoint every ``ckpt_every`` steps and at the end; a
         ``WorkerFailure`` or ``Preemption`` rebuilds the cell and resumes
         from the last committed step (a cold start without one), at most
-        ``max_recoveries`` times. Returns the history (re-run steps
-        included)."""
+        ``max_recoveries`` times; with ``elastic``, a ``WorkerFailure``
+        re-meshes first, and a rank left out returns at once. Returns the
+        history (re-run steps included)."""
         if self.state is None:
             self.init_state()
         while self.step_idx < n_steps:
             try:
                 loss = self._one_step()
-                if self.step_idx % log_every == 0 or self.step_idx == n_steps:
+                if self._says() and (self.step_idx % log_every == 0
+                                     or self.step_idx == n_steps):
                     print(f"step {self.step_idx:5d} loss {loss:.4f} "
                           f"{self.history[-1]['seconds']:.3f}s ewma "
                           f"{self.straggler.ewma:.3f}s", flush=True)
@@ -157,13 +213,19 @@ class Trainer:
                     self._save()
             except (WorkerFailure, Preemption) as e:
                 self.recoveries += 1
-                print(f"[FT] {e} at step {self.step_idx}; "
-                      f"recovery {self.recoveries}/{max_recoveries}",
-                      flush=True)
+                if self._says():
+                    print(f"[FT] {e} at step {self.step_idx}; "
+                          f"recovery {self.recoveries}/{max_recoveries}",
+                          flush=True)
                 if self.recoveries > max_recoveries:
                     raise
+                self._settle()
                 if isinstance(e, WorkerFailure):
                     self.monitor.mark_dead(e.worker)
+                    if self.elastic is not None:
+                        if not self._remesh(e.worker):
+                            return self.history
+                        self.state = None    # its blocks are the old mesh's
                 self.cell = self._build_cell()
                 if not self.restore_or_init():
                     print("[FT] no checkpoint found: cold restart",

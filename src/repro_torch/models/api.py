@@ -19,9 +19,22 @@ place; the LM step accumulates float32 gradients over
 step does; the dense-batch kind runs ``forward_dense``, whose aggregation
 is kernel 9 forward and backward on a card (the reference's step passes
 ``use_pallas=False``).
-A cell runs on one device, with two exceptions that take a
-``core.distributed.ServingMesh`` (one process a rank):
+A cell runs on one device, with three exceptions that take a mesh
+(``launch.mesh.Mesh``, of which ``core.distributed.ServingMesh`` is the
+(data, model) case; one process a rank):
 
+  * the dense LM train cell runs sharded, as the reference's cell does on
+    a mesh: every leaf placed by ``parallel.sharding.logical_to_spec`` of
+    its logical axes (``CellSpec.state_shardings``), the layer
+    tensor-parallel over 'model' (``transformer.TensorParallel``), each
+    data rank (over ('pod', 'data')) a block of every microbatch, the
+    gradients averaged over the data ranks, and ZeRO-1: m and v also
+    split over the data ranks (``zero1_spec``), each data rank updating
+    its block of the params from its block of m and v and the whole
+    gradient, then the blocks all-gathered. The clipping norm counts
+    each leaf split over 'model' once (its blocks' squares summed over
+    the model group). ``materialize_state`` draws the whole params from
+    the seed on every rank and keeps the rank's blocks.
   * the ferrari cell, whose model axis divides n, takes its published
     ``index_placement="sharded"``: its state is the rank's shard of the
     table rows and its step ``classify_sharded`` (compute-at-owner,
@@ -40,6 +53,11 @@ A cell runs on one device, with two exceptions that take a
     activations' gradients are summed over the model group inside the FFN
     (``parallel.copy_to_group``), every leaf is then averaged over the
     data group, and the clipping norm counts each rank's experts once.
+    Their attention stays whole on every rank (a deliberate difference
+    from the reference, which also splits it over 'model').
+
+The other cells on a mesh (dense prefill and decode, GNN, recsys) raise
+``NotImplementedError`` (ROADMAP.md, Queue 1 item 8.11).
 """
 from __future__ import annotations
 
@@ -53,7 +71,8 @@ from ..configs.base import (FerrariServeConfig, GNNConfig, LMConfig,
 from ..core.query_torch import resolve_device
 from ..optim.optimizer import (OptConfig, _leaves, _map, adamw_init,
                                adamw_update)
-from ..parallel.collectives import all_reduce_
+from ..parallel import sharding as shd
+from ..parallel.collectives import all_gather_, all_reduce_
 from . import gnn as gnn_mod
 from . import recsys as rec_mod
 from . import transformer as tf_mod
@@ -79,6 +98,49 @@ class CellSpec:
                                            torch.dtype]]] = None
     model_flops_fn: Optional[Callable] = None
     expert_mesh: Optional[tf_mod.ExpertMesh] = None
+    # the sharded cells' mesh, and their leaves' logical axes and whole
+    # shapes (the dense LM train cell on a mesh)
+    mesh: Any = None
+    state_logical: Any = None
+    state_whole: Any = None
+    batch_logical: Optional[Dict[str, Any]] = None
+
+    def state_shardings(self, zero1: bool = True):
+        """The state's placements (a tree of ``sharding.Placement``), m
+        and v under ZeRO-1 with ``zero1``; None off a mesh."""
+        if self.mesh is None or self.state_logical is None:
+            return None
+        return _placements(self.mesh, self.state_logical, self.state_whole,
+                           zero1)
+
+    def batch_shardings(self):
+        """The batch's placements; None off a mesh."""
+        if self.mesh is None or self.batch_logical is None:
+            return None
+        return {k: shd.named_sharding(self.batch_logical[k], shape,
+                                      self.mesh)
+                for k, (shape, _) in self.batch_shapes.items()}
+
+
+def _placements(mesh, logical, whole, zero1: bool = True):
+    """The placements of a state of ``logical`` axes and ``whole`` shapes
+    on ``mesh``; with ``zero1`` m and v under ``zero1_spec``."""
+    out = shd.tree_shardings(logical, whole, mesh)
+    if zero1 and "opt" in out:
+        for mv in ("m", "v"):
+            out["opt"][mv] = _map2(
+                lambda p, shape: shd.Placement(
+                    mesh, shd.zero1_spec(p.spec, shape, mesh)),
+                out["opt"][mv], whole["opt"][mv])
+    return out
+
+
+def _map2(fn, tree, other):
+    """``fn`` over the leaves of ``tree`` and the matching entries of
+    ``other`` (dicts by key)."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
 
 
 def value_and_grad(loss_fn, params):
@@ -217,14 +279,15 @@ def _recsys_cell(cfg: RecsysConfig, shape, opt_cfg: OptConfig):
     raise ValueError(shape.kind)
 
 
-def _lm_grads(cfg: LMConfig, params, tokens, labels, loss_chunk, ep=None):
+def _lm_grads(cfg: LMConfig, params, tokens, labels, loss_chunk, ep=None,
+              tp=None):
     """(float32 loss, grads) of one batch: the grads in the params'
     dtypes, in ``params``'s tree with each stacked layer leaf replaced by
     the list of its per-layer gradients (``transformer.layer_leaves``);
     the MoE configs' float32 ``router`` among them."""
     leaves = tf_mod.layer_leaves(params)
     loss = tf_mod.logits_and_loss(cfg, leaves, tokens, labels, loss_chunk,
-                                  ep)
+                                  ep, tp)
     top = [name for name in leaves if name != "layers"]
     names = tf_mod.MOE_LAYER_LEAVES if cfg.moe else tf_mod.LAYER_LEAVES
     flat = [leaves[name] for name in top] + [
@@ -236,17 +299,16 @@ def _lm_grads(cfg: LMConfig, params, tokens, labels, loss_chunk, ep=None):
     return loss.detach(), tree
 
 
-def _data_block(t, mesh, mb: int):
-    """This data rank's rows of a batch ``t [B, ...]`` of ``mb``
-    microbatches: the d-th of the D blocks of each microbatch (the
-    reference's microbatch sharded over 'data'), in microbatch order, so
-    that ``chunk(mb)`` gives the rank's part of each."""
-    D = mesh.n_data
-    if D == 1:
+def _data_block(t, n: int, i: int, mb: int):
+    """Data rank ``i``'s rows (of ``n``) of a batch ``t [B, ...]`` of
+    ``mb`` microbatches: the i-th of the n blocks of each microbatch (the
+    reference's microbatch sharded over the data axes), in microbatch
+    order, so that ``chunk(mb)`` gives the rank's part of each."""
+    if n == 1:
         return t
     B, rest = t.shape[0], t.shape[1:]
-    return t.reshape(mb, D, B // (mb * D), *rest)[:, mesh.d].reshape(
-        B // D, *rest)
+    return t.reshape(mb, n, B // (mb * n), *rest)[:, i].reshape(
+        B // n, *rest)
 
 
 def _mesh_grad_norm(cfg: LMConfig, grads, ep):
@@ -268,6 +330,37 @@ def _mesh_grad_norm(cfg: LMConfig, grads, ep):
     return torch.sqrt(total)
 
 
+def _accumulate(cfg: LMConfig, params, tokens, labels, mb: int,
+                loss_chunk, ep=None, tp=None):
+    """(loss, grads) of one batch in ``mb`` microbatches: the grads
+    accumulated in float32 microbatch by microbatch (the params' dtypes
+    at ``mb`` 1) and averaged, the loss the mean of the microbatches'."""
+    if mb == 1:
+        loss, g = _lm_grads(cfg, params, tokens, labels, loss_chunk, ep, tp)
+        grads = {k: v for k, v in g.items() if k != "layers"}
+        grads["layers"] = {k: torch.stack(v) for k, v in g["layers"].items()}
+        return loss, grads
+    grads = {k: torch.zeros_like(v, dtype=torch.float32)
+             for k, v in params.items() if k != "layers"}
+    grads["layers"] = {k: torch.zeros_like(v, dtype=torch.float32)
+                       for k, v in params["layers"].items()}
+    losses = []
+    for toks, labs in zip(tokens.chunk(mb), labels.chunk(mb)):
+        loss, g = _lm_grads(cfg, params, toks, labs, loss_chunk, ep, tp)
+        losses.append(loss)
+        for k, v in g.items():
+            if k != "layers":
+                grads[k].add_(v)
+        for k, per_layer in g["layers"].items():
+            for i, v in enumerate(per_layer):
+                grads["layers"][k][i].add_(v)
+        del g
+    for leaf in [*(v for k, v in grads.items() if k != "layers"),
+                 *grads["layers"].values()]:
+        leaf.div_(mb)
+    return torch.stack(losses).mean(), grads
+
+
 def _lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, B: int,
                    loss_chunk: int = 16384, ep=None):
     mb = max(1, cfg.microbatches)
@@ -280,34 +373,10 @@ def _lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, B: int,
         params = state["params"]
         tokens, labels = batch["tokens"], batch["labels"]
         if ep is not None:
-            tokens = _data_block(tokens, ep.mesh, mb)
-            labels = _data_block(labels, ep.mesh, mb)
-        if mb == 1:
-            loss, g = _lm_grads(cfg, params, tokens, labels, loss_chunk, ep)
-            grads = {k: v for k, v in g.items() if k != "layers"}
-            grads["layers"] = {k: torch.stack(v)
-                               for k, v in g["layers"].items()}
-        else:
-            # gradient accumulation in float32, microbatch by microbatch
-            grads = {k: torch.zeros_like(v, dtype=torch.float32)
-                     for k, v in params.items() if k != "layers"}
-            grads["layers"] = {k: torch.zeros_like(v, dtype=torch.float32)
-                               for k, v in params["layers"].items()}
-            losses = []
-            for toks, labs in zip(tokens.chunk(mb), labels.chunk(mb)):
-                loss, g = _lm_grads(cfg, params, toks, labs, loss_chunk, ep)
-                losses.append(loss)
-                for k, v in g.items():
-                    if k != "layers":
-                        grads[k].add_(v)
-                for k, per_layer in g["layers"].items():
-                    for i, v in enumerate(per_layer):
-                        grads["layers"][k][i].add_(v)
-                del g
-            for leaf in [*(v for k, v in grads.items() if k != "layers"),
-                         *grads["layers"].values()]:
-                leaf.div_(mb)
-            loss = torch.stack(losses).mean()
+            tokens = _data_block(tokens, D, ep.mesh.d, mb)
+            labels = _data_block(labels, D, ep.mesh.d, mb)
+        loss, grads = _accumulate(cfg, params, tokens, labels, mb,
+                                  loss_chunk, ep)
         gnorm = None
         if ep is not None:
             # each data rank's loss is the mean over its own block
@@ -324,17 +393,116 @@ def _lm_train_step(cfg: LMConfig, opt_cfg: OptConfig, B: int,
     return step
 
 
+def _zero1_block(shape, p_spec, m_spec, mesh):
+    """(dim, start, length) of this rank's ZeRO-1 block of a param of whole
+    ``shape`` (its m and v under ``m_spec``) within its block under
+    ``p_spec``, and the data axes it is split over; (None, None) where m
+    and v are the param's whole block."""
+    p_spec = tuple(p_spec) + (None,) * (len(m_spec) - len(p_spec))
+    for d, (e, f) in enumerate(zip(m_spec, p_spec)):
+        if e != f and mesh.size(e) > 1:
+            b = shd.local_shape(shape, p_spec, mesh)[d] // mesh.size(e)
+            return (d, mesh.index(e) * b, b), e
+    return None, None
+
+
+def _sharded_grad_norm(grads, groups):
+    """The float32 L2 norm of the whole model's gradient from this rank's
+    blocks: the leaves whose group is None (whole, or split over one
+    rank) summed first, in the leaves' order as ``clip_by_global_norm``
+    sums them, then each split leaf's squares summed over its group.
+    None where no leaf is split (``clip_by_global_norm`` sums them the
+    same way then)."""
+    flat = _leaves(grads)
+    if all(g is None for g in groups):
+        return None
+
+    def sq(ts):
+        return sum(torch.sum(torch.square(t.float())) for t in ts)
+    total = sq([t for t, g in zip(flat, groups) if g is None])
+    split = {}
+    for t, g in zip(flat, groups):
+        if g is not None:
+            split.setdefault(id(g), (g, []))[1].append(t)
+    for g, ts in split.values():
+        total = total + all_reduce_(sq(ts), g, "grad_norm")
+    return torch.sqrt(total)
+
+
+def _lm_mesh_train_step(cfg: LMConfig, opt_cfg: OptConfig, B: int, mesh,
+                        placements, loss_chunk: int = 16384):
+    """The dense LM train step on ``mesh`` (the module docstring), over
+    states placed by ``placements`` (``CellSpec.state_shardings()``)."""
+    mb = max(1, cfg.microbatches)
+    n_dp, i_dp = mesh.size(mesh.dp_axes), mesh.index(mesh.dp_axes)
+    dp_group = mesh.group(mesh.dp_axes)
+    if B % (mb * n_dp):
+        raise ValueError(f"batch {B} does not split into {mb} microbatches"
+                         f" over {n_dp} data ranks")
+    p_specs = [p.spec for p in _leaves(placements["params"])]
+    m_specs = [p.spec for p in _leaves(placements["opt"]["m"])]
+    tp = tf_mod.tensor_parallel(cfg, mesh, _map(
+        lambda p: p.spec, placements["params"]))
+    # each leaf's group for the clipping norm: the axes it is split over
+    norm_groups = [mesh.group(shd.spec_axes(spec)) for spec in p_specs]
+    # ZeRO-1: the dim m and v split further over the data axes
+    shards, zero_axes = zip(*(
+        _zero1_block(shape, ps, ms, mesh) for shape, ps, ms in zip(
+            _leaves(tf_mod.param_shapes(cfg)), p_specs, m_specs)))
+
+    def step(state, batch):
+        params = state["params"]
+        tokens = _data_block(batch["tokens"], n_dp, i_dp, mb)
+        labels = _data_block(batch["labels"], n_dp, i_dp, mb)
+        loss, grads = _accumulate(cfg, params, tokens, labels, mb,
+                                  loss_chunk, tp=tp)
+        if dp_group is not None:
+            # each data rank's loss is the mean over its own block
+            for leaf in _leaves(grads):
+                all_reduce_(leaf, dp_group, "grad_sum").div_(n_dp)
+            loss = all_reduce_(loss.clone(), dp_group, "loss") / n_dp
+        gnorm = _sharded_grad_norm(grads, norm_groups)
+        params, opt, metrics = adamw_update(opt_cfg, params, grads,
+                                            state["opt"], gnorm=gnorm,
+                                            shards=shards)
+        for p, sh, axes in zip(_leaves(params), shards, zero_axes):
+            if sh is not None:            # ZeRO-1: the updated blocks
+                p.copy_(all_gather_(p.narrow(*sh), mesh.group(axes),
+                                    sh[0], mesh.members(axes),
+                                    name="zero1_gather"))
+        metrics["loss"] = loss
+        return {"params": params, "opt": opt}, metrics
+
+    return step
+
+
 def _gather_rows(t, mesh, dim: int):
     """The data ranks' blocks of ``t`` along ``dim``, in rank order."""
     return mesh.gather_data(t.movedim(dim, 0)).movedim(0, dim)
 
 
-def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig, ep=None):
+def _lm_state_logical(cfg: LMConfig):
+    """(logical axes, whole shapes) of a dense LM train state."""
+    p_log = tf_mod.param_logical_axes(cfg)
+    p_shape = tf_mod.param_shapes(cfg)
+    logical = {"params": p_log, "opt": {"m": p_log, "v": p_log,
+                                        "step": ()}}
+    whole = {"params": p_shape, "opt": {"m": p_shape, "v": p_shape,
+                                        "step": ()}}
+    return logical, whole
+
+
+def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig, ep=None,
+             mesh=None):
     B, S = shape.batch, shape.seq_len
     i32 = torch.int32
 
     if shape.kind == "train":
         batch_shapes = {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+        if mesh is not None:
+            placements = _placements(mesh, *_lm_state_logical(cfg))
+            return _lm_mesh_train_step(cfg, opt_cfg, B, mesh,
+                                       placements), batch_shapes
         return _lm_train_step(cfg, opt_cfg, B, ep=ep), batch_shapes
 
     if shape.kind == "prefill":
@@ -344,7 +512,7 @@ def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig, ep=None):
         def step(state, batch):
             tokens = batch["tokens"]
             if sharded:
-                tokens = _data_block(tokens, ep.mesh, 1)
+                tokens = _data_block(tokens, ep.mesh.n_data, ep.mesh.d, 1)
             logits, cache = tf_mod.prefill(cfg, state["params"], tokens, S,
                                            ep)
             if sharded:
@@ -426,38 +594,79 @@ _CELLS = {"recsys": _recsys_cell, "lm": _lm_cell, "gnn": _gnn_cell,
 def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
                opt_cfg: OptConfig | None = None, mesh=None) -> CellSpec:
     """The (arch, shape) cell on ``device``. ``mesh``: a
-    ``core.distributed.ServingMesh`` for the ferrari cell's sharded
+    ``launch.mesh.Mesh`` (or ``core.distributed.ServingMesh``) for the
+    dense LM train cell's sharded step, the ferrari cell's sharded
     placement or the MoE LM cells' expert parallelism (its device is then
-    the cell's); the other cells run on one device and refuse one."""
+    the cell's); the other cells run on one device and refuse one. This
+    rank must be in the mesh."""
     shape = shape_override or shapes_for_family(cfg.family)[shape_name]
     kw = {}
     if mesh is not None:
+        lm = cfg.family == "lm"
+        if not (cfg.family == "ferrari" or (lm and cfg.moe is not None)
+                or (lm and shape.kind == "train")):
+            raise NotImplementedError(
+                f"the {cfg.family} {shape.kind} cells of {cfg.arch_id} run "
+                "on one device; the dense LM train cell, the ferrari cell "
+                "and the MoE LM cells take a mesh (the others: ROADMAP.md, "
+                "Queue 1 item 8.11)")
+        if not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is not in {mesh!r}")
         if cfg.family == "ferrari":
             kw["mesh"] = mesh
-        elif cfg.family == "lm" and cfg.moe is not None:
+        elif cfg.moe is not None:
+            if set(mesh.axis_names) != {"data", "model"}:
+                raise NotImplementedError(
+                    "the MoE LM cells take a (data, model) mesh")
             kw["ep"] = _expert_mesh(shape, mesh)
         else:
-            raise NotImplementedError(
-                f"the {cfg.family} cells of {cfg.arch_id} run on one "
-                "device; only the ferrari cell and the MoE LM cells take a "
-                "mesh (sharded training: ROADMAP.md, Queue 1 item 8.8)")
+            kw["mesh"] = mesh
         device = mesh.device
     dev = resolve_device(device)
     step, batch_shapes, *extra = _CELLS[cfg.family](cfg, shape,
                                                     opt_cfg or OptConfig(),
                                                     **kw)
     state_shapes, flops_fn = extra if extra else (None, None)
+    sharded = {}
+    if cfg.family == "lm" and "mesh" in kw:
+        logical, whole = _lm_state_logical(cfg)
+        sharded = dict(mesh=mesh, state_logical=logical, state_whole=whole,
+                       batch_logical={"tokens": ("batch", None),
+                                      "labels": ("batch", None)})
     return CellSpec(arch=cfg.arch_id, shape_name=shape_name, kind=shape.kind,
                     step=step, batch_shapes=batch_shapes, device=dev,
                     shape=shape, state_shapes=state_shapes,
-                    model_flops_fn=flops_fn, expert_mesh=kw.get("ep"))
+                    model_flops_fn=flops_fn, expert_mesh=kw.get("ep"),
+                    **sharded)
+
+
+def _sharded_lm_state(cell: CellSpec, cfg, gen: torch.Generator):
+    mesh, placements = cell.mesh, cell.state_shardings()
+
+    def block(whole, p):
+        part = shd.local_slice(whole, p.spec, mesh)
+        return part if part.shape == whole.shape else part.clone()
+    params = _map2(block, tf_mod.init_params(cfg, gen, cell.device),
+                   placements["params"])
+
+    def zeros(p, shape):
+        return torch.zeros(shd.local_shape(shape, p.spec, mesh),
+                           dtype=torch.float32, device=cell.device)
+    opt = {mv: _map2(zeros, placements["opt"][mv],
+                     cell.state_whole["opt"][mv]) for mv in ("m", "v")}
+    opt["step"] = torch.zeros((), dtype=torch.int32)
+    return {"params": params, "opt": opt}
 
 
 def materialize_state(cell: CellSpec, cfg, shape_name: str,
                       gen: torch.Generator):
     """Real (allocated) state on the cell's device, drawn from ``gen`` (a
     generator on that device); on a mesh, every rank draws the whole
-    params from the same seed and keeps its own experts."""
+    params from the same seed and keeps its own experts (MoE) or its
+    blocks of every leaf (the dense train cell: ``cell.state_shardings``,
+    m and v zeros of their ZeRO-1 blocks' shapes)."""
+    if cell.state_logical is not None:
+        return _sharded_lm_state(cell, cfg, gen)
     if cfg.family == "recsys":
         state = {"params": rec_mod.init_params(cfg, gen, cell.device)}
         if cell.kind == "train":

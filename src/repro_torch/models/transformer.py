@@ -10,9 +10,26 @@ flash attention (kernel 6 on a card, kernels 7 and 8 in the backward)
 once per layer through ``chunked_attention``; decode runs the plain
 masked softmax over the cache. ``logits_and_loss`` is the training loss,
 a chunked and checkpointed cross-entropy; with ``cfg.remat`` the forward
-recomputes each layer in the backward. There is no sharding of the
-dense layers: they run whole on every rank. The MoE FFN alone takes a
-mesh (``ExpertMesh`` over a ``core.distributed.ServingMesh``): with
+recomputes each layer in the backward.
+
+On a mesh whose model axis is wider than one rank, the dense LM's train
+path runs tensor-parallel (``TensorParallel``, ``tensor_parallel``):
+each rank holds the reference's block of every leaf
+(``param_logical_axes`` through ``parallel.sharding.logical_to_spec``)
+and attends with the heads the reference's ``_expand_kv`` gives it
+(kv heads the model ranks do not divide expanded to the query heads,
+query heads they do not divide zero-padded to the next multiple and
+the padded ones sliced off before ``wo``); a stored block of ``wq``,
+``wk``, ``wv`` or ``wo`` that is not the columns those heads need is
+re-sliced over the model group first (``parallel.gather_from_group``).
+The q/k/v and gate/up projections are column-parallel and ``wo`` and
+``w_down`` row-parallel (``parallel.copy_to_group`` on the normed
+input, ``sum_over_group`` on the output); the embedding is
+vocab-parallel (a masked lookup of the rank's rows, summed over the
+group), and so is the loss (``_VocabChunkLoss``). The MoE cells keep
+their own placement: experts over the model ranks, attention whole on
+every rank. The MoE FFN takes a mesh (``ExpertMesh`` over a
+``launch.mesh.Mesh``): with
 ``moe.impl == "shard_map"`` each model rank runs its E / M experts and
 the partial combines are summed over the model group
 (``_moe_ffn_expert_parallel``, the reference's ``_moe_ffn_shardmap``);
@@ -38,11 +55,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
-from ..parallel.collectives import copy_to_group, sum_over_group
+from ..parallel.collectives import (all_reduce_, copy_to_group,
+                                    gather_from_group, sum_over_group)
 from .attention import chunked_attention, decode_attention
 from .common import normal_init, rms_norm, rope_tables, rotate
 
@@ -50,6 +69,55 @@ LAYER_LEAVES = ("attn_norm", "mlp_norm", "wq", "wk", "wv", "wo", "w_gate",
                 "w_up", "w_down")
 MOE_LAYER_LEAVES = LAYER_LEAVES + ("router",)
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")     # [L, E, ...] in an MoE layer
+
+
+def param_logical_axes(cfg: LMConfig) -> dict:
+    """The reference's logical axes of every leaf of the params tree."""
+    lay = {
+        "attn_norm": ("layers", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+    }
+    if cfg.moe:
+        lay.update({
+            "router": ("layers", "embed", "experts"),
+            "w_gate": ("layers", "experts", "embed", "mlp"),
+            "w_up": ("layers", "experts", "embed", "mlp"),
+            "w_down": ("layers", "experts", "mlp", "embed"),
+        })
+    else:
+        lay.update({
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        })
+    tree = {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+            "layers": lay}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("embed", "vocab")
+    return tree
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The whole shape of every leaf of the params tree (no allocation)."""
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    H, KV, hd, L = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_layers
+    lay = {"attn_norm": (L, D), "mlp_norm": (L, D), "wq": (L, D, H * hd),
+           "wk": (L, D, KV * hd), "wv": (L, D, KV * hd),
+           "wo": (L, H * hd, D)}
+    if cfg.moe:
+        E = cfg.moe.n_experts
+        lay.update(router=(L, D, E), w_gate=(L, E, D, F_),
+                   w_up=(L, E, D, F_), w_down=(L, E, F_, D))
+    else:
+        lay.update(w_gate=(L, D, F_), w_up=(L, D, F_), w_down=(L, F_, D))
+    tree = {"embed": (V, D), "final_norm": (D,), "layers": lay}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (D, V)
+    return tree
 
 
 def init_params(cfg: LMConfig, gen: torch.Generator, device):
@@ -337,6 +405,161 @@ def _moe_ffn(cfg: LMConfig, lp, x, ep: ExpertMesh | None = None):
     return _moe_ffn_gather(cfg, lp, x)
 
 
+# ------------------------------------------------------ tensor parallelism --
+
+@dataclass(frozen=True)
+class TensorParallel:
+    """How the dense layer runs over the model ranks of a mesh
+    (``tensor_parallel``): ``group`` and ``ranks`` (its global ranks in
+    block order), this rank's ``index`` on the model axis; ``heads``
+    (h0, h1, n_pad): it attends with query heads h0 .. h1 − 1 and n_pad
+    zero heads after them; ``expand``: k and v expanded to one head a
+    query head; ``stored``: for ``wq``, ``wk``, ``wv`` (last dim) and
+    ``wo`` (first dim of a layer's) the (lo, hi, whole) of the block this
+    rank holds of the dim the heads split; ``vocab`` / ``head_vocab``:
+    the (v0, v1) rows of the embedding / columns of the output head it
+    holds, None where they are whole; ``mlp``: the FFN is a
+    column/row-parallel pair over the group (else whole on every
+    rank)."""
+    group: object
+    ranks: tuple
+    index: int
+    heads: tuple
+    expand: bool
+    stored: dict
+    vocab: tuple | None
+    head_vocab: tuple | None
+    mlp: bool
+
+
+def _model_block(spec, shape, dim: int, mesh):
+    """(lo, hi, whole) of this rank's block of ``dim`` under ``spec``,
+    which may split it over the model axis only."""
+    entry, whole = spec[dim], shape[dim]
+    if entry is None or mesh.size(entry) == 1:
+        return (0, whole, whole)
+    if entry != "model":
+        raise ValueError(f"tensor parallelism splits over 'model' only, "
+                         f"not {entry!r}")
+    b = whole // mesh.size(entry)
+    i = mesh.index(entry)
+    return (i * b, (i + 1) * b, whole)
+
+
+def tensor_parallel(cfg: LMConfig, mesh, specs: dict):
+    """The dense layer's ``TensorParallel`` on ``mesh`` for the params'
+    ``specs`` (``parallel.sharding.logical_to_spec`` of
+    ``param_logical_axes``); None on a model axis of one rank. The
+    heads follow the reference's ``_expand_kv``: with M model ranks, H
+    query heads are padded to hp = ⌈H / M⌉·M when M does not divide H,
+    kv heads are expanded when H ≠ KV and M does not divide KV (or heads
+    are padded), and rank m takes padded heads m·hp/M .. (m+1)·hp/M − 1.
+    Raises ``ValueError`` where a rank would hold only padded heads."""
+    M = mesh.n_model
+    if M == 1:
+        return None
+    if cfg.moe is not None:
+        raise ValueError("tensor parallelism is the dense layer's; the MoE "
+                         "cells run expert-parallel (ExpertMesh)")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    hp = 0 if H % M == 0 else -(-H // M) * M
+    nh = (hp or H) // M
+    h0 = mesh.m * nh
+    h1 = min(h0 + nh, H)
+    if h1 <= h0:
+        raise ValueError(f"{H} heads over {M} model ranks leave rank "
+                         f"{mesh.m} no head")
+    shapes = param_shapes(cfg)
+    lay, lsh = specs["layers"], shapes["layers"]
+    stored = {name: _model_block(lay[name], lsh[name], 2, mesh)
+              for name in ("wq", "wk", "wv")}
+    stored["wo"] = _model_block(lay["wo"], lsh["wo"], 1, mesh)
+
+    def vocab_of(spec, shape, dim):
+        lo, hi, whole = _model_block(spec, shape, dim, mesh)
+        return None if (lo, hi) == (0, whole) else (lo, hi)
+    vocab = vocab_of(specs["embed"], shapes["embed"], 0)
+    head_vocab = vocab if cfg.tie_embeddings else vocab_of(
+        specs["lm_head"], shapes["lm_head"], 1)
+    mlp = [_model_block(lay[n], lsh[n], d, mesh)
+           for n, d in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
+    split = [(lo, hi) != (0, whole) for lo, hi, whole in mlp]
+    if len(set(split)) != 1:
+        raise ValueError("w_gate, w_up and w_down must split d_ff alike")
+    return TensorParallel(
+        group=mesh.group("model"), ranks=tuple(mesh.members("model")),
+        index=mesh.index("model"), heads=(h0, h1, nh - (h1 - h0)),
+        expand=H != KV and (KV % M != 0 or hp > 0), stored=stored,
+        vocab=vocab, head_vocab=head_vocab, mlp=split[0])
+
+
+def _take(tp: TensorParallel, leaf, name: str, dim: int, a: int, b: int):
+    """Columns (rows, for ``dim`` 0) a .. b − 1 of the whole of layer
+    leaf ``name``, from the block this rank stores: the block itself
+    where it is those, a part of a replicated leaf whose gradient is
+    summed over the group (the other ranks use other parts), else a
+    part of the whole gathered over the group."""
+    lo, hi, whole = tp.stored[name]
+    if (lo, hi) == (a, b):
+        return leaf
+    if (lo, hi) == (0, whole):
+        return copy_to_group(leaf, tp.group).narrow(dim, a, b - a)
+    return gather_from_group(leaf, tp.group, dim, tp.ranks,
+                             tp.index).narrow(dim, a, b - a)
+
+
+def _attention_tp(cfg: LMConfig, lp, x, cos, sin, tp: TensorParallel):
+    """This rank's heads' share of the attention block's output [B, S,
+    D], summed over the model group."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    G = H // KV
+    h0, h1, n_pad = tp.heads
+    nq = h1 - h0
+    k0, k1 = h0 // G, -(-h1 // G)          # the kv heads those heads read
+    h = copy_to_group(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp.group)
+    wq = _take(tp, lp["wq"], "wq", 1, h0 * hd, h1 * hd)
+    wk = _take(tp, lp["wk"], "wk", 1, k0 * hd, k1 * hd)
+    wv = _take(tp, lp["wv"], "wv", 1, k0 * hd, k1 * hd)
+    q = rotate((h @ wq).reshape(B, S, nq, hd), cos, sin)
+    k = rotate((h @ wk).reshape(B, S, k1 - k0, hd), cos, sin)
+    v = (h @ wv).reshape(B, S, k1 - k0, hd)
+    if tp.expand:                          # one kv head a query head
+        idx = torch.arange(h0, h1, device=x.device) // G - k0
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    if n_pad:                              # zero heads, sliced off below
+        q, k, v = (F.pad(t, (0, 0, 0, n_pad)) for t in (q, k, v))
+    att = chunked_attention(q, k, v, causal=True)[:, :, :nq]
+    wo = _take(tp, lp["wo"], "wo", 0, h0 * hd, h1 * hd)
+    return sum_over_group(att.reshape(B, S, nq * hd) @ wo, tp.group)
+
+
+def _dense_ffn_tp(lp, x, tp: TensorParallel):
+    if not tp.mlp:
+        return _dense_ffn(lp, x)
+    return sum_over_group(_dense_ffn(lp, copy_to_group(x, tp.group)),
+                          tp.group)
+
+
+def _layer_tp(cfg: LMConfig, lp, x, cos, sin, tp: TensorParallel):
+    x = x + _attention_tp(cfg, lp, x, cos, sin, tp)
+    h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + _dense_ffn_tp(lp, h2, tp)
+
+
+def _embed(params, tokens, tp: TensorParallel | None = None):
+    """The embedding rows of ``tokens``: vocab-parallel under ``tp`` (each
+    rank looks up the tokens whose rows it holds, zeros for the others,
+    summed over the group)."""
+    if tp is None or tp.vocab is None:
+        return params["embed"][tokens.long()]
+    v0, v1 = tp.vocab
+    local = tokens.long() - v0
+    own = (local >= 0) & (local < v1 - v0)
+    x = params["embed"][local.clamp(0, v1 - v0 - 1)]
+    return sum_over_group(x.masked_fill(~own[..., None], 0), tp.group)
+
+
 def _qkv(cfg: LMConfig, lp, x, cos, sin):
     """Normed, projected and rotated q [B, S, H, hd], k, v [B, S, KV, hd]."""
     B, S, _ = x.shape
@@ -368,27 +591,32 @@ def _positions(B: int, S: int, device, start: int = 0):
             ).expand(B, S)
 
 
-def _layer_out(cfg: LMConfig, lp, x, cos, sin, ep=None):
+def _layer_out(cfg: LMConfig, lp, x, cos, sin, ep=None, tp=None):
+    if tp is not None:
+        return _layer_tp(cfg, lp, x, cos, sin, tp)
     return _layer(cfg, lp, x, cos, sin, ep)[0]
 
 
-def forward(cfg: LMConfig, params, tokens, ep: ExpertMesh | None = None):
+def forward(cfg: LMConfig, params, tokens, ep: ExpertMesh | None = None,
+            tp: TensorParallel | None = None):
     """tokens [B, S] → final hidden states [B, S, D]. With ``cfg.remat``
     each layer is checkpointed (the reference's ``jax.checkpoint`` of its
     scanned body): the backward recomputes it from its input, routing
     included (the stable sort routes it the same). ``ep``: the MoE FFN's
-    expert parallelism (``ExpertMesh``), None on one device."""
+    expert parallelism (``ExpertMesh``), ``tp``: the dense layer's tensor
+    parallelism (``TensorParallel``, over this rank's blocks of the
+    params); None on one device."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     cos, sin = rope_tables(_positions(B, S, tokens.device), cfg.hd,
                            cfg.rope_theta)
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
         if cfg.remat:
-            x = checkpoint(_layer_out, cfg, lp, x, cos, sin, ep,
+            x = checkpoint(_layer_out, cfg, lp, x, cos, sin, ep, tp,
                            use_reentrant=False)
         else:
-            x = _layer_out(cfg, lp, x, cos, sin, ep)
+            x = _layer_out(cfg, lp, x, cos, sin, ep, tp)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -422,14 +650,58 @@ class _ChunkLoss(torch.autograd.Function):
         return d @ head.T, h.T @ d, None, None
 
 
+class _VocabChunkLoss(torch.autograd.Function):
+    """``_ChunkLoss`` over logits whose vocab is split over a group: this
+    rank holds columns v0 .. v0 + V_loc − 1 of the head. The row max is
+    reduced over the group (max), then the sum of exps and the label's
+    logit together (sum; only the rank that holds the label's column
+    adds it), so every rank returns the whole chunk's loss. The backward
+    turns this rank's block of the logits, and no more, into its
+    gradient in place, as ``_ChunkLoss`` does; h's gradient is this
+    rank's part (summed by ``copy_to_group`` on h)."""
+
+    @staticmethod
+    def forward(ctx, h, head, labels, weight, v0, group):
+        logits = (h @ head).float()
+        n = logits.shape[1]
+        local = labels - v0
+        own = ((local >= 0) & (local < n)).float()
+        local = local.clamp(0, n - 1)
+        mx = all_reduce_(logits.amax(dim=-1), group, "loss_max",
+                         op=dist.ReduceOp.MAX)
+        parts = torch.stack([
+            torch.exp(logits - mx[:, None]).sum(dim=-1),
+            torch.gather(logits, 1, local[:, None])[:, 0] * own])
+        all_reduce_(parts, group, "loss_sum")
+        lse = torch.log(parts[0]) + mx
+        ctx.save_for_backward(h, head, local, own, weight, lse)
+        return torch.sum((lse - parts[1]) * weight)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, head, local, own, weight, lse = ctx.saved_tensors
+        d = (h @ head).float()
+        d.sub_(lse[:, None]).exp_()
+        d.scatter_add_(1, local[:, None], -own[:, None])
+        d.mul_((weight * g)[:, None])
+        d = d.to(h.dtype)
+        return d @ head.T, h.T @ d, None, None, None, None
+
+
 def logits_and_loss(cfg: LMConfig, params, tokens, labels,
-                    loss_chunk=16384, ep: ExpertMesh | None = None):
+                    loss_chunk=16384, ep: ExpertMesh | None = None,
+                    tp: TensorParallel | None = None):
     """Mean next-token cross-entropy of ``tokens [B, S]`` against ``labels
     [B, S]``, float32. The [B·S, V] logits are produced and reduced chunk
     by chunk (rows padded to a multiple of ``loss_chunk`` with weight 0),
     the backward recomputing each chunk's [chunk, V] logits instead of
-    keeping them (``_ChunkLoss``). ``loss_chunk=None``: one chunk."""
-    hs = forward(cfg, params, tokens, ep)
+    keeping them (``_ChunkLoss``; ``_VocabChunkLoss`` over this rank's
+    columns of a vocab-parallel head under ``tp``). ``loss_chunk=None``:
+    one chunk."""
+    hs = forward(cfg, params, tokens, ep, tp)
+    vocab = tp.head_vocab if tp is not None else None
+    if vocab is not None:
+        hs = copy_to_group(hs, tp.group)
     B, S, D = hs.shape
     G = B * S
     chunk = min(loss_chunk or G, G)
@@ -443,8 +715,12 @@ def logits_and_loss(cfg: LMConfig, params, tokens, labels,
     total = torch.zeros((), dtype=torch.float32, device=hs.device)
     for c in range(nc):
         rows = slice(c * chunk, (c + 1) * chunk)
-        total = total + _ChunkLoss.apply(hf[rows], head, lf[rows],
-                                         wmask[rows])
+        if vocab is None:
+            total = total + _ChunkLoss.apply(hf[rows], head, lf[rows],
+                                             wmask[rows])
+        else:
+            total = total + _VocabChunkLoss.apply(
+                hf[rows], head, lf[rows], wmask[rows], vocab[0], tp.group)
     return total / G
 
 

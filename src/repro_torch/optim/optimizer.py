@@ -12,6 +12,12 @@ moments per step would only move bytes), and ``clip_by_global_norm``
 scales the gradients in place. The step count is an int32 0-d tensor on
 the host: the schedule and the bias corrections are scalars, taken in
 float32 as the reference takes them, with no device sync.
+
+ZeRO-1 (``adamw_update(..., shards=)``): a rank's m and v hold only its
+block of each leaf along one dimension (``parallel.sharding.zero1_spec``
+adds the data axes there); the rank updates that block of the param from
+them and the whole gradient, and the caller all-gathers the blocks over
+the data ranks (``models.api``).
 """
 from __future__ import annotations
 
@@ -99,9 +105,13 @@ def clip_by_global_norm(grads, max_norm: float, gnorm=None):
     return grads, gnorm
 
 
-def adamw_update(cfg: OptConfig, params, grads, opt_state, gnorm=None):
+def adamw_update(cfg: OptConfig, params, grads, opt_state, gnorm=None,
+                 shards=None):
     """One AdamW step, in place on ``params`` and ``opt_state`` (and on
     ``grads``, which are clipped; ``gnorm``: as ``clip_by_global_norm``'s).
+    ``shards``: ZeRO-1, a list in the leaves' order of None (m and v
+    whole) or (dim, start, length): m and v hold that block of the leaf
+    along ``dim``, and only that block of the param is updated.
     Returns (params, opt_state, metrics {"grad_norm", "lr"})."""
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
     step = opt_state["step"] + 1
@@ -110,8 +120,13 @@ def adamw_update(cfg: OptConfig, params, grads, opt_state, gnorm=None):
     bc1 = float(1.0 - _f32(b1) ** step.float())
     bc2 = float(1.0 - _f32(b2) ** step.float())
     lr_f = float(lr)
-    for p, g, m, v in zip(_leaves(params), _leaves(grads),
-                          _leaves(opt_state["m"]), _leaves(opt_state["v"])):
+    flat_p = _leaves(params)
+    for p, g, m, v, sh in zip(flat_p, _leaves(grads),
+                              _leaves(opt_state["m"]),
+                              _leaves(opt_state["v"]),
+                              shards or [None] * len(flat_p)):
+        if sh is not None:
+            p, g = p.narrow(*sh), g.narrow(*sh)
         g32 = g.float()
         m.mul_(b1).add_(g32, alpha=1 - b1)
         v.mul_(b2).addcmul_(g32, g32, value=1 - b2)

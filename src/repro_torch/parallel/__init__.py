@@ -1,6 +1,9 @@
 """Collectives over ``torch.distributed`` process groups that autograd
-differentiates as ``shard_map`` does the reference's (see
-``collectives``)."""
-from .collectives import CALLS, all_reduce_, copy_to_group, sum_over_group
+differentiates as ``shard_map`` does the reference's (``collectives``),
+the logical-axis placement of a leaf over a mesh (``sharding``) and the
+GPipe forward over a mesh axis (``pipeline``)."""
+from .collectives import (BYTES, CALLS, all_gather_, all_reduce_,
+                          copy_to_group, gather_from_group, sum_over_group)
 
-__all__ = ["CALLS", "all_reduce_", "copy_to_group", "sum_over_group"]
+__all__ = ["BYTES", "CALLS", "all_gather_", "all_reduce_", "copy_to_group",
+           "gather_from_group", "sum_over_group"]

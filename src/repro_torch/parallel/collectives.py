@@ -1,5 +1,8 @@
-"""The two differentiable collectives of the expert-parallel MoE FFN and
-the train step's plain sum, over a ``torch.distributed`` process group.
+"""The collectives of the port's model paths over ``torch.distributed``
+process groups: the differentiable pair of the expert-parallel MoE FFN
+and of the dense layer's tensor parallelism, the differentiable gather
+that re-slices a weight whose stored block is not the one a rank needs,
+and the plain sums and gathers of the train step.
 
 The reference runs the FFN inside ``shard_map`` and sums the partial
 combine with ``psum``; JAX transposes both on its own. Here the pair is
@@ -13,10 +16,15 @@ written out:
 
 ``torch.distributed.nn.functional.all_reduce`` is not the second one:
 its backward sums the cotangent over the group again, which scales every
-gradient behind it by the group's size. A group of ``None`` stands for
-a group of one rank (``core.distributed.ServingMesh`` creates none): both
-are then identities and nothing is launched. ``CALLS`` counts the
-all-reduces issued, by the function that issued them.
+gradient behind it by the group's size.
+
+  * ``gather_from_group`` — ``all_gather`` forward, the gradient of the
+    whole summed over the group and cut to this rank's block backward.
+
+A group of ``None`` stands for a group of one rank (``launch.mesh.Mesh``
+creates none): every function here is then the identity and nothing is
+launched. ``CALLS`` counts the collectives made, by the function that
+made them, and ``BYTES`` their payload bytes (each rank's tensor).
 """
 from __future__ import annotations
 
@@ -26,15 +34,39 @@ import torch
 import torch.distributed as dist
 
 CALLS: Counter = Counter()
+BYTES: Counter = Counter()
 
 
-def all_reduce_(t: torch.Tensor, group, name: str = "all_reduce"):
-    """Sum ``t`` over ``group`` in place (not differentiated); counted
-    under ``name``. Returns ``t``."""
+def _count(name: str, t: torch.Tensor) -> None:
+    CALLS[name] += 1
+    BYTES[name] += t.numel() * t.element_size()
+
+
+def all_reduce_(t: torch.Tensor, group, name: str = "all_reduce",
+                op=dist.ReduceOp.SUM):
+    """Reduce ``t`` over ``group`` in place with ``op`` (default: sum;
+    not differentiated); counted under ``name``. Returns ``t``."""
     if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-        CALLS[name] += 1
+        dist.all_reduce(t, op=op, group=group)
+        _count(name, t)
     return t
+
+
+def all_gather_(t: torch.Tensor, group, dim: int = 0, ranks=None,
+                name: str = "all_gather") -> torch.Tensor:
+    """The group's blocks of ``t`` concatenated along ``dim`` (not
+    differentiated): in the order of the global ranks ``ranks`` where
+    given (a mesh's block order), else in group-rank order."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    _count(name, t)
+    if ranks is not None:
+        order = dist.get_process_group_ranks(group)
+        parts = [parts[order.index(r)] for r in ranks]
+    return torch.cat(parts, dim)
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -57,6 +89,32 @@ class _SumOverGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, ranks, index):
+        ctx.group, ctx.dim, ctx.index = group, dim, index
+        ctx.block = x.shape[dim]
+        return all_gather_(x, group, dim, ranks, "gather_from_group")
+
+    @staticmethod
+    def backward(ctx, grad):
+        whole = all_reduce_(grad.contiguous().clone(), ctx.group,
+                            "gather_from_group")
+        return (whole.narrow(ctx.dim, ctx.index * ctx.block, ctx.block),
+                None, None, None, None)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int, ranks,
+                      index: int) -> torch.Tensor:
+    """The whole of a leaf sharded over ``group`` along ``dim``: the
+    blocks of the global ranks ``ranks`` in that order, this rank's at
+    position ``index``; the gradient of the whole, which each rank holds
+    only in part, summed over the group and cut to this rank's block."""
+    if group is None:
+        return x
+    return _GatherFromGroup.apply(x, group, dim, ranks, index)
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:

@@ -1747,3 +1747,79 @@ def test_moe_expert_parallel_world_one_nccl(dev, tmp_path):
         assert sum(CALLS.values()) == 0
     finally:
         dist.destroy_process_group()
+
+
+def test_dense_mesh_train_step_world_one_nccl_bit_for_bit(dev, tmp_path):
+    """A world-1 NCCL group (mesh 1x1, ``make_debug_mesh``): the dense
+    train cell built with the mesh (tensor parallelism and ZeRO-1 of one
+    rank) steps as the one without, bit for bit, launching no
+    collective."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim.optimizer import _leaves
+    from repro_torch.parallel import CALLS
+    cfg = dataclasses.replace(get_smoke("tinyllama-1.1b"), head_dim=64,
+                              dtype="bfloat16", remat=True, microbatches=2)
+    shp = dataclasses.replace(shapes_for_family("lm")["train_4k"], batch=4,
+                              seq_len=256)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        mesh = make_debug_mesh(device=dev)
+        cells = [api.build_cell(cfg, "train_4k", mesh=mesh,
+                                shape_override=shp),
+                 api.build_cell(cfg, "train_4k", device=dev,
+                                shape_override=shp)]
+        states = [api.materialize_state(c, cfg, "train_4k",
+                                        torch.Generator(device=dev)
+                                        .manual_seed(4)) for c in cells]
+        g = torch.Generator(device=dev).manual_seed(5)
+        toks = torch.randint(0, cfg.vocab, (4, 256), generator=g, device=dev,
+                             dtype=torch.int32)
+        CALLS.clear()
+        for _ in range(2):
+            out = [c.step(s, {"tokens": toks, "labels": toks})
+                   for c, s in zip(cells, states)]
+            states = [o[0] for o in out]
+            assert torch.equal(out[0][1]["loss"], out[1][1]["loss"])
+            assert torch.equal(out[0][1]["grad_norm"], out[1][1]["grad_norm"])
+        for a, b in zip(_leaves(states[0]), _leaves(states[1])):
+            assert torch.equal(a, b)
+        assert sum(CALLS.values()) == 0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compression_on_the_card_equals_the_cpu(dev, tmp_path):
+    """``quantize_int8`` of CUDA tensors, error feedback and the compressed
+    sum (a world-1 NCCL group) give the CPU's bits: the divisions are
+    true divisions on tensors on both."""
+    import torch.distributed as dist
+
+    from repro_torch.optim import compression as comp
+    g = torch.Generator().manual_seed(6)
+    xs = [torch.randn(1 << 16, generator=g),
+          torch.randn((33, 129), generator=g) * 1e3,
+          (torch.arange(-8, 9, dtype=torch.float32) + 0.5) / 127.0 * 8.5]
+    for x in xs:
+        q, s = comp.quantize_int8(x.to(dev))
+        q_h, s_h = comp.quantize_int8(x)
+        assert torch.equal(q.cpu(), q_h) and torch.equal(s.cpu(), s_h)
+    grads = {"w": xs[0]}
+    err_d = comp.init_error_state({"w": xs[0].to(dev)})
+    err_h = comp.init_error_state(grads)
+    for _ in range(5):
+        d_d, err_d = comp.compress_with_feedback({"w": xs[0].to(dev)}, err_d)
+        d_h, err_h = comp.compress_with_feedback(grads, err_h)
+        assert torch.equal(d_d["w"].cpu(), d_h["w"])
+        assert torch.equal(err_d["w"].cpu(), err_h["w"])
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        from repro_torch.launch.mesh import Mesh
+        mesh = Mesh((1,), ("data",), device=dev)
+        got = comp.compressed_psum(xs[1].to(dev), mesh.group("data"))
+        assert torch.equal(got.cpu(), comp.compressed_psum(xs[1], None))
+    finally:
+        dist.destroy_process_group()

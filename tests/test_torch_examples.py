@@ -4,7 +4,9 @@
 lm_train,gnn_train}.py`` run end to end with ``--device cpu`` at a small
 size (each in its own process, as a user runs them; the LM example
 through its injected failure and recovery), and
-``examples/torch_moe_expert_parallel.py`` on its four gloo ranks. The CLI's ``--updates`` / ``--update-batch``
+``examples/torch_moe_expert_parallel.py`` on its four gloo ranks, and
+``examples/torch_sharded_train.py`` on two (the Trainer on a 1x2 mesh,
+worker 1 failing at step 3, rank 0 re-meshed to one device). The CLI's ``--updates`` / ``--update-batch``
 churn loop gives the reference CLI's answers, phase mix and overlay
 counters on the same graph and seed (the reference on its XLA loop, whose
 overflow rule differs from the fused rule the port keeps, so
@@ -88,6 +90,24 @@ def test_moe_expert_parallel_example():
     assert "gather:          {'all_reduce': 14}" in out
     assert ("expert-parallel: {'all_reduce': 15, 'copy_to_group': 16, "
             "'sum_over_group': 8}") in out
+
+
+def test_sharded_train_example_remeshes_after_its_injected_failure():
+    """Two gloo ranks on a 1x2 mesh: worker 1 (rank 1) fails at step 3,
+    rank 1 leaves, rank 0 re-meshes to one device, restores step 2 and
+    finishes 6 steps; the loss it re-runs step 2 with is the one the
+    mesh trained it with, to the printed digits."""
+    out = _run("torch_sharded_train.py", "--nproc", "2", "--model", "2",
+               "--steps", "6", "--fail-at", "3")
+    assert "on 2 ranks, mesh {'data': 1, 'model': 2}" in out
+    assert "[FT] worker 1 failed: injected at step 3" in out
+    assert "[FT] re-meshed (gen 1) over 1 ranks: one device" in out
+    assert "rank 1 left at step 3 (worker 1's)" in out
+    assert ("trained 6 steps with 1 recovery(ies), mesh generation 1, "
+            "ending on one device") in out
+    losses = [line.split()[3] for line in out.splitlines()
+              if line.startswith("step ")]
+    assert len(losses) == 7 and losses[2] == losses[3]
 
 
 ARGV = ["--nodes", "2000", "--queries", "2048", "--k", "1", "--no-seeds",

@@ -50,7 +50,12 @@ def test_import_pulls_in_neither_jax_nor_reference():
             "repro_torch.configs.phi35_moe",
             "repro_torch.configs.moonshot_v1_16b",
             "repro_torch.parallel",
-            "repro_torch.parallel.collectives"} <= mods
+            "repro_torch.parallel.collectives",
+            "repro_torch.parallel.sharding",
+            "repro_torch.parallel.pipeline",
+            "repro_torch.launch.mesh",
+            "repro_torch.optim.compression",
+            "repro_torch.runtime.elastic"} <= mods
 
 
 def test_no_source_file_imports_jax_or_reference():
@@ -90,17 +95,18 @@ print(len(sys.argv) - 1)
 
 
 def test_examples_import_neither_jax_nor_reference():
-    """The port's six examples name neither jax nor the reference, and
+    """The port's seven examples name neither jax nor the reference, and
     importing them (their ``__main__`` blocks aside) pulls in neither."""
     files = sorted((ROOT / "examples").glob("torch_*.py"))
     assert [f.name for f in files] == [
         "torch_gnn_train.py", "torch_lm_train.py",
         "torch_moe_expert_parallel.py", "torch_quickstart.py",
-        "torch_reachability_serve.py", "torch_shortest_path_pruning.py"]
+        "torch_reachability_serve.py", "torch_sharded_train.py",
+        "torch_shortest_path_pruning.py"]
     assert [f.name for f in files if IMPORT.search(f.read_text())] == []
     env = dict(os.environ, PYTHONPATH=str(SRC))
     r = subprocess.run([sys.executable, "-c", EXAMPLE_PROBE,
                         *map(str, files)], env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.split() == ["6"]
+    assert r.stdout.split() == ["7"]
