@@ -202,6 +202,41 @@ card:
            forward. Cuts: depth 22 -> 2 and batch 256 -> 16 on the pair
            (two ranks' state and activations on one card), batch 256 -> 2
            and seq 4096 -> 512 in the float32 parts.
+  sharded_cells
+           every other cell kind on a mesh (one card, so in two ways):
+           world 1 over NCCL (mesh 1x1) at the published configs —
+           llama3-8b's prefill of 32,768 tokens and 32 greedy decode
+           steps at batch 1 (32 layers), graphsage-reddit's ogb_products
+           train step uncut, MIND's retrieval_cand — each against the
+           same without a mesh, bit for bit, with no collective (a step
+           that two runs without a mesh do not repeat bit for bit, its
+           segment sums' atomics, within the model phases' tolerance);
+           then two gloo ranks sharing cuda:0 (subprocesses, a FileStore
+           under build/) at the published widths, depth cut to 2 layers:
+           llama3-8b at 1x2 (a float32 cut, prompt 1024 and 8 decode
+           steps, held against one device at rtol 1e-4 / atol 1e-5 x
+           max|want|: every step's logits and the cache gathered; then
+           bf16, the prefill of 32,768 tokens with the heads and the
+           vocab over 'model' and 32 decode steps with the cache's
+           sequence split over the two ranks, timed; rank 0's layer-0
+           call of kernel 6, q [1, 32768, 16, 128], k, v [1, 32768, 4,
+           128], held against the plain version on its last rows and
+           timed beside SDPA), moonshot-v1-16b-a3b at 1x2 (attention over
+           'model', experts over the model ranks: a float32 cut at 1
+           layer (memory), prompt 512 and a train step of 4 x 256, held;
+           bf16, a prefill of 16,384 and a train step of 4 x 4096,
+           timed), gin-tu's molecule
+           cell at 2x1 (batch 128 -> 65,536, kernel 9 forward and
+           backward on a rank's 32,768 graphs, timed beside the cuBLAS
+           pair), graphsage-reddit's minibatch_lg at 2x1, MIND's
+           train_batch at 1x2 (the table's rows over 'model'; batch
+           65,536 -> 8,192) and retrieval_cand at 2x1 (kernel 10 on a
+           rank's 500,224 candidates, timed beside the library pair; the
+           top 100 items agreeing with one device), the train steps held
+           against one device's at the train phases' tolerances; each
+           step's seconds (the two ranks share one card: the collectives
+           go through the host and say nothing of NVLink), peak memory a
+           rank, and collectives and bytes by name.
   ferrari  ferrari-web (the paper's own system) at its published n =
            16,777,216, after every other phase is driven and timed and
            the card's cache emptied: a condensed DAG
@@ -256,9 +291,9 @@ dense phase's largest call, and kernels 1 to 4 beside their launch floor
 (``zero_()`` of an output as large, timed the same way).
 ``--ferrari-only`` runs the kernels' build and the ferrari phase alone
 and prints no result lines; only with it, ``--ferrari-nodes`` cuts the
-phase's graph. ``--moe-only``, ``--moe-train-only`` and
-``--sharded-train-only`` do the same for the moe, moe_train and
-sharded_train phases.
+phase's graph. ``--moe-only``, ``--moe-train-only``,
+``--sharded-train-only`` and ``--sharded-cells-only`` do the same for
+the moe, moe_train, sharded_train and sharded_cells phases.
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -381,34 +416,37 @@ KERNELS = {
         replaces="src/repro/kernels/merge_cover.py:153", phase="wavefront"),
     "retrieval_score": dict(
         source="src/repro_torch/csrc/retrieval_score.cu",
-        replaces="src/repro/kernels/retrieval_score.py:32", phase="recsys"),
+        replaces="src/repro/kernels/retrieval_score.py:32", phase="recsys",
+        also=("sharded_cells",)),
     # the source of kernel 9's route at its largest call (set in main)
     "batched_mp": dict(
         source="src/repro_torch/csrc/batched_mp_mma.cu",
-        replaces="src/repro/kernels/batched_mp.py:31", phase="gnn"),
+        replaces="src/repro/kernels/batched_mp.py:31", phase="gnn",
+        also=("sharded_cells",)),
     # kernel 9 as its own backward (BatchedMP: adjᵀ, dy, I_H), in the
     # dense-batch train step, which the reference differentiates through
     # its plain einsums (use_pallas=False)
     "batched_mp_bwd": dict(
         source="src/repro_torch/csrc/batched_mp_mma.cu",
         replaces="src/repro/kernels/batched_mp.py:31",
-        call="src/repro/models/api.py:278", phase="gnn_train"),
+        call="src/repro/models/api.py:278", phase="gnn_train",
+        also=("sharded_cells",)),
     # also on the moe phase's prefills (moonshot, phi3.5-moe) and the
     # moe_train phase's steps
     "flash_fwd": dict(
         source="src/repro_torch/csrc/flash_fwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:101", phase="lm",
-        also=("moe", "moe_train", "sharded_train")),
+        also=("moe", "moe_train", "sharded_train", "sharded_cells")),
     "flash_bwd_dq": dict(
         source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:172",
         call="src/repro/kernels/flash_attention.py:207", phase="train",
-        also=("moe_train", "sharded_train")),
+        also=("moe_train", "sharded_train", "sharded_cells")),
     "flash_bwd_dkv": dict(
         source="src/repro_torch/csrc/flash_bwd_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:172",
         call="src/repro/kernels/flash_attention.py:224", phase="train",
-        also=("moe_train", "sharded_train")),
+        also=("moe_train", "sharded_train", "sharded_cells")),
     # the sharded placement's entries of kernels 1 and 3: the reference's
     # kernels on gathered rows inside its shard_map
     "stab_packed_owned": dict(
@@ -5049,6 +5087,602 @@ def sharded_train_phase(dev, seed: int) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# ----------------------------------------------------- sharded_cells ----
+# the sharded_cells phase (one card, so two ways): every other cell kind
+# on a mesh. World 1 over NCCL (mesh 1x1) at the published configs:
+# llama3-8b's prefill of 32,768 tokens and 32 decode steps at batch 1,
+# ogb_products' train step uncut and MIND's retrieval_cand, each against
+# the same cell without a mesh, bit for bit, with no collective. Then two
+# gloo ranks sharing cuda:0 at the published widths, depth cut to 2
+# layers: llama3-8b at 1x2 (tensor-parallel prefill, decode over the
+# cache's sequence split in two), moonshot-v1-16b-a3b at 1x2 (attention
+# over 'model', experts over the model ranks), gin-tu's molecule cell and
+# graphsage-reddit's minibatch_lg at 2x1, MIND's train_batch at 1x2 and
+# retrieval_cand at 2x1: float32 cuts against the same cell on one device
+# at the CPU tests' tolerances, the published dtype timed, and kernels 6,
+# 9 and 10 held against their plain versions at a rank's calls and timed
+SC_LLAMA = dict(layers=2, prompt=32768, steps=32,
+                check=dict(prompt=1024, steps=8))
+# moonshot's float32 cut holds 1 layer: the two ranks' blocks, the state
+# gathered on each and rank 0's one-device step at 2 layers would not fit
+# the card together
+SC_MOE = dict(layers=2, prompt=16384, batch=4, seq=4096,
+              check=dict(layers=1, prompt=512, batch=4, seq=256))
+SC_MOLECULE = 65_536           # gin-tu's molecule batch 128 -> 65,536
+SC_MIND_BATCH = 8192           # MIND's train_batch 65,536 -> 8,192
+SC_BF16_TOL = dict(rtol=1e-2, atol=1e-2)    # atol times max|want|
+SC_TIMEOUT = 600               # seconds, each rank of the pair
+SC_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "batched_mp",
+              "batched_mp_bwd", "retrieval_score")
+SC_LABELS = {"flash_fwd": "the 1x2 llama3-8b prefill's layer-0 call "
+                          "(tensor parallel)",
+             "batched_mp": "batched_mp (gin-tu molecule, a 2x1 data rank's "
+                           "graphs)",
+             "batched_mp_bwd": "batched_mp_bwd (gin-tu molecule, a 2x1 data "
+                               "rank's graphs)",
+             "retrieval_score": "retrieval_score (MIND retrieval_cand, a 2x1"
+                                " data rank's candidates)"}
+
+# One rank of the gloo pair that shares cuda:0 in the sharded_cells phase;
+# prints its lines (rank 0's the holds and timings) and writes its
+# numbers as JSON.
+SHARDED_CELLS_RANK = r"""
+import json, sys, time
+from dataclasses import replace
+cfg = json.loads(sys.argv[1])
+rank = int(sys.argv[2])
+sys.path.insert(0, cfg["src"])
+sys.path.insert(0, cfg["root"])
+import numpy as np
+import torch
+import torch.distributed as dist
+dev = torch.device(cfg["device"], 0) if cfg["device"] == "cuda" \
+    else torch.device("cpu")
+if dev.type == "cuda":
+    torch.cuda.set_device(0)
+dist.init_process_group("gloo", rank=rank, world_size=2,
+                        store=dist.FileStore(cfg["store"], 2))
+import chip_smoke as cs
+from repro_torch.checkpoint.checkpoint import _flatten_with_paths, gather_state
+from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs.base import shapes_for_family
+from repro_torch.kernels import _lib, batched_mp as bm, ops
+from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.models import api, transformer as tf
+from repro_torch.optim.optimizer import OptConfig, adamw_init
+from repro_torch.parallel import BYTES, CALLS, sharding as shd
+seed, cuda = cfg["seed"], dev.type == "cuda"
+config = get_config if cuda else get_smoke
+out = {"launches": dict.fromkeys(cfg["kernels"], 0), "runs": {},
+       "holds": {}, "calls": {}}
+opt = OptConfig(warmup_steps=10)
+
+T0 = time.perf_counter()
+
+def say(line):
+    print(f"  [rank {rank}, {time.perf_counter() - T0:.1f} s] {line}",
+          flush=True)
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize()
+
+def gen(k):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + k)
+    return g
+
+def run(label, fn):
+    # fn() with its seconds, the peak memory a rank, the kernels it
+    # launched and the collectives it made, and their bytes
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(_lib.LAUNCHES)
+    CALLS.clear(); BYTES.clear()
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    row = dict(seconds=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda
+               else 0, calls=dict(CALLS), bytes=dict(BYTES),
+               launches={k: _lib.LAUNCHES.get(k, 0) - before.get(k, 0)
+                         for k in cfg["kernels"]})
+    for k, n in row["launches"].items():
+        out["launches"][k] += n
+    out["runs"][label] = row
+    say(f"{label}: {row['seconds']:.3f} s (the two ranks share one card), "
+        f"peak {row['peak_bytes'] / 1e9:.2f} GB a rank; launches "
+        f"{ {k: n for k, n in row['launches'].items() if n} }; collectives "
+        f"{row['calls']}, bytes {row['bytes']}")
+    return res
+
+def hold(label, got, want, rtol=cs.FORWARD_RTOL, atol=cs.FORWARD_ATOL):
+    # got against want at rtol and atol times max|want| (at least 1)
+    a = atol * max(1.0, float(want.abs().max()))
+    err, bad, rel = cs.close_stats(got, want, rtol, a)
+    say(f"mesh vs one device {label}: {want.numel()} values, {bad} "
+        f"mismatches, max abs err {err:.3e}, max rel err {rel:.3e} (rtol "
+        f"{rtol}, atol {a:.3e})")
+    out["holds"][label] = dict(err=err, bad=bad, rel=rel)
+    cs.check(bad == 0, f"sharded_cells: {label} differs from one device")
+
+lm = shapes_for_family("lm")
+tp_mesh = make_debug_mesh(model=2, device=dev)
+dp_mesh = make_debug_mesh(model=1, device=dev)
+
+def whole_cache(c, cache, shape):
+    res = {}
+    for k, v in cache.items():
+        spec = shd.logical_to_spec(tf.cache_logical_axes(c)[k],
+                                   tf.cache_shapes(c, *shape)[k], tp_mesh)
+        res[k] = shd.gather(v, spec, tp_mesh)
+    return res
+
+def lm_run(c, P, T, label, hold_tol=None):
+    # prefill P tokens and T greedy decode steps at batch 1 on the 1x2
+    # mesh; with hold_tol, the same on one device (rank 0, teacher-forced
+    # with the mesh's tokens): logits each step and the cache
+    shp = replace(lm["decode_32k"], batch=1, seq_len=P + T)
+    cell = api.build_cell(c, "decode_32k", mesh=tp_mesh, shape_override=shp)
+    params = tf.init_params(c, gen(1), dev)
+    state = api.shard_state(cell, {"params": params})
+    if hold_tol is None:
+        del params
+    prompt = torch.randint(0, c.vocab, (1, P), generator=gen(2),
+                           device=dev)
+
+    def prefill():
+        return tf.prefill(c, state["params"], prompt, P + T, tp=cell.tp,
+                          shard=cell.cache_shard)
+    logits, state["cache"] = run(f"{label} prefill of {P}", prefill)
+    steps = [logits]
+    toks = []
+
+    def decode():
+        nonlocal state
+        lg = logits
+        for i in range(T):
+            tok = lg.argmax(-1, keepdim=True).to(torch.int32)
+            toks.append(tok)
+            state, lg = cell.step(state, {"token": tok, "pos": P + i})
+            steps.append(lg)
+    run(f"{label} {T} decode steps", decode)
+    whole = whole_cache(c, state["cache"], (1, P + T))
+    if hold_tol is not None and rank == 0:
+        logits1, cache1 = tf.prefill(c, params, prompt, P + T)
+        want = [logits1]
+        for i, tok in enumerate(toks):
+            lg, cache1 = tf.decode_step(c, params, cache1, tok, P + i)
+            want.append(lg)
+        for i, (g, w) in enumerate(zip(steps, want)):
+            hold(f"{label} logits step {i}", g, w, **hold_tol)
+        for k in cache1:
+            hold(f"{label} cache {k}", whole[k], cache1[k], **hold_tol)
+    return toks
+
+# ---- llama3-8b at 1x2: float32 cut held, bf16 at 32k timed
+L = cfg["llama"]
+base = replace(config("llama3-8b"), n_layers=L["layers"])
+lm_run(replace(base, dtype="float32"), L["check"]["prompt"],
+       L["check"]["steps"], "llama3-8b float32", {})
+captured = []
+attention = ops.attention
+
+def capture(q, k, v, **kw):
+    if not captured:             # layer 0's call, by reference
+        captured.append((q, k, v, kw["causal"], kw["q_offset"]))
+    return attention(q, k, v, **kw)
+if rank == 0:
+    ops.attention = capture
+try:
+    toks = lm_run(base, L["prompt"], L["steps"], f"llama3-8b {base.dtype}")
+finally:
+    ops.attention = attention
+out["llama_tokens"] = [int(t) for t in toks]
+dist.barrier()
+if rank == 0 and cuda:
+    q, k, v, causal, qo = captured.pop()
+    n = cs.LM_PARITY_ROWS
+    tail = (q[:, -n:].contiguous(), k, v, causal, qo + q.shape[1] - n)
+    err = cs.flash_tail_parity(tail, cs.SC_LABELS["flash_fwd"])
+    out["flash_fwd"] = cs.time_flash((q, k, v, causal, qo), tail,
+                                     cs.SC_LABELS["flash_fwd"])
+    out["flash_fwd"]["err"] = list(err)
+    out["flash_fwd"]["shapes"] = [list(q.shape), list(k.shape)]
+    del q, k, v, tail
+captured.clear()
+dist.barrier()
+if cuda:
+    torch.cuda.empty_cache()
+
+# ---- moonshot-v1-16b-a3b at 1x2: attention over 'model'
+M = cfg["moe"]
+mbase = replace(config("moonshot-v1-16b-a3b"), n_layers=M["layers"])
+
+def moe_prefill(c, P, label, held):
+    shp = replace(lm["prefill_32k"], batch=1, seq_len=P)
+    cell = api.build_cell(c, "prefill_32k", mesh=tp_mesh, shape_override=shp)
+    params = tf.init_params(c, gen(3), dev)
+    state = api.shard_state(cell, {"params": params})
+    prompt = torch.randint(0, c.vocab, (1, P), generator=gen(4), device=dev)
+    _, res = run(f"{label} prefill of {P}",
+                 lambda: cell.step(state, {"tokens": prompt}))
+    if held and rank == 0:
+        logits, cache = tf.prefill(c, params, prompt, P)
+        hold(f"{label} prefill logits", res["logits"], logits)
+    if held:
+        whole = whole_cache(c, res["cache"], (1, P))
+        if rank == 0:
+            hold(f"{label} prefill cache k", whole["k"], cache["k"])
+
+def moe_train(c, B, S, label, held):
+    # the mesh's state drawn as one device draws it, its blocks kept; the
+    # state gathered whole, then rank 0 steps one device beside it
+    shp = replace(lm["train_4k"], batch=B, seq_len=S)
+    cell = api.build_cell(c, "train_4k", mesh=tp_mesh, shape_override=shp,
+                          opt_cfg=opt)
+    state = api.materialize_state(cell, c, "train_4k", gen(5))
+    toks = torch.randint(0, c.vocab, (B, S + 1), generator=gen(6),
+                         device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    state, m = run(f"{label} train step of {B} x {S}",
+                   lambda: cell.step(state, batch))
+    cs.check(np.isfinite(float(m["loss"])), "sharded_cells: moe loss")
+    if held:
+        got = gather_state(state, cell.state_shardings())
+        del state
+        if rank:
+            del got
+        if cuda:
+            torch.cuda.empty_cache()
+        if rank == 0:
+            one = api.build_cell(c, "train_4k", device=dev,
+                                 shape_override=shp, opt_cfg=opt)
+            want, wm = one.step(api.materialize_state(
+                one, c, "train_4k", gen(5)), batch)
+            cs._train_state_close(label, got, want, m, wm,
+                                  what="mesh vs one device")
+            del got, want
+        dist.barrier()
+mcheck = replace(mbase, dtype="float32", n_layers=M["check"]["layers"])
+moe_prefill(mcheck, M["check"]["prompt"], "moonshot float32", True)
+moe_train(mcheck, M["check"]["batch"], M["check"]["seq"],
+          f"moonshot float32 ({mcheck.n_layers} layer)", True)
+if cuda:
+    torch.cuda.empty_cache()
+moe_prefill(mbase, M["prompt"], f"moonshot {mbase.dtype}", False)
+moe_train(mbase, M["batch"], M["seq"], f"moonshot {mbase.dtype}", False)
+dist.barrier()
+if cuda:
+    torch.cuda.empty_cache()
+
+# ---- GNN at 2x1: gin-tu molecule (kernel 9 on a rank's graphs), sage
+def gnn_train(arch, shape_name, over, label, record=False):
+    c = config(arch)
+    shp = replace(shapes_for_family("gnn")[shape_name], **over)
+    cell = api.build_cell(c, shape_name, mesh=dp_mesh, shape_override=shp,
+                          opt_cfg=opt)
+    whole = api.materialize_state(api.build_cell(
+        c, shape_name, device=dev, shape_override=shp), c, shape_name,
+        gen(7))
+    state = api.shard_state(cell, cs._tree_clone(whole))
+    batch = cs._card_batch(cell, shp.n_classes, gen(8), dev)
+    calls = {}
+    if record and rank == 0:
+        orig_fwd = ops.batched_mp
+        orig_call = bm._call
+
+        def fwd(adj, x, w):
+            calls.setdefault("batched_mp", (adj.shape[0], (adj, x, w)))
+            return orig_fwd(adj, x, w)
+
+        def call(adj, x, w, counter):
+            if counter == "batched_mp_bwd":
+                calls.setdefault("batched_mp_bwd",
+                                 (adj.shape[0], (adj, x, w)))
+            return orig_call(adj, x, w, counter)
+        ops.batched_mp, bm._call = fwd, call
+    try:
+        state, m = run(f"{label} train step", lambda: cell.step(state, batch))
+    finally:
+        if record and rank == 0:
+            ops.batched_mp, bm._call = orig_fwd, orig_call
+    cs.check(np.isfinite(float(m["loss"])), f"sharded_cells: {label} loss")
+    got = gather_state(state, cell.state_shardings())
+    if rank == 0:
+        one = api.build_cell(c, shape_name, device=dev, shape_override=shp,
+                             opt_cfg=opt)
+        want, wm = one.step(whole, batch)
+        cs._train_state_close(label, got, want, m, wm,
+                              what="mesh vs one device")
+    return calls
+G = cfg["molecule"]
+mp_calls = gnn_train("gin-tu", "molecule", dict(batch_graphs=G),
+                     f"gin-tu molecule (batch 128 -> {G}) at 2x1", True)
+gnn_train("graphsage-reddit", "minibatch_lg", {},
+          "graphsage-reddit minibatch_lg at 2x1")
+dist.barrier()
+if rank == 0 and cuda:
+    times = cs.time_kernels({}, extra=tuple(
+        (name, cs.SC_LABELS[name], mp_calls[name])
+        for name in ("batched_mp", "batched_mp_bwd")))
+    for name in ("batched_mp", "batched_mp_bwd"):
+        out[name] = times[cs.SC_LABELS[name]]
+        out[name]["err"] = list(out[name]["err"])
+mp_calls.clear()
+dist.barrier()
+if cuda:
+    torch.cuda.empty_cache()
+
+# ---- MIND: train_batch at 1x2 (the table's rows over 'model'),
+# retrieval_cand at 2x1 (kernel 10 on a data rank's candidates)
+c = config("mind")
+rs = shapes_for_family("recsys")
+shp = replace(rs["train_batch"], batch=cfg["mind_batch"])
+cell = api.build_cell(c, "train_batch", mesh=tp_mesh, shape_override=shp,
+                      opt_cfg=opt)
+params = api.materialize_state(api.build_cell(c, "serve_p99", device=dev),
+                               c, "serve_p99", gen(9))["params"]
+whole = {"params": params, "opt": adamw_init(params)}
+state = api.shard_state(cell, cs._tree_clone(whole))
+B, Lh = shp.batch, c.hist_len
+g = gen(10)
+batch = {"hist_ids": torch.randint(0, c.n_items, (B, Lh), generator=g,
+                                   device=dev, dtype=torch.int32),
+         "hist_mask": (torch.rand((B, Lh), generator=g, device=dev)
+                       < 0.9).float(),
+         "target": torch.randint(0, c.n_items, (B,), generator=g, device=dev,
+                                 dtype=torch.int32),
+         "negatives": torch.randint(0, c.n_items, (B, c.n_negatives),
+                                    generator=g, device=dev,
+                                    dtype=torch.int32)}
+state, m = run(f"MIND train_batch (batch 65536 -> {B}) at 1x2",
+               lambda: cell.step(state, batch))
+got = gather_state(state, cell.state_shardings())
+if rank == 0:
+    one = api.build_cell(c, "train_batch", device=dev, shape_override=shp,
+                         opt_cfg=opt)
+    want, wm = one.step(whole, batch)
+    cs._train_state_close("MIND train_batch at 1x2", got, want, m, wm,
+                          what="mesh vs one device")
+    del one, want
+del got, state, whole, batch
+params = api.materialize_state(api.build_cell(c, "serve_p99", device=dev),
+                               c, "serve_p99", gen(9))["params"]
+cell = api.build_cell(c, "retrieval_cand", mesh=dp_mesh)
+(C,), _ = cell.batch_shapes["cand_ids"]
+g = gen(11)
+batch = {"hist_ids": torch.randint(0, c.n_items, (1, Lh), generator=g,
+                                   device=dev, dtype=torch.int32),
+         "hist_mask": torch.ones((1, Lh), device=dev),
+         "cand_ids": torch.randint(0, c.n_items, (C,), generator=g,
+                                   device=dev, dtype=torch.int32)}
+rec = {}
+orig = ops.retrieval_score
+
+def score(cands, ints):
+    rec.setdefault("call", (cands.shape[0], (cands, ints)))
+    return orig(cands, ints)
+if rank == 0:
+    ops.retrieval_score = score
+try:
+    _, scores = run("MIND retrieval_cand at 2x1",
+                    lambda: cell.step({"params": params}, batch))
+finally:
+    ops.retrieval_score = orig
+if rank == 0:
+    one = api.build_cell(c, "retrieval_cand", device=dev)
+    _, want = one.step({"params": params}, batch)
+    hold("MIND retrieval_cand scores", scores, want)
+    off = cs._top_items_agree(batch["cand_ids"].cpu().numpy(),
+                              scores.cpu(), want.cpu())
+    cs.check(off == 0, "sharded_cells: retrieval's top 100 differ")
+    if cuda:
+        label = cs.SC_LABELS["retrieval_score"]
+        t = cs.time_kernels({}, extra=(("retrieval_score", label,
+                                        rec["call"]),))[label]
+        t["err"] = list(t["err"])
+        out["retrieval_score"] = t
+rec.clear()
+with open(cfg["out"] % rank, "w") as f:
+    json.dump(out, f)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def sharded_cells_world_one(dev, seed: int) -> dict:
+    """World 1 over NCCL (mesh 1x1, a FileStore under build/): llama3-8b's
+    prefill of 32,768 tokens and ``LM_DECODE`` greedy decode steps at
+    batch 1, ogb_products' train step and MIND's retrieval_cand, each on
+    the mesh and without it from the same state and batch, bit for bit,
+    with no collective. Returns the mesh runs' launches."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import shapes_for_family
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import api
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import CALLS
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(work / "store"), 1))
+    counts = collections.Counter()
+
+    def gen(k):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + k)
+        return g
+
+    def both(label, fn):
+        # fn(mesh) on the 1x1 mesh, counted, then without a mesh
+        CALLS.clear()
+        reset_counters()
+        a, ta = _timed(lambda: fn(mesh))
+        counts.update({k: v for k, v in read_counters().items()
+                       if not k.startswith("sparse_")})
+        calls = dict(CALLS)
+        b, tb = _timed(lambda: fn(None))
+
+        def equal(x, y):
+            return all(torch.equal(u, w) for u, w in zip(_leaves(x),
+                                                         _leaves(y)))
+        same = equal(a, b)
+        print(f"  world 1 over NCCL, {label}: mesh 1x1 {ta:.3f} s, no mesh "
+              f"{tb:.3f} s; equal bit for bit: {same}; collectives {calls}",
+              flush=True)
+        if not same:
+            # a step whose float sums take atomics (index_add_) gives
+            # other bits on every run: then the mesh is held within the
+            # model phases' tolerance of it, and its repeat shows it
+            again = equal(b, fn(None))
+            bad = sum(close_stats(u.float(), w.float(), FORWARD_RTOL,
+                                  forward_atol(w.float()))[1]
+                      for u, w in zip(_leaves(a), _leaves(b)))
+            print(f"    without a mesh twice: equal bit for bit {again}; "
+                  f"mesh vs no mesh {bad} mismatches at rtol "
+                  f"{FORWARD_RTOL}, atol {FORWARD_ATOL} x max|want|",
+                  flush=True)
+            same = not again and bad == 0
+        check(same, f"sharded_cells: {label} on the 1x1 mesh differs from "
+                    "no mesh")
+        check(not calls, f"sharded_cells: a collective at world 1 ({label})")
+
+    try:
+        mesh = make_debug_mesh(device=dev)
+        cfg = get_config(LM_ARCH)
+        S = shapes_for_family("lm")["prefill_32k"].seq_len
+        params = tf.init_params(cfg, gen(20), dev)
+        prompt = torch.randint(0, cfg.vocab, (1, S), generator=gen(21),
+                               device=dev)
+        shp = dataclasses.replace(shapes_for_family("lm")["decode_32k"],
+                                  batch=1, seq_len=S + LM_DECODE)
+
+        def lm_run(m):
+            cell = api.build_cell(cfg, "decode_32k", device=dev, mesh=m,
+                                  shape_override=shp)
+            logits, cache = tf.prefill(cfg, params, prompt, S + LM_DECODE,
+                                       tp=cell.tp, shard=cell.cache_shard)
+            state, out = {"params": params, "cache": cache}, [logits]
+            for i in range(LM_DECODE):
+                tok = out[-1].argmax(-1, keepdim=True).to(torch.int32)
+                state, lg = cell.step(state, {"token": tok, "pos": S + i})
+                out.append(lg)
+            return out + [state["cache"]["k"][:, :, S:]]
+        both(f"{LM_ARCH} prefill of {S} and {LM_DECODE} decode steps at "
+             f"batch 1 ({cfg.n_layers} layers)", lm_run)
+        del params, prompt
+        torch.cuda.empty_cache()
+        gcfg = get_config("graphsage-reddit")
+        gshape = shapes_for_family("gnn")["ogb_products"]
+        one = api.build_cell(gcfg, "ogb_products", device=dev)
+        whole = api.materialize_state(one, gcfg, "ogb_products", gen(22))
+        batch = _card_batch(one, gshape.n_classes, gen(23), dev)
+
+        def gnn_step(m):
+            cell = api.build_cell(gcfg, "ogb_products", device=dev, mesh=m)
+            state = {"params": _tree_clone(whole["params"]),
+                     "opt": _tree_clone(whole["opt"])}
+            return list(cell.step(state, batch))
+        both("graphsage-reddit ogb_products train step (uncut)", gnn_step)
+        del whole, batch, one
+        torch.cuda.empty_cache()
+        rcfg = get_config("mind")
+        one = api.build_cell(rcfg, "retrieval_cand", device=dev)
+        params = api.materialize_state(one, rcfg, "retrieval_cand",
+                                       gen(24))["params"]
+        (C,), _ = one.batch_shapes["cand_ids"]
+        g = gen(25)
+        batch = {"hist_ids": torch.randint(0, rcfg.n_items,
+                                           (1, rcfg.hist_len), generator=g,
+                                           device=dev, dtype=torch.int32),
+                 "hist_mask": torch.ones((1, rcfg.hist_len), device=dev),
+                 "cand_ids": torch.randint(0, rcfg.n_items, (C,),
+                                           generator=g, device=dev,
+                                           dtype=torch.int32)}
+        both("MIND retrieval_cand", lambda m: api.build_cell(
+            rcfg, "retrieval_cand", device=dev, mesh=m).step(
+            {"params": params}, batch)[1])
+        del params, batch, one
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(counts)
+
+
+def sharded_cells_pair(seed: int, device: str = "cuda") -> tuple:
+    """The gloo pair's part of the sharded_cells phase
+    (``SHARDED_CELLS_RANK``): every rank's JSON and wall seconds."""
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    cfg = {"src": str(SRC), "root": str(ROOT), "store": str(work / "store"),
+           "out": str(work / "rank%d.json"), "seed": seed, "device": device,
+           "llama": SC_LLAMA, "moe": SC_MOE, "molecule": SC_MOLECULE,
+           "mind_batch": SC_MIND_BATCH, "kernels": list(SC_KERNELS)}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARDED_CELLS_RANK, json.dumps(cfg), str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=SC_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    try:
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            print("\n".join(line for line in log.splitlines()
+                            if line.startswith("  ")), flush=True)
+            check(proc.returncode == 0,
+                  f"sharded_cells rank {r} exited {proc.returncode}:\n"
+                  f"{log[-4000:]}")
+        ranks = [json.loads((work / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ranks, wall
+
+
+def sharded_cells_phase(dev, seed: int) -> dict:
+    """The sharded_cells phase: world 1 over NCCL, then the gloo pair.
+    Returns the launches of its kernels (the world-1 mesh runs' and both
+    ranks'), and rank 0's timings at the pair's calls of kernels 6, 9
+    and 10."""
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"sharded_cells: every cell kind on a mesh (world 1 over NCCL at "
+          f"the published configs; two gloo ranks sharing cuda:0, depth "
+          f"cut to {SC_LLAMA['layers']} layers, MIND's train batch 65536 -> "
+          f"{SC_MIND_BATCH}, gin-tu's molecule batch 128 -> {SC_MOLECULE})",
+          flush=True)
+    counts = sharded_cells_world_one(dev, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks, wall = sharded_cells_pair(seed)
+    launches = {k: counts.get(k, 0) + sum(r["launches"][k] for r in ranks)
+                for k in SC_KERNELS}
+    print(f"  sharded_cells: world 1 {t1 - t0:.1f} s, the gloo pair "
+          f"{wall:.1f} s; launches (world-1 mesh runs and both ranks) "
+          f"{launches}", flush=True)
+    times = {k: ranks[0][k] for k in ("flash_fwd", "batched_mp",
+                                      "batched_mp_bwd", "retrieval_score")}
+    return dict(counts=launches, times=times, runs=ranks[0]["runs"],
+                seconds=time.perf_counter() - t0)
+
+
 # ---------------------------------------------------------- ferrari ----
 FERRARI_ARCH = "ferrari-web"
 FERRARI_NODES = 1 << 24        # ferrari-web's published n
@@ -5802,6 +6436,10 @@ def main() -> int:
                         help="build the kernels and run the sharded_train "
                              "phase alone (a quick check; no result "
                              "lines)")
+    parser.add_argument("--sharded-cells-only", action="store_true",
+                        help="build the kernels and run the sharded_cells "
+                             "phase alone (a quick check; no result "
+                             "lines)")
     args = parser.parse_args()
     if args.ferrari_nodes != FERRARI_NODES and not args.ferrari_only:
         parser.error("--ferrari-nodes cuts the ferrari phase's width: "
@@ -5903,6 +6541,12 @@ def run(args, t_start: float) -> int:
         print(card_line(), flush=True)
         return 0
 
+    if args.sharded_cells_only:
+        sharded_cells_phase(dev, args.seed)
+        done("sharded_cells")
+        print(card_line(), flush=True)
+        return 0
+
     print("parity (kernel vs plain; integer kernels bit for bit):",
           flush=True)
     err, stab_calls = kernel_parity(dev)
@@ -5965,6 +6609,8 @@ def run(args, t_start: float) -> int:
         done("moe_train")
         sharded = sharded_train_phase(dev, args.seed)
         done("sharded_train")
+        cells = sharded_cells_phase(dev, args.seed)
+        done("sharded_cells")
     finally:
         rec.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -5979,6 +6625,7 @@ def run(args, t_start: float) -> int:
                                   for k in train_counts},
                     "train": train_counts, "gnn_train": gnn_train_counts,
                     "sharded_train": sharded["counts"],
+                    "sharded_cells": cells["counts"],
                     "recsys_train": rs_train_counts,
                     "reach_service": reach_counts}
     for kname, meta in KERNELS.items():
@@ -6030,7 +6677,9 @@ def run(args, t_start: float) -> int:
     moe_fwd = {"at_moonshot_call": moe["moonshot"]["timing"],
                "at_phi35_call": moe["phi"]["timing"]}
     tp_call = sharded["tp_call"]          # rank 0 of the gloo pair, 1x2
-    for t in (train_fwd, *moe_fwd.values(), tp_call["flash_fwd"]):
+    sc_times = cells["times"]             # rank 0 of the gloo pair
+    for t in (train_fwd, *moe_fwd.values(), tp_call["flash_fwd"],
+              sc_times["flash_fwd"]):
         # each held against plain
         a, b = lm_time["err"], t["err"]
         lm_time["err"] = (max(a[0], b[0]), a[1] + b[1], max(a[2], b[2]))
@@ -6044,6 +6693,8 @@ def run(args, t_start: float) -> int:
             train_time[kname]["err"] = (max(a[0], b[0]), a[1] + b[1],
                                         max(a[2], b[2]))
     times.update(train_time)              # kernels 7 and 8: the train phase
+    for kname in ("batched_mp", "batched_mp_bwd", "retrieval_score"):
+        _tally(err, kname, tuple(sc_times[kname]["err"]))
     # every other phase is done and timed: let go of the inputs kept for
     # the timings and of the allocator's cache before the ferrari phase
     # (its device build peaks near 40 GB)
@@ -6113,6 +6764,19 @@ def run(args, t_start: float) -> int:
                 "kv_shape": tp_call["shapes"][1],
                 **{key: tp_call[kname][key] for key in keys
                    if key in tp_call[kname]}}
+        if kname in sc_times or kname in ("flash_bwd_dq", "flash_bwd_dkv"):
+            rows[-1]["launches_on_sharded_cells"] = phase_counts[
+                "sharded_cells"][kname]
+        if kname in sc_times:
+            # a gloo rank's call of the sharded_cells phase, rank 0, timed
+            # while rank 1 waits
+            t = sc_times[kname]
+            rows[-1]["at_sharded_cells_call"] = {
+                "label": SC_LABELS[kname],
+                **({"q_shape": t["shapes"][0], "kv_shape": t["shapes"][1]}
+                   if "shapes" in t else {"rows": t["rows"]}),
+                **{key: t[key] for key in keys if key in t},
+                **({"library": t["library"]} if "library" in t else {})}
         if kname == "flash_fwd":
             rows[-1]["at_train_call"] = {key: train_fwd[key] for key in keys}
             rows[-1]["launches_on_moe"] = phase_counts["moe"][kname]

@@ -4,12 +4,14 @@ Trains moonshot-v1-16b-a3b's SMOKE config (8 experts, top 2, capacity
 factor 8, so nothing drops) for a few steps twice on a 2x2 (data, model)
 mesh of four gloo ranks on the CPU, one process each, joined through a
 FileStore in a temporary directory (no network): once with the gather
-dispatch (every rank holds all 8 experts and runs them on its data
-block), once expert-parallel (each model rank holds 4 experts, and the
-partial combines are summed over the model group). Both average the
-gradients over the data ranks. The loss trajectories coincide; the
-collectives a step differ, as the port's own collective functions count
-them (``repro_torch.parallel.CALLS``).
+dispatch (every rank gathers the 8 experts from the blocks the
+reference's placement gives it and runs them on its data block), once
+expert-parallel (each model rank runs its 4 experts, and the partial
+combines are summed over the model group). Both run attention
+tensor-parallel over 'model', average the gradients over the data ranks
+and update ZeRO-1 blocks of m and v. The loss trajectories coincide;
+the collectives a step differ, as the port's own collective functions
+count them (``repro_torch.parallel.CALLS``).
 
 The mesh is 2x2, where the JAX package's example takes 2x4 on 8 virtual
 devices: each rank here is a process with its own interpreter, and four

@@ -4,8 +4,8 @@ dense and MoE LMs).
 Wires the config registry → the train cell (``models.api.build_cell``) →
 the token pipeline → the checkpoint manager → the heartbeat and straggler
 monitors, and steps the model on one device or, given a mesh
-(``launch.mesh.Mesh``, one process a rank, ranks the caller starts), a
-dense LM sharded over it: on a card the arch's published config (flash
+(``launch.mesh.Mesh``, one process a rank, ranks the caller starts), the
+LM sharded over it (dense or MoE): on a card the arch's published config (flash
 attention through kernels 6, 7 and 8), on the CPU its SMOKE config (the
 kernels' plain versions). The supervisor loop (``Trainer.run``) catches
 ``WorkerFailure`` / ``Preemption``, rolls back to the last committed
@@ -54,9 +54,11 @@ class Trainer:
     ``ckpt_dir``: where ``run`` commits checkpoints and ``restore_or_init``
     finds them; ``fault_injector``: scripted failures (tests, examples).
     ``cfg_override``: a config to train instead of the arch's (a cut).
-    ``mesh``: train a dense LM sharded over it (its device is the
-    Trainer's; every rank of it runs the same Trainer on the same
-    batches); ``elastic``: re-mesh on a ``WorkerFailure``."""
+    ``mesh``: train the LM sharded over it (a dense LM's layer
+    tensor-parallel, an MoE LM's attention over 'model' and its experts
+    expert-parallel; its device is the Trainer's; every rank of it runs
+    the same Trainer on the same batches); ``elastic``: re-mesh on a
+    ``WorkerFailure``."""
 
     def __init__(self, arch: str, smoke: Optional[bool] = None,
                  shape: str = "train_4k", ckpt_dir: Optional[str] = None,
@@ -80,10 +82,6 @@ class Trainer:
                           seq_len=seq_override or shp.seq_len)
         if shp.kind != "train":
             raise ValueError("Trainer drives train shapes only")
-        if (mesh is not None or elastic is not None) and self.cfg.moe:
-            raise NotImplementedError(
-                "the Trainer shards the dense LMs; an MoE cell on a mesh "
-                "runs through models.api.build_cell(..., mesh=)")
         self.shape = shp
         self.shape_name = shape
         self.opt_cfg = opt_cfg or OptConfig(warmup_steps=10)

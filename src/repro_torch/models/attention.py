@@ -16,8 +16,10 @@ as in the reference; kernel 6 reads the grouped k and v in place.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..kernels import ops
+from ..parallel.collectives import all_reduce_
 
 NEG_INF = -1e30
 
@@ -54,7 +56,8 @@ def _scores(a, b):
 
 
 def decode_attention(q, k_cache, v_cache, cur_pos,
-                     k_scale=None, v_scale=None):
+                     k_scale=None, v_scale=None, *, offset: int = 0,
+                     group=None):
     """Single-token decode. q: [B, 1, H, hd]; caches: [B, S, KV, hd];
     cur_pos: int — the position being decoded (q attends to positions
     <= cur_pos). Returns [B, 1, H, hd] in the cache's dtype, or in q's for
@@ -78,7 +81,19 @@ def decode_attention(q, k_cache, v_cache, cur_pos,
     reference's order of roundings: the cache cast to q's dtype, the
     scores times 1/√hd and then times each head's kv-head ``k_scale``,
     the float32 softmax, p times ``v_scale``, then rounded to q's dtype.
-    """
+
+    Flash-decoding (``group``, ``offset``): the caches are this rank's
+    block of a sequence split over the ranks of ``group``, positions
+    ``offset ..`` of it. Each rank takes its block's three partials of
+    every head in float32: the row max m of the biased scores, the sum l
+    of exp(s − m), and the unnormalised p·v (exp(s − m), times
+    ``v_scale`` for int8, rounded to v's dtype as above, the product
+    accumulated in float32); the group reduces m by max, rescales l and
+    p·v by exp(m − max) and sums both, and the output is their quotient
+    rounded once to the one-device path's dtype. The order of the
+    softmax's sums is not the one-device path's (within float32
+    rounding); a block wholly past ``cur_pos`` adds nothing. With no
+    group and no offset this is the one-device path."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("an int8 cache takes both k_scale and v_scale")
     b, _, h, hd = q.shape
@@ -93,6 +108,10 @@ def decode_attention(q, k_cache, v_cache, cur_pos,
         return (x.view(b, kv, g, s)
                 * scale.transpose(1, 2)[:, :, None]).view(b, h, s)
 
+    def heads(full):                    # [B, H, KV·hd] → [B, 1, H, hd]
+        out = torch.diagonal(full.view(b, kv, g, kv, hd), dim1=1, dim2=3)
+        return out.permute(0, 3, 1, 2).reshape(b, 1, h, hd)
+
     eye = torch.eye(kv, dtype=k_cache.dtype, device=q.device)
     q_spread = torch.einsum("bkgd,kj->bkgjd",
                             q.reshape(b, kv, g, hd).to(k_cache.dtype), eye)
@@ -100,9 +119,22 @@ def decode_attention(q, k_cache, v_cache, cur_pos,
                      k_cache.reshape(b, s, kv * hd).transpose(1, 2))
     scores = per_head(scores * (1.0 / hd ** 0.5), k_scale)      # [B, H, S]
     pos = torch.arange(s, device=q.device)
-    bias = torch.where(pos <= cur_pos, 0.0, NEG_INF)
-    p = per_head(torch.softmax(scores + bias, dim=-1), v_scale)
-    full = torch.matmul(p.to(v_cache.dtype),
-                        v_cache.reshape(b, s, kv * hd))      # [B, H, KV·hd]
-    out = torch.diagonal(full.view(b, kv, g, kv, hd), dim1=1, dim2=3)
-    return out.permute(0, 3, 1, 2).reshape(b, 1, h, hd)
+    if group is None and offset == 0:
+        bias = torch.where(pos <= cur_pos, 0.0, NEG_INF)
+        p = per_head(torch.softmax(scores + bias, dim=-1), v_scale)
+        full = torch.matmul(p.to(v_cache.dtype),
+                            v_cache.reshape(b, s, kv * hd))  # [B, H, KV·hd]
+        return heads(full)
+    bias = torch.where(pos + offset <= cur_pos, 0.0, NEG_INF)
+    biased = scores + bias
+    m = biased.amax(dim=-1, keepdim=True)                       # [B, H, 1]
+    p = torch.exp(biased - m)
+    parts = torch.cat([
+        _scores(per_head(p, v_scale).to(v_cache.dtype),
+                v_cache.reshape(b, s, kv * hd)),           # [B, H, KV·hd]
+        p.sum(dim=-1, keepdim=True)], dim=-1)
+    top = all_reduce_(m.clone(), group, "decode_max", op=dist.ReduceOp.MAX)
+    parts.mul_(torch.exp(m - top))
+    all_reduce_(parts, group, "decode_sum")
+    full = parts[..., :-1] / parts[..., -1:]
+    return heads(full.to(v_cache.dtype))

@@ -13,19 +13,93 @@ input regimes, one weight set:
                   backward); gatedgcn's per-edge gates are plain einsums,
                   as in the reference.
 
-Every regime runs on one device (the reference's ``ShardingCtx`` has no
-counterpart here). ``cfg.remat`` checkpoints each layer of
-``forward_full`` (``torch.utils.checkpoint``, non-reentrant), as the
-reference wraps each layer in ``jax.checkpoint``.
+``cfg.remat`` checkpoints each layer of ``forward_full``
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps each
+layer in ``jax.checkpoint``.
+
+On a mesh (the reference's full-graph sharding: nodes and edges over
+('pod', 'data')), ``forward_full`` takes a ``GraphPart``: the rank holds
+a block of the node rows and of the edges. Each layer gathers the whole
+node states that its edges read (``parallel.gather_from_group``, whose
+backward sums over the group and cuts), scatters its edge block's
+messages into a whole [n, d] partial, reduces the partials over the
+group (``sharded_segment_reduce``, the reference's
+``_sharded_segment_reduce``: a local segment sum or max, then an
+all-reduce) and keeps its rows; the dense-batch regime runs on a data
+rank's graphs as it is.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import GNNConfig
 from ..kernels import ops
+from ..parallel.collectives import all_reduce_, gather_from_group
 from .common import normal_init
+
+
+@dataclass(frozen=True)
+class GraphPart:
+    """A rank's part of a graph on a mesh: node rows ``rows`` (r0, r1),
+    split over ``group`` (its global ranks in block order ``ranks``, this
+    rank at ``index``); ``edges_split``: src and dst are this rank's
+    block of the edges, split over the same group, else every edge (the
+    reference's fallback where the data ranks do not divide them)."""
+    group: object
+    ranks: tuple
+    index: int
+    rows: tuple
+    edges_split: bool
+
+
+class _ShardedSegmentReduce(torch.autograd.Function):
+    """Forward: the local segment sum or max of this rank's edge block
+    into a whole [n, ...] partial, reduced over ``group`` (SUM or MAX),
+    then rows r0 .. r1 − 1. Backward: the cotangents of the rows, each
+    rank's share, summed over the group into the whole cotangent; a sum
+    passes it to each edge's segment, a max to the edges equal to their
+    segment's max, split evenly over every such edge of the group (as
+    ``jax.grad`` of ``segment_max`` splits a tie on one device)."""
+
+    @staticmethod
+    def forward(ctx, x, seg, n: int, group, rows, reduce: str):
+        part = ops.segment_mp(x, seg, n, reduce)
+        all_reduce_(part, group, "segment_" + reduce,
+                    op=dist.ReduceOp.SUM if reduce == "sum"
+                    else dist.ReduceOp.MAX)
+        ctx.n, ctx.group, ctx.rows, ctx.reduce = n, group, rows, reduce
+        ctx.save_for_backward(x, seg, part if reduce == "max" else None)
+        return part[rows[0]:rows[1]]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, seg, whole = ctx.saved_tensors
+        r0, r1 = ctx.rows
+        full = g.new_zeros((ctx.n, *g.shape[1:]))
+        full[r0:r1] = g
+        all_reduce_(full, ctx.group, "segment_grad")
+        idx = seg.long()
+        if ctx.reduce == "sum":
+            return full[idx], None, None, None, None, None
+        hit = (x == whole[idx]).to(g.dtype)
+        count = all_reduce_(ops.segment_mp(hit, seg, ctx.n), ctx.group,
+                            "segment_grad")
+        return full[idx] * hit / count[idx], None, None, None, None, None
+
+
+def sharded_segment_reduce(x, seg, n: int, group, rows,
+                           reduce: str = "sum"):
+    """Rows ``rows`` (r0, r1) of the segment ``reduce`` ("sum" or "max")
+    of the messages ``x [m, ...]`` into ``n`` segments by ``seg``, where
+    each rank of ``group`` holds a block of the messages (group None: a
+    rank holds every message). Each rank's cotangent of its rows is its
+    share of the loss's (``_ShardedSegmentReduce``)."""
+    return _ShardedSegmentReduce.apply(x, seg, n, group, tuple(rows),
+                                       reduce)
 
 
 def _glorot(gen, shape, dtype, device):
@@ -66,6 +140,25 @@ def init_params(cfg: GNNConfig, gen: torch.Generator, d_feat: int,
             "readout_b": torch.zeros((n_classes,), dtype=dt, device=device)}
 
 
+def param_shapes(cfg: GNNConfig, d_feat: int, n_classes: int) -> dict:
+    """The shape of every leaf of ``init_params``' tree (no allocation);
+    the reference replicates them all (``param_logical_axes_tree``)."""
+    L, Hd = cfg.n_layers, cfg.d_hidden
+    dims = [d_feat] + [Hd] * L
+    extra = {"gcn": {}, "sage": {"w_neigh": "io"},
+             "gin": {"w2": "oo", "b2": "o", "eps": ""},
+             "gatedgcn": {"wA": "io", "wB": "io", "wV": "io"}}[cfg.conv]
+    layers = []
+    for i in range(L):
+        size = {"i": dims[i], "o": dims[i + 1]}
+        lp = {"w_self": (dims[i], dims[i + 1]), "b": (dims[i + 1],)}
+        lp.update({k: tuple(size[c] for c in code)
+                   for k, code in extra.items()})
+        layers.append(lp)
+    return {"layers": layers, "readout": (Hd, n_classes),
+            "readout_b": (n_classes,)}
+
+
 def _act(h, last: bool):
     return h if last else torch.relu(h)
 
@@ -73,14 +166,24 @@ def _act(h, last: bool):
 # ------------------------------------------------------------ one conv ----
 
 def _conv_sparse(cfg: GNNConfig, lp, x_src, x_dst, src, dst, n_dst,
-                 deg_dst=None, deg_src=None):
+                 deg_dst=None, deg_src=None, part: GraphPart | None = None):
     """One conv layer on an edge list. x_src: features of the source side
     (hop l+1); x_dst: features of the destination side (hop l, the ones
-    being updated). src / dst index rows of x_src / x_dst."""
+    being updated). src / dst index rows of x_src / x_dst. Under
+    ``part`` (a full graph on a mesh) x_src is every node's features,
+    x_dst this rank's rows of them, dst indexes the whole, deg_dst is
+    whole, and the result is this rank's rows."""
     msgs = torch.index_select(x_src, 0, src)
+    at_dst, deg_self = x_dst, deg_dst
+    if part is None:
+        def ssum(v):
+            return ops.segment_mp(v, dst, n_dst, "sum")
+    else:
+        at_dst, deg_self = x_src, deg_dst[part.rows[0]:part.rows[1]]
+        group = part.group if part.edges_split else None
 
-    def ssum(v):
-        return ops.segment_mp(v, dst, n_dst, "sum")
+        def ssum(v):
+            return sharded_segment_reduce(v, dst, n_dst, group, part.rows)
 
     if cfg.conv == "gcn":
         # symmetric normalization 1/sqrt(d_i d_j)
@@ -89,7 +192,7 @@ def _conv_sparse(cfg: GNNConfig, lp, x_src, x_dst, src, dst, n_dst,
             * torch.index_select(deg_dst, 0, dst), min=1.0))
         agg = ssum(msgs * norm[:, None])
         agg = agg + x_dst * torch.rsqrt(
-            torch.clamp(deg_dst * deg_dst, min=1.0))[:, None]
+            torch.clamp(deg_self * deg_self, min=1.0))[:, None]
         return agg @ lp["w_self"] + lp["b"]
     if cfg.conv == "sage":
         cnt = ssum(msgs.new_ones((msgs.shape[0], 1)))
@@ -103,7 +206,7 @@ def _conv_sparse(cfg: GNNConfig, lp, x_src, x_dst, src, dst, n_dst,
     if cfg.conv == "gatedgcn":
         gate = torch.sigmoid(
             torch.index_select(x_src, 0, src) @ lp["wA"]
-            + torch.index_select(x_dst, 0, dst) @ lp["wB"])
+            + torch.index_select(at_dst, 0, dst) @ lp["wB"])
         vals = (msgs @ lp["wV"]) * gate
         agg = ssum(vals) / (ssum(gate) + 1e-6)
         return x_dst @ lp["w_self"] + agg + lp["b"]
@@ -116,17 +219,29 @@ def _ones(n: int, device):
 
 # ------------------------------------------------------------- full graph --
 
-def forward_full(cfg: GNNConfig, params, feats, src, dst, n_nodes: int):
+def forward_full(cfg: GNNConfig, params, feats, src, dst, n_nodes: int,
+                 part: GraphPart | None = None):
     """Full-graph node classification logits [n, n_classes]; src, dst [m]
-    int edge endpoints in [0, n_nodes)."""
+    int edge endpoints in [0, n_nodes). Under ``part``: feats are this
+    rank's node rows and src, dst its edges (or every edge), and the
+    logits are its rows."""
     deg_in = ops.segment_mp(_ones(dst.shape[0], dst.device), dst, n_nodes)
     deg_out = ops.segment_mp(_ones(src.shape[0], src.device), src, n_nodes)
+    if part is not None and part.edges_split:      # the whole degrees
+        all_reduce_(deg_in, part.group, "degree")
+        all_reduce_(deg_out, part.group, "degree")
     x = feats
     L = cfg.n_layers
 
     def one_layer(lp, x, last):
-        x = _conv_sparse(cfg, lp, x, x, src, dst, n_nodes,
-                         deg_dst=deg_in, deg_src=deg_out)
+        if part is None:
+            x = _conv_sparse(cfg, lp, x, x, src, dst, n_nodes,
+                             deg_dst=deg_in, deg_src=deg_out)
+        else:
+            whole = gather_from_group(x, part.group, 0, part.ranks,
+                                      part.index)
+            x = _conv_sparse(cfg, lp, whole, x, src, dst, n_nodes,
+                             deg_dst=deg_in, deg_src=deg_out, part=part)
         return _act(x, last)
 
     for i, lp in enumerate(params["layers"]):

@@ -9,14 +9,47 @@ without TF32, as PyTorch's default "highest" matmul precision gives).
 
 Shapes: train_batch B=65536; serve 512 / 262144 users; retrieval_cand
 scores one user against 10^6 candidates.
+
+On a mesh the table's rows are split over 'model' (the reference's
+``("table_rows", None)``): every lookup takes a ``TableShard`` and is a
+masked lookup of the rank's rows, summed over the model group, whose
+backward writes only the rank's rows (the vocab-parallel embedding's
+pattern, ``transformer._embed``).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from ..configs.base import RecsysConfig
 from ..kernels import ops
+from ..parallel.collectives import sum_over_group
 from .common import normal_init
+
+
+@dataclass(frozen=True)
+class TableShard:
+    """This rank's rows ``lo .. hi − 1`` of the item table, split over
+    the model ``group``."""
+    group: object
+    lo: int
+    hi: int
+
+
+def lookup(table, ids, shard: TableShard | None = None):
+    """The table rows of ``ids`` [...] → [..., D]; under ``shard`` each
+    rank looks up the ids whose rows it holds, zeros for the others, and
+    the group sums them (the gradient passes to this rank's rows only)."""
+    if shard is None:
+        return torch.index_select(table, 0, ids.reshape(-1)).view(
+            *ids.shape, table.shape[1])
+    local = ids.long() - shard.lo
+    own = (local >= 0) & (local < shard.hi - shard.lo)
+    rows = torch.index_select(
+        table, 0, local.clamp(0, shard.hi - shard.lo - 1).reshape(-1)).view(
+        *ids.shape, table.shape[1])
+    return sum_over_group(rows.masked_fill(~own[..., None], 0), shard.group)
 
 
 def init_params(cfg: RecsysConfig, gen: torch.Generator, device):
@@ -32,19 +65,30 @@ def init_params(cfg: RecsysConfig, gen: torch.Generator, device):
     }
 
 
+def param_logical_axes(cfg: RecsysConfig) -> dict:
+    """The reference's logical axes of the params' leaves."""
+    return {"table": ("table_rows", None), "bilinear": (None, None),
+            "cap_bias": ("capsule", None)}
+
+
+def param_shapes(cfg: RecsysConfig) -> dict:
+    D = cfg.embed_dim
+    return {"table": (cfg.n_items, D), "bilinear": (D, D),
+            "cap_bias": (cfg.n_interests, 1)}
+
+
 def _squash(v):
     n2 = torch.sum(torch.square(v), dim=-1, keepdim=True)
     return (n2 / (1.0 + n2)) * v * torch.rsqrt(n2 + 1e-9)
 
 
-def interests(cfg: RecsysConfig, params, hist_ids, hist_mask):
+def interests(cfg: RecsysConfig, params, hist_ids, hist_mask,
+              shard: TableShard | None = None):
     """B2I dynamic routing. hist_ids [B, L] int32, hist_mask [B, L] f32.
     Returns interest capsules [B, K, D]."""
     B, L = hist_ids.shape
     K = cfg.n_interests
-    table = params["table"]
-    e = torch.index_select(table, 0, hist_ids.reshape(-1)).view(
-        B, L, table.shape[1])                                # [B, L, D]
+    e = lookup(params["table"], hist_ids, shard)             # [B, L, D]
     se = torch.einsum("bld,de->ble", e, params["bilinear"])  # shared map
     # routing logits [B, K, L]
     b_r = params["cap_bias"][None].expand(B, K, L).float()
@@ -68,15 +112,15 @@ def label_aware_user_vec(caps, target_e, p: float = 2.0):
     return torch.einsum("bk,bkd->bd", att, caps)
 
 
-def train_loss(cfg: RecsysConfig, params, batch):
+def train_loss(cfg: RecsysConfig, params, batch,
+               shard: TableShard | None = None):
     """Sampled-softmax loss: the positive target against
     ``cfg.n_negatives`` uniform ids."""
-    caps = interests(cfg, params, batch["hist_ids"], batch["hist_mask"])
+    caps = interests(cfg, params, batch["hist_ids"], batch["hist_mask"],
+                     shard)
     table = params["table"]
-    pos_e = torch.index_select(table, 0, batch["target"])          # [B, D]
-    negs = batch["negatives"]
-    neg_e = torch.index_select(table, 0, negs.reshape(-1)).view(
-        *negs.shape, table.shape[1])                               # [B, Nn, D]
+    pos_e = lookup(table, batch["target"], shard)                  # [B, D]
+    neg_e = lookup(table, batch["negatives"], shard)               # [B, Nn, D]
     user = label_aware_user_vec(caps, pos_e)                       # [B, D]
     pos_s = torch.einsum("bd,bd->b", user, pos_e)
     neg_s = torch.einsum("bd,bnd->bn", user, neg_e)
@@ -85,12 +129,14 @@ def train_loss(cfg: RecsysConfig, params, batch):
     return torch.mean(lse - logits[:, 0])
 
 
-def serve_interests(cfg: RecsysConfig, params, hist_ids, hist_mask):
-    return interests(cfg, params, hist_ids, hist_mask)
+def serve_interests(cfg: RecsysConfig, params, hist_ids, hist_mask,
+                    shard: TableShard | None = None):
+    return interests(cfg, params, hist_ids, hist_mask, shard)
 
 
-def retrieval_scores(cfg: RecsysConfig, params, caps, cand_ids):
+def retrieval_scores(cfg: RecsysConfig, params, caps, cand_ids,
+                     shard: TableShard | None = None):
     """Score candidate items for ONE user: caps [K, D], cand_ids [C] →
     [C] (kernel 10 on a card)."""
-    cand_e = torch.index_select(params["table"], 0, cand_ids)   # [C, D]
+    cand_e = lookup(params["table"], cand_ids, shard)           # [C, D]
     return ops.retrieval_score(cand_e, caps.contiguous())

@@ -12,8 +12,9 @@ masked softmax over the cache. ``logits_and_loss`` is the training loss,
 a chunked and checkpointed cross-entropy; with ``cfg.remat`` the forward
 recomputes each layer in the backward.
 
-On a mesh whose model axis is wider than one rank, the dense LM's train
-path runs tensor-parallel (``TensorParallel``, ``tensor_parallel``):
+On a mesh whose model axis is wider than one rank, the train and
+prefill paths run tensor-parallel (``TensorParallel``,
+``tensor_parallel``):
 each rank holds the reference's block of every leaf
 (``param_logical_axes`` through ``parallel.sharding.logical_to_spec``)
 and attends with the heads the reference's ``_expand_kv`` gives it
@@ -26,10 +27,13 @@ The q/k/v and gate/up projections are column-parallel and ``wo`` and
 ``w_down`` row-parallel (``parallel.copy_to_group`` on the normed
 input, ``sum_over_group`` on the output); the embedding is
 vocab-parallel (a masked lookup of the rank's rows, summed over the
-group), and so is the loss (``_VocabChunkLoss``). The MoE cells keep
-their own placement: experts over the model ranks, attention whole on
-every rank. The MoE FFN takes a mesh (``ExpertMesh`` over a
-``launch.mesh.Mesh``): with
+group), and so is the loss (``_VocabChunkLoss``). An MoE config's
+attention splits the same way, beside its experts over the model ranks.
+Decode on a mesh makes q, k and v whole from the column blocks and
+attends over the rank's block of the cache's sequence, the partial
+softmaxes combined over the sequence's ranks (flash-decoding,
+``CacheShard``, ``attention.decode_attention``). The MoE FFN takes a
+mesh (``ExpertMesh`` over a ``launch.mesh.Mesh``): with
 ``moe.impl == "shard_map"`` each model rank runs its E / M experts and
 the partial combines are summed over the model group
 (``_moe_ffn_expert_parallel``, the reference's ``_moe_ffn_shardmap``);
@@ -60,8 +64,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
-from ..parallel.collectives import (all_reduce_, copy_to_group,
-                                    gather_from_group, sum_over_group)
+from ..parallel.collectives import (all_gather_, all_reduce_,
+                                    copy_to_group, gather_from_group,
+                                    sum_over_group)
+from ..parallel.sharding import logical_to_spec, spec_axes
 from .attention import chunked_attention, decode_attention
 from .common import normal_init, rms_norm, rope_tables, rotate
 
@@ -323,17 +329,26 @@ class ExpertMesh:
     x is this data rank's block of the batch (train, prefill) and the
     capacity is per data shard, as GShard's; else x is the whole batch on
     every rank (decode) and the capacity global, with the experts' mlp
-    dim also split over the data ranks when ``mlp_over_data``."""
+    dim also split over the data ranks when ``mlp_over_data``.
+    ``stored``: where the state holds the reference's blocks of the
+    router and the expert stacks (a cell's state on a mesh), each layer
+    leaf's spec (its spec without the layers entry); the router, split
+    over the experts' axis, is gathered whole before routing, and every
+    stack is gathered whole where the gather path runs. None: the router
+    whole and the stacks this rank's (``expert_slices``)."""
     mesh: object
     tokens_sharded: bool = True
     mlp_over_data: bool = False
+    stored: dict | None = None
+
+    def axes(self) -> tuple:
+        """The mesh axes the combine is summed over."""
+        return ("model", "data") if self.mlp_over_data else ("model",)
 
     def groups(self) -> list:
         """The process groups the combine is summed over (groups of one
         rank left out)."""
-        m = self.mesh
-        over = [m.model_group] + ([m.data_group] if self.mlp_over_data
-                                  else [])
+        over = [self.mesh.group(a) for a in self.axes()]
         return [g for g in over if g is not None]
 
 
@@ -358,25 +373,10 @@ def expert_slices(cfg: LMConfig, ep: ExpertMesh | None):
     return experts, slice(m.d * f_loc, (m.d + 1) * f_loc)
 
 
-def shard_experts(cfg: LMConfig, params, ep: ExpertMesh | None):
-    """``params`` with each layer's expert stacks cut to this rank's
-    slices (copies: the whole stacks can be freed); every other leaf
-    shared. Unchanged where ``expert_slices`` is None."""
-    sl = expert_slices(cfg, ep)
-    if sl is None:
-        return params
-    e, f = sl
-    lay = dict(params["layers"])
-    for name in EXPERT_LEAVES:           # w_down is [L, E, F, D]
-        cut = (e, f) if name == "w_down" else (e, slice(None), f)
-        lay[name] = lay[name][(slice(None), *cut)].clone()
-    return {**params, "layers": lay}
-
-
 def _moe_ffn_expert_parallel(cfg: LMConfig, lp, x, ep: ExpertMesh):
     """The reference's ``_moe_ffn_shardmap`` on this rank: every token of
     ``x`` routed, the assignments to the rank's E / M experts
-    (``lp``'s stacks, ``shard_experts``) run, and the partial combine, in
+    (``lp``'s stacks, ``expert_slices``) run, and the partial combine, in
     the activations' dtype, summed over the model group (and the data
     group when the mlp dim is split there). ``x`` and the router enter
     through ``copy_to_group`` over the same groups, so that their
@@ -387,8 +387,15 @@ def _moe_ffn_expert_parallel(cfg: LMConfig, lp, x, ep: ExpertMesh):
     G = B * S
     e_loc = moe.n_experts // mesh.n_model
     xf, router = x.reshape(G, D), lp["router"]
-    for g in ep.groups():
-        xf, router = copy_to_group(xf, g), copy_to_group(router, g)
+    split = ()
+    if ep.stored is not None:            # its gradient summed and cut
+        router = unsplit(router, ep.stored["router"], mesh)
+        split = spec_axes(ep.stored["router"])
+    for a in ep.axes():
+        g = mesh.group(a)
+        xf = copy_to_group(xf, g)
+        if a not in split:
+            router = copy_to_group(router, g)
     out = _expert_ffn_local(moe, router, lp, xf, capacity(moe, G),
                             mesh.m * e_loc, e_loc).to(x.dtype)
     for g in ep.groups():
@@ -402,7 +409,26 @@ def _moe_ffn(cfg: LMConfig, lp, x, ep: ExpertMesh | None = None):
     the rank's own tokens)."""
     if expert_slices(cfg, ep) is not None:
         return _moe_ffn_expert_parallel(cfg, lp, x, ep)
+    if ep is not None and ep.stored is not None:
+        # every rank of a model group runs the same FFN on the same
+        # tokens: the whole stacks' gradient is whole on each
+        lp = {**lp, **{name: unsplit(lp[name], spec, ep.mesh, partial=False)
+                       for name, spec in ep.stored.items()}}
     return _moe_ffn_gather(cfg, lp, x)
+
+
+def unsplit(leaf, spec, mesh, partial: bool = True):
+    """The whole of a leaf that this rank holds as its block under
+    ``spec``: gathered over the ranks of each split dimension
+    (``parallel.gather_from_group``: the gradient of the whole, partial
+    on each rank, summed over them and cut to the block; with
+    ``partial`` False whole on each rank, and only cut)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None and mesh.size(entry) > 1:
+            leaf = gather_from_group(leaf, mesh.group(entry), dim,
+                                     mesh.members(entry), mesh.index(entry),
+                                     partial)
+    return leaf
 
 
 # ------------------------------------------------------ tensor parallelism --
@@ -447,9 +473,11 @@ def _model_block(spec, shape, dim: int, mesh):
 
 
 def tensor_parallel(cfg: LMConfig, mesh, specs: dict):
-    """The dense layer's ``TensorParallel`` on ``mesh`` for the params'
+    """The layer's ``TensorParallel`` on ``mesh`` for the params'
     ``specs`` (``parallel.sharding.logical_to_spec`` of
-    ``param_logical_axes``); None on a model axis of one rank. The
+    ``param_logical_axes``); None on a model axis of one rank. An MoE
+    config's attention splits the same way and its FFN stays on the
+    ``ExpertMesh`` (``mlp`` False). The
     heads follow the reference's ``_expand_kv``: with M model ranks, H
     query heads are padded to hp = ⌈H / M⌉·M when M does not divide H,
     kv heads are expanded when H ≠ KV and M does not divide KV (or heads
@@ -458,9 +486,6 @@ def tensor_parallel(cfg: LMConfig, mesh, specs: dict):
     M = mesh.n_model
     if M == 1:
         return None
-    if cfg.moe is not None:
-        raise ValueError("tensor parallelism is the dense layer's; the MoE "
-                         "cells run expert-parallel (ExpertMesh)")
     H, KV = cfg.n_heads, cfg.n_kv_heads
     hp = 0 if H % M == 0 else -(-H // M) * M
     nh = (hp or H) // M
@@ -481,11 +506,13 @@ def tensor_parallel(cfg: LMConfig, mesh, specs: dict):
     vocab = vocab_of(specs["embed"], shapes["embed"], 0)
     head_vocab = vocab if cfg.tie_embeddings else vocab_of(
         specs["lm_head"], shapes["lm_head"], 1)
-    mlp = [_model_block(lay[n], lsh[n], d, mesh)
-           for n, d in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
-    split = [(lo, hi) != (0, whole) for lo, hi, whole in mlp]
-    if len(set(split)) != 1:
-        raise ValueError("w_gate, w_up and w_down must split d_ff alike")
+    split = [False]                # the MoE FFN runs on ExpertMesh
+    if cfg.moe is None:
+        mlp = [_model_block(lay[n], lsh[n], d, mesh)
+               for n, d in (("w_gate", 2), ("w_up", 2), ("w_down", 1))]
+        split = [(lo, hi) != (0, whole) for lo, hi, whole in mlp]
+        if len(set(split)) != 1:
+            raise ValueError("w_gate, w_up and w_down must split d_ff alike")
     return TensorParallel(
         group=mesh.group("model"), ranks=tuple(mesh.members("model")),
         index=mesh.index("model"), heads=(h0, h1, nh - (h1 - h0)),
@@ -541,9 +568,12 @@ def _dense_ffn_tp(lp, x, tp: TensorParallel):
                           tp.group)
 
 
-def _layer_tp(cfg: LMConfig, lp, x, cos, sin, tp: TensorParallel):
+def _layer_tp(cfg: LMConfig, lp, x, cos, sin, tp: TensorParallel,
+              ep=None):
     x = x + _attention_tp(cfg, lp, x, cos, sin, tp)
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.moe:
+        return x + _moe_ffn(cfg, lp, h2, ep)
     return x + _dense_ffn_tp(lp, h2, tp)
 
 
@@ -560,23 +590,41 @@ def _embed(params, tokens, tp: TensorParallel | None = None):
     return sum_over_group(x.masked_fill(~own[..., None], 0), tp.group)
 
 
-def _qkv(cfg: LMConfig, lp, x, cos, sin):
-    """Normed, projected and rotated q [B, S, H, hd], k, v [B, S, KV, hd]."""
+def _qkv(cfg: LMConfig, lp, x, cos, sin, tp=None):
+    """Normed, projected and rotated q [B, S, H, hd], k, v [B, S, KV, hd];
+    under ``tp`` from this rank's column blocks of wq, wk, wv, the
+    products gathered whole over the model group (``_columns``: decode's
+    q reaches every rank with all its heads, as SPMD gathers it for the
+    cache's sequence-split attention)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, S, H, hd)
-    k = (h @ lp["wk"]).reshape(B, S, KV, hd)
-    v = (h @ lp["wv"]).reshape(B, S, KV, hd)
+
+    def proj(name):
+        y = h @ lp[name]
+        return y if tp is None else _columns(tp, y, name)
+    q = proj("wq").reshape(B, S, H, hd)
+    k = proj("wk").reshape(B, S, KV, hd)
+    v = proj("wv").reshape(B, S, KV, hd)
     return rotate(q, cos, sin), rotate(k, cos, sin), v
 
 
-def _finish_layer(cfg: LMConfig, lp, x, att, ep=None):
-    """Output projection, residual, FFN, residual."""
+def _finish_layer(cfg: LMConfig, lp, x, att, ep=None, tp=None):
+    """Output projection, residual, FFN, residual; under ``tp`` (decode)
+    ``wo`` row-parallel where this rank holds a block of its rows, and
+    the dense FFN a column/row-parallel pair."""
     B, S = x.shape[:2]
-    x = x + att.reshape(B, S, cfg.n_heads * cfg.hd) @ lp["wo"]
+    att = att.reshape(B, S, cfg.n_heads * cfg.hd)
+    lo, hi, whole = tp.stored["wo"] if tp is not None else (0, 0, 0)
+    if (lo, hi) == (0, whole):
+        x = x + att @ lp["wo"]
+    else:
+        x = x + sum_over_group(att[..., lo:hi] @ lp["wo"], tp.group)
     h2 = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + (_moe_ffn(cfg, lp, h2, ep) if cfg.moe else _dense_ffn(lp, h2))
+    if cfg.moe:
+        return x + _moe_ffn(cfg, lp, h2, ep)
+    return x + (_dense_ffn(lp, h2) if tp is None
+                else _dense_ffn_tp(lp, h2, tp))
 
 
 def _layer(cfg: LMConfig, lp, x, cos, sin, ep=None):
@@ -593,7 +641,7 @@ def _positions(B: int, S: int, device, start: int = 0):
 
 def _layer_out(cfg: LMConfig, lp, x, cos, sin, ep=None, tp=None):
     if tp is not None:
-        return _layer_tp(cfg, lp, x, cos, sin, tp)
+        return _layer_tp(cfg, lp, x, cos, sin, tp, ep)
     return _layer(cfg, lp, x, cos, sin, ep)[0]
 
 
@@ -775,34 +823,165 @@ def quantize_cache(cache):
     return out
 
 
-def _logits(cfg: LMConfig, params, x):
-    """[B, 1, D] → float32 logits [B, V]."""
+def _logits(cfg: LMConfig, params, x, tp: TensorParallel | None = None):
+    """[B, 1, D] → float32 logits [B, V]; under ``tp`` this rank's vocab
+    columns of the head, gathered over the model group."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ _head(cfg, params))[:, 0].float()
+    out = (x @ _head(cfg, params))[:, 0].float()
+    if tp is not None and tp.head_vocab is not None:
+        out = all_gather_(out, tp.group, 1, tp.ranks, "logits")
+    return out
+
+
+# ------------------------------------------------------ the cache on a mesh --
+
+def cache_logical_axes(cfg: LMConfig) -> dict:
+    """The reference's logical axes of the decode cache's leaves."""
+    ax = ("layers", "batch", "kv_seq", "kv_heads", None)
+    out = {"k": ax, "v": ax}
+    if cfg.kv_cache_dtype == "int8":
+        out["k_scale"] = out["v_scale"] = ax[:-1]
+    return out
+
+
+def cache_shapes(cfg: LMConfig, batch: int, max_seq: int) -> dict:
+    """The whole shape of every leaf of ``init_cache``'s cache."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    out = {"k": shape, "v": shape}
+    if cfg.kv_cache_dtype == "int8":
+        out["k_scale"] = out["v_scale"] = shape[:-1]
+    return out
+
+
+@dataclass(frozen=True)
+class CacheShard:
+    """This rank's block of a decode cache on a mesh, under the
+    reference's spec (``cache_logical_axes``): sequence positions ``lo ..
+    hi − 1`` of its ``max_seq``, split over the ranks of ``group`` (the
+    'kv_seq' axes; None: one rank), batch rows ``rows`` (b0, b1), split
+    over ``batch_group`` (the 'batch' axes), whose global ranks in block
+    order are ``batch_ranks``, and kv heads ``heads`` (k0, k1), split
+    over ``heads_group`` (the 'kv_heads' axis, where the sequence's axes
+    do not divide it) with global ranks ``heads_ranks``; ``rows`` and
+    ``heads`` None: whole."""
+    lo: int
+    hi: int
+    group: object = None
+    rows: tuple | None = None
+    batch_group: object = None
+    batch_ranks: tuple = ()
+    heads: tuple | None = None
+    heads_group: object = None
+    heads_ranks: tuple = ()
+
+
+def cache_shard(cfg: LMConfig, batch: int, max_seq: int, mesh,
+                rules=None) -> CacheShard | None:
+    """The ``CacheShard`` of this rank on ``mesh`` for a cache of
+    ``batch`` × ``max_seq``; None where the spec splits neither its batch
+    nor its sequence over more than one rank. A batch the data ranks
+    divide takes them, and the sequence then only 'model' (the spec's
+    used-axis rule); a batch of one leaves the sequence over ('data',
+    'model'). kv heads stay whole (their axis is taken by the
+    sequence)."""
+    spec = logical_to_spec(cache_logical_axes(cfg)["k"],
+                           cache_shapes(cfg, batch, max_seq)["k"], mesh,
+                           rules)
+    (b_ax, s_ax, h_ax), kw = spec[1:4], {}
+    n = [mesh.size(a) if a is not None else 1 for a in (b_ax, s_ax, h_ax)]
+    if n == [1, 1, 1]:
+        return None
+    if n[0] > 1:
+        b, i = batch // n[0], mesh.index(b_ax)
+        kw.update(rows=(i * b, (i + 1) * b), batch_group=mesh.group(b_ax),
+                  batch_ranks=tuple(mesh.members(b_ax)))
+    if n[2] > 1:
+        h, i = cfg.n_kv_heads // n[2], mesh.index(h_ax)
+        kw.update(heads=(i * h, (i + 1) * h), heads_group=mesh.group(h_ax),
+                  heads_ranks=tuple(mesh.members(h_ax)))
+    blk = max_seq // n[1]
+    lo = mesh.index(s_ax) * blk if n[1] > 1 else 0
+    return CacheShard(lo=lo, hi=lo + blk,
+                      group=mesh.group(s_ax) if n[1] > 1 else None, **kw)
+
+
+def _columns(tp: TensorParallel, y, name: str):
+    """``y`` = x @ (this rank's block of the columns of ``name``), made
+    whole: gathered over the model group where the block is not the
+    whole (not differentiated; decode)."""
+    lo, hi, whole = tp.stored[name]
+    if (lo, hi) == (0, whole):
+        return y
+    return all_gather_(y, tp.group, y.dim() - 1, tp.ranks, "columns")
+
+
+def _whole_columns(tp: TensorParallel, w, name: str):
+    """The whole of layer leaf ``name`` [D, cols] from this rank's block
+    of its columns (gathered over the model group; not differentiated;
+    prefill)."""
+    lo, hi, whole = tp.stored[name]
+    if (lo, hi) == (0, whole):
+        return w
+    return all_gather_(w, tp.group, 1, tp.ranks, "weight_gather")
+
+
+def _cache_kv_tp(cfg: LMConfig, lp, x, cos, sin, tp: TensorParallel):
+    """The keys and values [B, n, KV, hd] of every kv head at the
+    positions of ``x [B, n, D]`` (with their rope tables), for the
+    cache: the whole wk and wv gathered over the model group."""
+    B, n, _ = x.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    k = (h @ _whole_columns(tp, lp["wk"], "wk")).reshape(B, n, KV, hd)
+    v = (h @ _whole_columns(tp, lp["wv"], "wv")).reshape(B, n, KV, hd)
+    return rotate(k, cos, sin), v
 
 
 def prefill(cfg: LMConfig, params, tokens, max_seq: int,
-            ep: ExpertMesh | None = None):
+            ep: ExpertMesh | None = None, tp: TensorParallel | None = None,
+            shard: CacheShard | None = None):
     """Process a full prompt tokens [B, S]: (last-token logits [B, V]
     float32, cache with the prompt's keys and values in positions < S).
     The cache is in the model's dtype for an int8 config too, as the
-    reference's is (``quantize_cache`` re-encodes it)."""
+    reference's is (``quantize_cache`` re-encodes it).
+
+    On a mesh: ``tp`` runs each layer tensor-parallel (``_layer_tp``, the
+    train path's: kernel 6 on this rank's heads, padded and expanded as
+    the reference's ``_expand_kv``), the embedding and the head
+    vocab-parallel, and the logits gathered whole over the model group;
+    ``shard`` cuts the returned cache to this rank's block of the
+    sequence (``tokens`` is then this rank's rows of the batch where the
+    shard splits it), whose keys and values take every kv head."""
     B, S = tokens.shape
     if S > max_seq:
         raise ValueError(f"prompt of {S} tokens exceeds max_seq {max_seq}")
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens, tp)
     cos, sin = rope_tables(_positions(B, S, tokens.device), cfg.hd,
                            cfg.rope_theta)
-    cache = _dense_cache(cfg, B, max_seq, tokens.device)
+    lo, hi = (0, max_seq) if shard is None else (shard.lo, shard.hi)
+    n = max(0, min(S, hi) - lo)           # prompt positions in the block
+    kv = slice(None) if shard is None or shard.heads is None \
+        else slice(*shard.heads)
+    cache = _dense_cache(cfg, B, hi - lo, tokens.device)
+    if shard is not None and shard.heads is not None:
+        cache = {k: v[:, :, :, kv].clone() for k, v in cache.items()}
     for i in range(cfg.n_layers):
-        x, k, v = _layer(cfg, _layer_params(params, i), x, cos, sin, ep)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
-    return _logits(cfg, params, x[:, -1:]), cache
+        lp = _layer_params(params, i)
+        if tp is None:
+            x, k, v = _layer(cfg, lp, x, cos, sin, ep)
+            k, v = k[:, lo:lo + n], v[:, lo:lo + n]
+        else:
+            k, v = _cache_kv_tp(cfg, lp, x[:, lo:lo + n],
+                                cos[:, lo:lo + n], sin[:, lo:lo + n], tp)
+            x = _layer_tp(cfg, lp, x, cos, sin, tp, ep)
+        cache["k"][i, :, :n] = k[:, :, kv]
+        cache["v"][i, :, :n] = v[:, :, kv]
+    return _logits(cfg, params, x[:, -1:], tp), cache
 
 
 def decode_step(cfg: LMConfig, params, cache, token, pos,
-                ep: ExpertMesh | None = None):
+                ep: ExpertMesh | None = None, tp: TensorParallel | None = None,
+                shard: CacheShard | None = None):
     """One decode step. token [B, 1] int; pos: int (or a 0-d tensor), the
     position being decoded. Returns (logits [B, V] float32, cache).
 
@@ -812,29 +991,61 @@ def decode_step(cfg: LMConfig, params, cache, token, pos,
     decode's memory traffic. With ``cfg.kv_cache_dtype == "int8"`` the
     cache is int8 (``init_cache``, or ``quantize_cache`` of a prefill's):
     the token's keys and values are quantized (``_quantize_token``) and
-    written with their scales."""
+    written with their scales.
+
+    On a mesh (flash-decoding, as the reference's SPMD partitions its
+    decode over the cache's sequence): ``tp`` makes q, k and v whole from
+    this rank's column blocks (``_qkv``), ``wo`` and the FFN row- and
+    column-parallel and the head vocab-parallel; ``shard`` is this rank's
+    block of the cache (its sequence positions, its rows of the batch,
+    its kv heads). Every rank takes the whole batch of tokens; the rank
+    whose block holds ``pos`` writes the token's keys, values and scales,
+    each rank attends over its block with the query heads of its kv
+    heads and the ranks of the shard's group combine their partial
+    softmaxes (``decode_attention``), and the outputs are gathered over
+    the shard's heads and batch groups."""
     pos = int(pos)
     quant = cfg.kv_cache_dtype == "int8"
     if quant and "k_scale" not in cache:
         raise ValueError(f"{cfg.arch_id} decodes from an int8 cache: "
                          "re-encode the prefill's with quantize_cache")
     B = token.shape[0]
-    x = params["embed"][token.long()]                       # [B, 1, D]
+    x = _embed(params, token, tp)                           # [B, 1, D]
     cos, sin = rope_tables(_positions(B, 1, token.device, pos), cfg.hd,
                            cfg.rope_theta)
+    lo, hi = (0, cache["k"].shape[2]) if shard is None else (shard.lo,
+                                                              shard.hi)
+    own = lo <= pos < hi                  # this block holds position pos
+    rows = slice(None) if shard is None or shard.rows is None \
+        else slice(*shard.rows)
+    kv = heads = slice(None)
+    if shard is not None and shard.heads is not None:
+        g = cfg.n_heads // cfg.n_kv_heads
+        kv = slice(*shard.heads)
+        heads = slice(shard.heads[0] * g, shard.heads[1] * g)
+    group = None if shard is None else shard.group
     for i in range(cfg.n_layers):
         lp = _layer_params(params, i)
-        q, k, v = _qkv(cfg, lp, x, cos, sin)
+        q, k, v = _qkv(cfg, lp, x, cos, sin, tp)
+        q, k, v = q[rows, :, heads], k[rows, :, kv], v[rows, :, kv]
         scales = {}
         if quant:
             (k, ks), (v, vs) = _quantize_token(k), _quantize_token(v)
-            cache["k_scale"][i, :, pos] = ks[:, 0]
-            cache["v_scale"][i, :, pos] = vs[:, 0]
+            if own:
+                cache["k_scale"][i, :, pos - lo] = ks[:, 0]
+                cache["v_scale"][i, :, pos - lo] = vs[:, 0]
             scales = dict(k_scale=cache["k_scale"][i],
                           v_scale=cache["v_scale"][i])
-        cache["k"][i, :, pos] = k[:, 0]
-        cache["v"][i, :, pos] = v[:, 0]
+        if own:
+            cache["k"][i, :, pos - lo] = k[:, 0]
+            cache["v"][i, :, pos - lo] = v[:, 0]
         att = decode_attention(q, cache["k"][i], cache["v"][i], pos,
-                               **scales)
-        x = _finish_layer(cfg, lp, x, att, ep)
-    return _logits(cfg, params, x), cache
+                               **scales, offset=lo, group=group)
+        if shard is not None and shard.heads_group is not None:
+            att = all_gather_(att, shard.heads_group, 2, shard.heads_ranks,
+                              "decode_heads")
+        if shard is not None and shard.batch_group is not None:
+            att = all_gather_(att, shard.batch_group, 0, shard.batch_ranks,
+                              "decode_rows")
+        x = _finish_layer(cfg, lp, x, att, ep, tp)
+    return _logits(cfg, params, x, tp), cache

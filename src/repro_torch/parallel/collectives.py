@@ -19,7 +19,9 @@ its backward sums the cotangent over the group again, which scales every
 gradient behind it by the group's size.
 
   * ``gather_from_group`` — ``all_gather`` forward, the gradient of the
-    whole summed over the group and cut to this rank's block backward.
+    whole summed over the group (or, where every rank computes the same
+    from the whole, taken as it is) and cut to this rank's block
+    backward.
 
 A group of ``None`` stands for a group of one rank (``launch.mesh.Mesh``
 creates none): every function here is then the identity and nothing is
@@ -93,28 +95,33 @@ class _SumOverGroup(torch.autograd.Function):
 
 class _GatherFromGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim, ranks, index):
+    def forward(ctx, x, group, dim, ranks, index, partial):
         ctx.group, ctx.dim, ctx.index = group, dim, index
-        ctx.block = x.shape[dim]
+        ctx.block, ctx.partial = x.shape[dim], partial
         return all_gather_(x, group, dim, ranks, "gather_from_group")
 
     @staticmethod
     def backward(ctx, grad):
-        whole = all_reduce_(grad.contiguous().clone(), ctx.group,
-                            "gather_from_group")
+        whole = grad
+        if ctx.partial:
+            whole = all_reduce_(grad.contiguous().clone(), ctx.group,
+                                "gather_from_group")
         return (whole.narrow(ctx.dim, ctx.index * ctx.block, ctx.block),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def gather_from_group(x: torch.Tensor, group, dim: int, ranks,
-                      index: int) -> torch.Tensor:
+                      index: int, partial: bool = True) -> torch.Tensor:
     """The whole of a leaf sharded over ``group`` along ``dim``: the
     blocks of the global ranks ``ranks`` in that order, this rank's at
     position ``index``; the gradient of the whole, which each rank holds
-    only in part, summed over the group and cut to this rank's block."""
+    only in part, summed over the group and cut to this rank's block.
+    ``partial`` False: every rank of the group computes the same thing
+    from the whole, so each holds the whole gradient, which is only
+    cut."""
     if group is None:
         return x
-    return _GatherFromGroup.apply(x, group, dim, ranks, index)
+    return _GatherFromGroup.apply(x, group, dim, ranks, index, partial)
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:

@@ -16,7 +16,8 @@ the host for its send and receive.
 
 Forward only, as the reference's own test holds it: no path of the
 reference differentiates the pipeline (its dry-run only compiles it),
-and the backward is not ported (ROADMAP.md, Queue 1 item 8.11).
+so its backward is outside the reference and not ported (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 

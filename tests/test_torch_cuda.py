@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
 engine, the recsys cells, the GNN forward, the LM's prefill and decode
-(dense and MoE, the int8 KV cache), the LM train cell (dense and MoE) and
-the expert-parallel MoE at world 1 over NCCL on the card against the same
-on the CPU. Needs a CUDA device:
+(dense and MoE, the int8 KV cache), the LM train cell (dense and MoE),
+the expert-parallel MoE at world 1 over NCCL and every cell kind on a
+world-1 NCCL mesh on the card against the same on the CPU or without a
+mesh. Needs a CUDA device:
 every test here carries the ``cuda`` marker and skips without one. The
 file imports neither JAX nor the reference package, so it runs on a
 machine with only PyTorch and the CUDA toolkit:
@@ -1823,3 +1824,109 @@ def test_compression_on_the_card_equals_the_cpu(dev, tmp_path):
         assert torch.equal(got.cpu(), comp.compressed_psum(xs[1], None))
     finally:
         dist.destroy_process_group()
+
+
+def _world_one_cells(cfg, name, shp, dev, batch, steps=1):
+    """The cell on a world-1 mesh, and twice without one, from the same
+    drawn state and batch: every output and leaf of each, ``steps``
+    steps."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.optim.optimizer import _leaves
+    mesh = make_debug_mesh(device=dev)
+    runs = []
+    for m in (mesh, None, None):
+        cell = api.build_cell(cfg, name, device=dev, mesh=m,
+                              shape_override=shp)
+        state = api.materialize_state(cell, cfg, name, torch.Generator(
+            device=dev).manual_seed(6))
+        outs = []
+        for _ in range(steps):
+            state, out = cell.step(state, batch)
+            outs.append(out)
+        runs.append(list(_leaves(state)) + list(_leaves(outs)))
+    return runs
+
+
+@pytest.mark.parametrize("arch,name,shape", [
+    ("llama3-8b", "prefill_32k", dict(batch=1, seq_len=512)),
+    ("llama3-8b", "decode_32k", dict(batch=2, seq_len=512)),
+    ("moonshot-v1-16b-a3b", "prefill_32k", dict(batch=1, seq_len=256)),
+    ("moonshot-v1-16b-a3b", "decode_32k", dict(batch=2, seq_len=256)),
+    ("moonshot-v1-16b-a3b", "train_4k", dict(batch=4, seq_len=128)),
+    ("gin-tu", "molecule", dict(batch_graphs=256)),
+    ("graphsage-reddit", "ogb_products", dict(n_nodes=4000, n_edges=20000)),
+    ("graphsage-reddit", "minibatch_lg", dict(batch_nodes=64)),
+    ("mind", "train_batch", dict(batch=256)),
+    ("mind", "serve_p99", {}),
+    ("mind", "retrieval_cand", dict(n_candidates=100_000))])
+def test_sharded_cells_world_one_nccl_bit_for_bit(dev, tmp_path, arch, name,
+                                                  shape):
+    """A world-1 NCCL group (mesh 1x1): each cell kind that took a mesh in
+    this slice (SMOKE widths for the LMs, at head dim 64 for kernel 6)
+    steps as the same cell without one, bit for bit, with no collective;
+    where two runs without a mesh differ (float sums by atomics:
+    ``index_add_`` in the segment sums and the table's gather backward),
+    within the model outputs' tolerance of it."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import CALLS
+    cfg = get_smoke(arch)
+    if cfg.family == "lm":
+        cfg = dataclasses.replace(cfg, head_dim=64, dtype="bfloat16",
+                                  microbatches=2)
+    shp = dataclasses.replace(shapes_for_family(cfg.family)[name], **shape)
+    one = api.build_cell(cfg, name, device=dev, shape_override=shp)
+    g = torch.Generator(device=dev).manual_seed(7)
+    batch = {}
+    for k, (s, dt) in one.batch_shapes.items():
+        if k == "pos":
+            batch[k] = torch.tensor(3, dtype=dt)
+        elif dt == torch.int32:
+            if cfg.family in ("lm", "recsys"):
+                top = cfg.vocab if cfg.family == "lm" else cfg.n_items
+            elif k == "labels":
+                top = shp.n_classes
+            else:                            # edge endpoints
+                top = one.batch_shapes["feats"][0][0]
+            batch[k] = torch.randint(0, top, s, generator=g, device=dev,
+                                     dtype=dt)
+        elif k == "adj":
+            batch[k] = (torch.rand(s, generator=g, device=dev) < 0.2).float()
+        elif k == "hist_mask":
+            batch[k] = torch.ones(s, device=dev)
+        else:
+            batch[k] = torch.randn(s, generator=g, device=dev)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        CALLS.clear()
+        a, b, c = _world_one_cells(cfg, name, shp, dev, batch,
+                                   steps=2 if name == "decode_32k" else 1)
+        assert len(a) == len(b) == len(c)
+        repeats = all(torch.equal(y, z) for y, z in zip(b, c))
+        for x, y in zip(a, b):
+            if repeats:
+                assert torch.equal(x, y)
+            else:
+                _close(x.float(), y.float(), forward_tol(y.float()))
+        assert sum(CALLS.values()) == 0
+    finally:
+        dist.destroy_process_group()
+
+
+def test_retrieval_score_on_a_rank_block_matches_plain(dev):
+    """Kernel 10 on a data rank's block of MIND's retrieval_cand
+    candidates (half of 1,000,448 at 2x1) against its plain version."""
+    from repro_torch.models import recsys
+    cfg = get_smoke("mind")
+    g = torch.Generator(device=dev).manual_seed(8)
+    table = torch.randn((cfg.n_items, cfg.embed_dim), generator=g,
+                        device=dev)
+    ids = torch.randint(0, cfg.n_items, (1_000_448,), generator=g,
+                        device=dev, dtype=torch.int32)
+    block = ids[500_224:]                 # data rank 1's candidates
+    caps = torch.randn((cfg.n_interests, cfg.embed_dim), generator=g,
+                       device=dev)
+    cand = recsys.lookup(table, block)
+    _close(retrieval_score(cand, caps), retrieval_score_plain(cand, caps),
+           KERNEL_TOL)

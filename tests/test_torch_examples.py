@@ -78,8 +78,13 @@ def test_gnn_train_example():
 
 def test_moe_expert_parallel_example():
     """The gather and the expert-parallel dispatch train the same losses
-    on a 2x2 mesh; only the expert-parallel one sums combines (one a
-    layer and microbatch) and copies' gradients over the model group."""
+    on a 2x2 mesh, attention over 'model' in both; only the
+    expert-parallel one sums combines (one a layer and microbatch) and
+    copies the activations' gradients over the model group, and the
+    gather one gathers the four stored expert leaves whole (their
+    gradients whole on every model rank, only cut) where the
+    expert-parallel one gathers the router alone (its gradient summed
+    over the model group)."""
     out = _run("torch_moe_expert_parallel.py", "--steps", "4")
     rows = [line.split() for line in out.splitlines()
             if line.strip()[:1].isdigit()]
@@ -87,9 +92,12 @@ def test_moe_expert_parallel_example():
     for _, gather, ep in rows:
         assert abs(float(gather) - float(ep)) <= 1e-5 * abs(float(gather))
     assert "max loss drift:" in out
-    assert "gather:          {'all_reduce': 14}" in out
-    assert ("expert-parallel: {'all_reduce': 15, 'copy_to_group': 16, "
-            "'sum_over_group': 8}") in out
+    common = ("'grad_norm': 1, 'grad_sum': 13, 'loss': 1, 'loss_max': 4, "
+              "'loss_sum': 4, ")
+    assert ("gather:          {'copy_to_group': 12, 'gather_from_group': 32, "
+            + common + "'sum_over_group': 12, 'zero1_gather': 13}") in out
+    assert ("expert-parallel: {'copy_to_group': 20, 'gather_from_group': 16, "
+            + common + "'sum_over_group': 20, 'zero1_gather': 13}") in out
 
 
 def test_sharded_train_example_remeshes_after_its_injected_failure():
@@ -108,6 +116,24 @@ def test_sharded_train_example_remeshes_after_its_injected_failure():
     losses = [line.split()[3] for line in out.splitlines()
               if line.startswith("step ")]
     assert len(losses) == 7 and losses[2] == losses[3]
+
+
+def test_sharded_cells_example():
+    """On two gloo ranks: the tensor-parallel prefill and the decode over
+    the cache's split sequence give one device's greedy tokens, the
+    partial softmaxes combined over the pair each layer and step; the
+    gin-tu step on 2x1 gives one device's loss and grad_norm to the
+    printed digits, its segment sums reduced over the data ranks."""
+    out = _run("torch_sharded_cells.py", "--steps", "6")
+    lines = out.splitlines()
+    mesh = next(x for x in lines if "greedy tokens on the mesh" in x)
+    one = next(x for x in lines if "greedy tokens, one device" in x)
+    assert mesh.split(":")[1] == one.split(":")[1]
+    assert "'decode_max': 12, 'decode_sum': 12" in out    # 2 layers x 6
+    gnn = next(x for x in lines if x.startswith("gin-tu"))
+    got, want = gnn.split(";")
+    assert got.split("loss")[1].strip() == want.split("loss")[1].strip()
+    assert "'segment_sum': 2" in out
 
 
 ARGV = ["--nodes", "2000", "--queries", "2048", "--k", "1", "--no-seeds",

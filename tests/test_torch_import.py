@@ -95,18 +95,18 @@ print(len(sys.argv) - 1)
 
 
 def test_examples_import_neither_jax_nor_reference():
-    """The port's seven examples name neither jax nor the reference, and
+    """The port's eight examples name neither jax nor the reference, and
     importing them (their ``__main__`` blocks aside) pulls in neither."""
     files = sorted((ROOT / "examples").glob("torch_*.py"))
     assert [f.name for f in files] == [
         "torch_gnn_train.py", "torch_lm_train.py",
         "torch_moe_expert_parallel.py", "torch_quickstart.py",
-        "torch_reachability_serve.py", "torch_sharded_train.py",
-        "torch_shortest_path_pruning.py"]
+        "torch_reachability_serve.py", "torch_sharded_cells.py",
+        "torch_sharded_train.py", "torch_shortest_path_pruning.py"]
     assert [f.name for f in files if IMPORT.search(f.read_text())] == []
     env = dict(os.environ, PYTHONPATH=str(SRC))
     r = subprocess.run([sys.executable, "-c", EXAMPLE_PROBE,
                         *map(str, files)], env=env, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.split() == ["7"]
+    assert r.stdout.split() == ["8"]

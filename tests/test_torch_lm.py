@@ -178,11 +178,13 @@ def test_generate_greedy_on_cpu():
 
 
 def test_unported_lm_parts_raise():
-    """What stays unported: the dense LMs' prefill and decode cells on a
-    mesh (their train cell trains sharded: tests/test_torch_sharded_train.
-    py). The MoE archs and the int8 cache resolve, serve
-    (tests/test_torch_moe.py) and train (tests/test_torch_moe_train.py),
-    expert-parallel on a mesh (tests/test_torch_moe_ep.py)."""
+    """Nothing of the LMs stays unported: the MoE archs and the int8 cache
+    resolve, serve (tests/test_torch_moe.py) and train
+    (tests/test_torch_moe_train.py), expert-parallel on a mesh
+    (tests/test_torch_moe_ep.py); every LM cell takes a mesh
+    (tests/test_torch_sharded_cells_lm.py), and one this rank is not in
+    is refused."""
+    from types import SimpleNamespace
     for arch in ("phi3.5-moe-42b-a6.6b", "moonshot-v1-16b-a3b"):
         for get in (get_config, get_smoke):
             cfg = get(arch)
@@ -193,9 +195,9 @@ def test_unported_lm_parts_raise():
                               moe=MoESpec(n_experts=4, top_k=2))
     assert api.build_cell(moe, "train_4k", device="cpu").kind == "train"
     for shape_name in ("prefill_32k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8.11"):
+        with pytest.raises(ValueError, match="not in"):
             api.build_cell(get_smoke("llama3-8b"), shape_name, device="cpu",
-                           mesh=object())
+                           mesh=SimpleNamespace(member=False, rank=1))
     cfg = dataclasses.replace(get_smoke("llama3-8b"), kv_cache_dtype="int8")
     assert api.build_cell(cfg, "decode_32k", device="cpu").kind == "decode"
     assert transformer.init_cache(cfg, 1, 8, "cpu")["k"].dtype == torch.int8

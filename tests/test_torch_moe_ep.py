@@ -17,9 +17,10 @@ path's without a mesh (the reference's gather path raises under a mesh on
 jax 0.9.0). The drop-heavy case zeroes exactly the tokens whose every
 assignment overflowed its data shard's capacity (GShard).
 
-At 2x2 the MoE train step (2 microbatches, remat) equals the port's
-one-device step on the whole batch where nothing drops, and the prefill
-and decode cells on the mesh equal the one-device cells. At 1x2 the two
+At 2x2 the MoE train step (2 microbatches, remat; attention over
+'model', the state the reference's blocks) equals the port's one-device
+step on the whole batch where nothing drops, and the prefill and decode
+cells on the mesh equal the one-device cells. At 1x2 the two
 collectives' gradients are checked directly: ``sum_over_group``'s
 backward passes the cotangent through (summing it again would double
 every gradient behind it). World 1 runs in this process.
@@ -123,6 +124,8 @@ from repro_torch.models import api, transformer as tf
 from repro_torch.models.convert import params_from_arrays
 from repro_torch.optim.optimizer import OptConfig, adamw_init
 from repro_torch.parallel import CALLS, all_reduce_, copy_to_group, sum_over_group
+from repro_torch.parallel import sharding as shd
+from repro_torch.checkpoint.checkpoint import gather_state
 data = dict(np.load(cfg["data"]))
 mesh = ServingMesh("sharded", tuple(cfg["mesh"]), "cpu")
 base = get_smoke(cfg["arch"])
@@ -198,35 +201,38 @@ if cfg.get("cells"):
                                   torch.Generator().manual_seed(0))
     out["train/drawn_w_gate_shape"] = np.array(
         drawn["params"]["layers"]["w_gate"].shape)
-    state = {"params": tf.shard_experts(c, params_from_arrays("lm", params,
-                                                              "cpu"),
-                                        cell.expert_mesh)}
-    state["opt"] = adamw_init(state["params"])
+    whole = params_from_arrays("lm", params, "cpu")
+    state = api.shard_state(cell, {"params": whole,
+                                   "opt": adamw_init(whole)})
     CALLS.clear()
     state, metrics = cell.step(state, {"tokens": t(data["tokens"]),
                                        "labels": t(data["labels"])})
     out["train/calls"] = np.array([CALLS["sum_over_group"],
-                                   CALLS["copy_to_group"], CALLS["all_reduce"]])
+                                   CALLS["copy_to_group"], CALLS["grad_sum"]])
     for k in ("loss", "grad_norm", "lr"):
         out["train/" + k] = np.array(float(metrics[k]))
-    for path, v in _flatten_with_paths(state):
+    for path, v in _flatten_with_paths(gather_state(
+            state, cell.state_shardings())):
         out["train/state/" + path] = v.numpy()
-    full = tf.shard_experts(c, params_from_arrays("lm", params, "cpu"), None)
+    full = params_from_arrays("lm", params, "cpu")
     sc = moe_cfg(8.0)
     s_shp = replace(lm["prefill_32k"], batch=cfg["serve"]["batch"],
                     seq_len=cfg["serve"]["seq"])
     cell = api.build_cell(sc, "prefill_32k", mesh=mesh, shape_override=s_shp)
-    _, res = cell.step({"params": tf.shard_experts(sc, full, cell.expert_mesh)},
+    _, res = cell.step(api.shard_state(cell, {"params": full}),
                        {"tokens": t(data["prompt"])})
     out["prefill/logits"] = res["logits"].numpy()
-    out["prefill/cache_k"] = res["cache"]["k"].numpy()
+    k_shape = tuple(tf.cache_shapes(sc, *data["prompt"].shape)["k"])
+    spec = shd.logical_to_spec(tf.cache_logical_axes(sc)["k"], k_shape, mesh)
+    out["prefill/cache_k"] = shd.gather(res["cache"]["k"], spec,
+                                        mesh).numpy()
     d_shp = replace(lm["decode_32k"], batch=cfg["serve"]["batch"],
                     seq_len=cfg["serve"]["seq"])
     cell = api.build_cell(sc, "decode_32k", mesh=mesh, shape_override=d_shp)
     n = cfg["serve"]["seq"] - 1
     _, cache = tf.prefill(sc, full, t(data["prompt"][:, :n]), n + 1)
-    state = {"params": tf.shard_experts(sc, full, cell.expert_mesh),
-             "cache": tf.quantize_cache(cache)}
+    state = api.shard_state(cell, {"params": full,
+                                   "cache": tf.quantize_cache(cache)})
     _, logits = cell.step(state, {"token": t(data["prompt"][:, n:]),
                                   "pos": torch.tensor(n, dtype=torch.int32)})
     out["decode/logits"] = logits.numpy()
@@ -462,30 +468,25 @@ def test_mesh_train_step_equals_one_device_step(world):
         e_loc = pcfg.moe.n_experts // 2
         assert tuple(r["train/drawn_w_gate_shape"]) == (
             pcfg.n_layers, e_loc, pcfg.d_model, pcfg.d_ff)
-    # a layer and microbatch: the combine's sum in the forward (the remat
-    # recompute stops at the last tensor the backward needs, before it),
-    # the activations' and the router's sums in the backward
-    s, c, plain = ranks[0]["train/calls"]
+    # a microbatch: the vocab-parallel embedding's sum, and a layer's
+    # combine and attention's wo over 'model' in the forward, attention's
+    # again in the remat recompute (which stops before the combine, the
+    # last tensor the backward needs); in the backward a layer's
+    # activations into the FFN and attention's normed input, and the
+    # loss's hidden states (the router is gathered, its gradient summed
+    # by the gather); every leaf's gradient summed over the data ranks
+    s, c, g = ranks[0]["train/calls"]
     mb, L = TRAIN["microbatches"], pcfg.n_layers
-    assert (s, c) == (L * mb, 2 * L * mb) and plain > 0
+    assert (s, c) == (mb * (1 + 3 * L), mb * (2 * L + 1)), (s, c)
+    assert g == len(_flatten_with_paths(params))
     lr = float(metrics["lr"])
-    expert = {f"layers/{k}" for k in ("w_gate", "w_up", "w_down")}
     for path, want in _flatten_with_paths(state):
         want = want.numpy()
         key = "train/state/" + path
-        is_expert = any(path.endswith(e) for e in expert)
-        if is_expert:
-            # model rank m holds experts m·E/2 ..; data ranks agree
-            for d in (0, 1):
-                for m in (0, 1):
-                    np.testing.assert_array_equal(ranks[2 * d + m][key],
-                                                  ranks[m][key])
-            got = np.concatenate([ranks[0][key], ranks[1][key]], axis=1)
-        else:
-            for r in ranks[1:]:
-                np.testing.assert_array_equal(r[key], ranks[0][key],
-                                              err_msg=path)
-            got = ranks[0][key]
+        for r in ranks[1:]:          # the state gathered whole on each rank
+            np.testing.assert_array_equal(r[key], ranks[0][key],
+                                          err_msg=path)
+        got = ranks[0][key]
         if path.startswith("params/"):
             np.testing.assert_allclose(got, want, rtol=0, atol=2 * lr,
                                        err_msg=path)
@@ -544,7 +545,7 @@ def test_world_one_is_the_one_device_path(group):
     collective: its output and gradients are the gather path's, drops
     included; the mesh's train cell keeps the whole expert stacks. With
     ``impl="gather"`` a mesh runs the gather path and keeps the stacks
-    whole."""
+    whole too."""
     from repro_torch.parallel import CALLS
     pcfg = dataclasses.replace(get_smoke(ARCH), moe=dataclasses.replace(
         get_smoke(ARCH).moe, capacity_factor=0.5, impl="shard_map"))
@@ -576,4 +577,7 @@ def test_world_one_is_the_one_device_path(group):
     gather = dataclasses.replace(pcfg, moe=dataclasses.replace(
         pcfg.moe, impl="gather"))
     assert tf.expert_slices(gather, ep) is None
-    assert tf.shard_experts(gather, state["params"], ep) is state["params"]
+    cell = api.build_cell(gather, "train_4k", mesh=group, shape_override=shp)
+    state = api.materialize_state(cell, gather, "train_4k",
+                                  torch.Generator().manual_seed(0))
+    assert state["params"]["layers"]["w_gate"].shape[1] == 8

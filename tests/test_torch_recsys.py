@@ -167,17 +167,18 @@ def test_materialize_state_shapes_match_reference():
 
 
 def test_unported_cells_and_archs_raise():
-    """What stays unported: an unknown arch, and a mesh given to a cell
-    other than ferrari-web's and the MoE LMs'. The MoE configs' train
-    cell builds."""
+    """What is refused: an unknown arch, and a mesh this rank is not in
+    (every cell takes a mesh; ``tests/test_torch_sharded_cells_*.py``).
+    The MoE configs' train cell builds."""
+    from types import SimpleNamespace
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("phi3.5-moe")
     moe = get_smoke("phi3.5-moe-42b-a6.6b")
     assert api.build_cell(moe, "train_4k", device="cpu").kind == "train"
     assert api.build_cell(moe, "decode_32k", device="cpu").kind == "decode"
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="not in"):
         api.build_cell(get_smoke("gin-tu"), "molecule", device="cpu",
-                       mesh=object())
+                       mesh=SimpleNamespace(member=False, rank=3))
 
 
 # ----------------------------------------------------------- training ----
