@@ -271,6 +271,19 @@ card:
            2^12 of the pairs served again with every exchanged-rows step
            held word for word against its plain version.
 
+  dryrun   inside the train, lm, gnn_train, recsys and ferrari phases:
+           ``repro_torch.launch.dryrun`` at --mesh none (the step on
+           meta tensors, on the host) at the phase's own cut — tinyllama
+           train_4k at batch 16, llama3-8b prefill_32k at batch 1, gin-tu
+           molecule at 65,536 graphs, MIND retrieval_cand, ferrari-web
+           classify_16m on the phase's tables — then one real step of the
+           same cell: each kernel's launches must equal the prediction
+           and the aten FLOPs that ``dryrun.flop_counter()`` counts over
+           the real step the predicted ones; the peak device memory is
+           held within 10% or 256 MiB of the prediction and a miss is
+           printed, not fatal. A ``{"dryrun": ...}`` line before the
+           card's line holds the five.
+
 Every phase sets the launch counters to 0 just before it is driven and
 reads them just after; the reachability phases hold their answers against
 the host guided DFS (``core.query.QueryEngine``), and kernels 1 and 2
@@ -293,7 +306,10 @@ dense phase's largest call, and kernels 1 to 4 beside their launch floor
 and prints no result lines; only with it, ``--ferrari-nodes`` cuts the
 phase's graph. ``--moe-only``, ``--moe-train-only``,
 ``--sharded-train-only`` and ``--sharded-cells-only`` do the same for
-the moe, moe_train, sharded_train and sharded_cells phases.
+the moe, moe_train, sharded_train and sharded_cells phases;
+``--dryrun-only`` runs the dry run's check alone on the five cells
+(after a warm-up step each; ferrari-web on random tables of the
+published n) and prints its line.
 The last lines are the card's name and power limit, a ``{"kernels": ...}``
 JSON line, and ``{"ok": true, "device": ...}``. Without a CUDA device,
 or without the repository's ``src/`` beside this file, it exits 1 and
@@ -970,85 +986,13 @@ def _distinct(*ids) -> int:
 
 
 def work_of(name, args):
-    """(bytes, ops) the call must move and do on this call's data: int32
-    ops for the reachability kernels, float32 flops (2 per multiply-add)
-    for kernels 9 and 10, whose work does not depend on the data.
-    Each input element the result depends on is read once — a table row,
-    bitset word or flag that several queries gather counts once — and
-    each output is written once. Rows the result does not depend on are
-    not counted: those of cs == ct pairs. Kernels 3 and 4: ``step_work``."""
-    if name == "stab_packed":
-        meta, slab, cs, ct = args
-        k = slab.shape[1] // 2
-        live = cs != ct
-        q, s, t = cs.shape[0], cs[live], ct[live]
-        nbytes = q * 12 + _distinct(s, t) * 16 + _distinct(s) * 8 * k
-        return nbytes, int(live.sum()) * (6 * k + 25) + q
-    if name == "stab_packed_owned":
-        # t's meta row by query position (16 B a live query), the owned
-        # sources' meta and slab rows, the ids and the verdicts
-        meta_t, meta, slab, cs, ct, base = args
-        k = slab.shape[1] // 2
-        rel = cs.long() - base
-        own = (rel >= 0) & (rel < meta.shape[0])
-        live = own & (cs != ct)
-        q = cs.shape[0]
-        nbytes = (q * 12 + int(live.sum()) * 16
-                  + _distinct(cs[live]) * (16 + 8 * k))
-        return nbytes, int(live.sum()) * (6 * k + 25) + q
-    if name == "stab_naive":
-        pi, tau, lvl, b, e, x, sp, sm, cs, ct = args
-        k, w = b.shape[1], sp.shape[1]
-        live = cs != ct
-        q, s, t = cs.shape[0], cs[live], ct[live]
-        nbytes = (q * 12 + _distinct(s, t) * (8 + 8 * w)
-                  + _distinct(s) * 12 * k + _distinct(t) * 4)
-        return nbytes, int(live.sum()) * (6 * k + 8 * w + 10) + q
-    if name == "retrieval_score":
-        cands, ints = args
-        (c, d), i = cands.shape, ints.shape[0]
-        return 4 * (c * d + i * d + c), 2 * c * i * d
-    if name in ("batched_mp", "batched_mp_bwd"):
-        adj, x, w = args
-        (b, n, f), h = x.shape, w.shape[1]
-        return (4 * (b * n * n + b * n * f + f * h + b * n * h),
-                2 * b * n * n * f + 2 * b * n * f * h)
-    if name == "flash_fwd":
-        # 4·hd flops for each unmasked (q, k) pair: q·k and p·v; k and v
-        # read once at their KV heads (grouped, read in place)
-        q, k, v, causal, q_offset = args
-        b, sq, h, hd = q.shape
-        sk = k.shape[1]
-        seen = (np.minimum(q_offset + np.arange(sq, dtype=np.int64) + 1, sk)
-                if causal else np.full(sq, sk, dtype=np.int64))
-        nbytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-                  + 4 * b * h * sq)
-        return nbytes, 4 * hd * b * h * int(seen.sum())
-    if name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        # 6·hd flops per unmasked pair for dq (q·k, do·v, dS·k), 8·hd for
-        # dk, dv (q·k, do·v, Pᵀ·do, dSᵀ·q); q, k, v, do, lse and delta read
-        # once, dq or dk and dv written once
-        q, k, v, dout, lse, delta, causal, q_offset = args
-        b, sq, h, hd = q.shape
-        sk = k.shape[1]
-        seen = (np.minimum(q_offset + np.arange(sq, dtype=np.int64) + 1, sk)
-                if causal else np.full(sq, sk, dtype=np.int64))
-        outs = q.numel() if name == "flash_bwd_dq" else 2 * k.numel()
-        nbytes = ((2 * q.numel() + 2 * k.numel() + outs) * q.element_size()
-                  + 8 * b * h * sq)
-        per = 6 if name == "flash_bwd_dq" else 8
-        return nbytes, per * hd * b * h * int(seen.sum())
-    if name == "merge_cover":
-        cb, ce, cx, k, w_out = args
-        rows, m = cb.shape
-        n_valid = (cb != 2**31 - 1).sum(1)
-        valid = int(n_valid.sum())
-        # 12 B per valid slot, the first INVALID begin of a row that has
-        # one, the outputs; ~10 int32 ops per slot for the recurrence
-        nbytes = (valid * 12 + int((n_valid < m).sum()) * 4
-                  + rows * (12 * w_out + 4))
-        return nbytes, valid * 10
-    raise KeyError(name)
+    """(bytes, ops) the call must move and do on this call's data:
+    ``repro_torch.kernels.work`` (int32 ops for the reachability kernels,
+    flops, 2 per multiply-add, for kernels 6 to 10; each input element
+    the result depends on read once, each output written once). Kernels
+    3 and 4: ``step_work``."""
+    from repro_torch.kernels.work import work
+    return work(name, args)
 
 
 # The yardstick of kernels 9 and 10: no single PyTorch call computes
@@ -2633,8 +2577,14 @@ def recsys_phase(dev, rec, seed: int):
             for key, (shape, _) in cell.batch_shapes.items()}
     on_card = {name: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
                for name, b in batches.items()}
+    fig = dry_predict("recsys", cfg, "retrieval_cand",
+                      cells["retrieval_cand"].shape)
     for name, cell in cells.items():              # warm up
-        cell.step(state, on_card[name])
+        if name == "retrieval_cand":              # the dry run's check
+            with DryrunHold("recsys", fig, dev):
+                cell.step(state, on_card[name])
+        else:
+            cell.step(state, on_card[name])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters()
@@ -2850,10 +2800,12 @@ def _card_batch(cell, n_classes: int, gen, dev) -> dict:
     return out
 
 
-def _train_steps(label, cell, state, batches, want=None) -> dict:
+def _train_steps(label, cell, state, batches, want=None, dry=None) -> dict:
     """Steps ``cell`` on each batch (a list, or a callable of the step
     index), printing each step's seconds, loss, grad_norm and the peak
-    device memory; ``want``: the kernel launches each step must add."""
+    device memory; ``want``: the kernel launches each step must add;
+    ``dry``: (phase, the dry run's figures) to hold the first step
+    against (``DryrunHold``)."""
     import torch
 
     from repro_torch.kernels import _lib
@@ -2863,7 +2815,11 @@ def _train_steps(label, cell, state, batches, want=None) -> dict:
     for i in range(GNN_TRAIN_STEPS):
         batch = batches(i) if callable(batches) else batches[i]
         before = dict(_lib.LAUNCHES)
-        (state, m), dt = _timed(lambda: cell.step(state, batch))
+        if dry is not None and i == 0:
+            with DryrunHold(*dry, dev):
+                (state, m), dt = _timed(lambda: cell.step(state, batch))
+        else:
+            (state, m), dt = _timed(lambda: cell.step(state, batch))
         step = {k: _lib.LAUNCHES[k] - before[k] for k in (want or {})}
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         out["seconds"].append(dt)
@@ -2985,11 +2941,16 @@ def gnn_train_phase(dev, seed: int, err: dict):
             # backward but the first, whose x (the features) and w (I_F)
             # take no gradient
             mp = 0 if cfg.conv == "gatedgcn" else cfg.n_layers
+            dry = None
+            if shp.batch_graphs == GNN_BULK_GRAPHS:   # the dry run's check
+                dry = ("gnn_train", dry_predict("gnn_train", cfg,
+                                                "molecule", shp))
             _train_steps(
                 f"{arch} ({cfg.n_layers} layers, d {cfg.d_hidden}, remat "
                 f"{cfg.remat}) molecule B {shp.batch_graphs}", cell, state,
                 lambda i: _card_batch(cell, shp.n_classes, gen, dev),
-                want={"batched_mp": mp, "batched_mp_bwd": max(mp - 1, 0)})
+                want={"batched_mp": mp, "batched_mp_bwd": max(mp - 1, 0)},
+                dry=dry)
             del cell, state
         cfg = get_config("graphsage-reddit")
         shp = shapes["minibatch_lg"]
@@ -3334,6 +3295,11 @@ def lm_phase(dev, seed: int):
     toks = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=dev,
                          dtype=torch.int32)
     serve.generate(cfg, params, toks[:, :256], 2)          # warm up
+    # the dry run's check: one step of the prefill cell, predicted first
+    fig = dry_predict("lm", cfg, "prefill_32k", cell.shape)
+    with DryrunHold("lm", fig, dev):
+        out = cell.step(state, {"tokens": toks})
+    del out
 
     captured = []
     attention = ops.attention
@@ -4191,6 +4157,10 @@ def train_phase(dev, seed: int):
     del captured
     print(f"  warm-up step: {tr.history[-1]['seconds']:.2f} s, loss "
           f"{tr.metrics['loss']:.4f}", flush=True)
+    # the dry run's check: one more step, predicted on meta first
+    fig = dry_predict("train", cfg, "train_4k", tr.shape)
+    with DryrunHold("train", fig, dev):
+        tr.run(tr.step_idx + 1)
 
     layers = state["params"]["layers"]
     sample = {k: v[:, :2].clone() for k, v in layers.items()}
@@ -5865,7 +5835,9 @@ def ferrari_phase(dev, rec, err, n: int, seed: int):
              "ct": torch.from_numpy(qt).to(dev)}
     reset_counters()
     rec.reset()
-    _, verdict = cell.step(state, batch)
+    fig = dry_predict("ferrari", cfg, "classify_16m")
+    with DryrunHold("ferrari", fig, dev):         # the dry run's check
+        _, verdict = cell.step(state, batch)
     _, v_small = small.step(state, {k: v[:q_small] for k, v in batch.items()})
     torch.cuda.synchronize()
     counts, calls = read_counters(), dict(rec.calls)
@@ -6440,6 +6412,11 @@ def main() -> int:
                         help="build the kernels and run the sharded_cells "
                              "phase alone (a quick check; no result "
                              "lines)")
+    parser.add_argument("--dryrun-only", action="store_true",
+                        help="build the kernels and run the dry run's "
+                             "check alone: its five cells predicted on "
+                             "meta, then one real step each (no result "
+                             "lines)")
     args = parser.parse_args()
     if args.ferrari_nodes != FERRARI_NODES and not args.ferrari_only:
         parser.error("--ferrari-nodes cuts the ferrari phase's width: "
@@ -6458,6 +6435,172 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     return run(args, time.perf_counter())
+
+
+# ------------------------------------------------------------ dryrun ----
+# The dry run's check: ``launch.dryrun`` at --mesh none (meta tensors, on
+# the host) at a phase's own cut, before one real step of the same cell
+# on the card. Each kernel's launches must equal the prediction, and the
+# aten FLOPs ``dryrun.flop_counter()`` counts over the real step the
+# predicted ones (both checked); the peak is held within DRYRUN_PEAK_SHARE
+# of the card's, or DRYRUN_PEAK_FLOOR where that is larger, and a miss is
+# printed and recorded, not fatal. The card's peak of the step is what
+# its arguments hold (the prediction's) plus what
+# ``max_memory_allocated`` rose above the memory allocated before it.
+DRYRUN_PEAK_SHARE = 0.10
+DRYRUN_PEAK_FLOOR = 256 << 20
+DRYRUN = {}          # label -> the predicted and measured figures
+# the five cells at the phases' cuts: (label, arch, shape, shape cut)
+DRYRUN_CELLS = (
+    ("train", TRAIN_ARCH, "train_4k", dict(batch=TRAIN_BATCH)),
+    ("lm", LM_ARCH, "prefill_32k", dict(batch=1)),
+    ("gnn_train", "gin-tu", "molecule", dict(batch_graphs=GNN_BULK_GRAPHS)),
+    ("recsys", "mind", "retrieval_cand", {}),
+    ("ferrari", FERRARI_ARCH, "classify_16m", {}))
+
+
+def dry_predict(phase: str, cfg, shape_name: str, shape=None) -> dict:
+    """The dry run of ``cfg``'s cell ``shape_name`` (cut to ``shape``) on
+    one device: its figures (``dryrun.measure``), with its seconds."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    _, fig = dryrun.dry_cell(cfg, shape_name, "none", shape_override=shape)
+    fig["seconds"] = time.perf_counter() - t0
+    cut = next(c[3] for c in DRYRUN_CELLS if c[0] == phase)
+    fig["label"] = f"{cfg.arch_id} {shape_name}" + "".join(
+        f", {k} {v}" for k, v in cut.items())
+    return fig
+
+
+class DryrunHold:
+    """Around one real step of the cell ``fig`` predicted (``with
+    DryrunHold(phase, fig, dev): step``): the kernels' launches in it,
+    ``dryrun.flop_counter()`` over it, and the peak device memory it
+    reached, held against the prediction (the section's comment)."""
+
+    def __init__(self, phase: str, fig: dict, dev):
+        self.phase, self.fig, self.dev = phase, fig, dev
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import _lib
+        from repro_torch.launch import dryrun
+        torch.cuda.synchronize(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        self.before = torch.cuda.memory_allocated(self.dev)
+        self.launches = dict(_lib.LAUNCHES)
+        self.fc = dryrun.flop_counter()
+        self.fc.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, kind, value, tb):
+        import torch
+
+        from repro_torch.kernels import _lib
+        self.fc.__exit__(kind, value, tb)
+        if kind is not None:
+            return False
+        torch.cuda.synchronize(self.dev)
+        seconds = time.perf_counter() - self.t0
+        fig, mem = self.fig, self.fig["memory"]
+        launches = {k: v - self.launches[k] for k, v in _lib.LAUNCHES.items()
+                    if v != self.launches[k]}
+        want = {k: v["launches"] for k, v in fig["kernels"].items()}
+        aten = int(self.fc.get_total_flops())
+        temp = torch.cuda.max_memory_allocated(self.dev) - self.before
+        live = mem["peak_bytes"] - mem["temp_bytes"]
+        peak = live + temp
+        tol = max(DRYRUN_PEAK_SHARE * peak, DRYRUN_PEAK_FLOOR)
+        met = abs(mem["peak_bytes"] - peak) <= tol
+        DRYRUN[self.phase] = dict(
+            cell=fig["label"], launches=launches, launches_predicted=want,
+            aten_flops=aten, aten_flops_predicted=fig["aten_flops"],
+            kernel_flops_predicted={k: v["flops"]
+                                    for k, v in fig["kernels"].items()},
+            peak_bytes=peak, peak_bytes_predicted=mem["peak_bytes"],
+            temp_bytes=temp, temp_bytes_predicted=mem["temp_bytes"],
+            argument_bytes_predicted=mem["argument_bytes"],
+            peak_met=met, predict_s=fig["seconds"], step_s=seconds)
+        print(f"  dryrun {fig['label']} ({self.phase} phase; predicted on "
+              f"meta in {fig['seconds']:.2f} s, the real step under the "
+              f"FLOP counter {seconds:.2f} s): launches predicted {want}, "
+              f"measured {launches}; aten FLOPs predicted "
+              f"{fig['aten_flops']}, measured {aten}; peak predicted "
+              f"{mem['peak_bytes'] / 1e9:.3f} GB (arguments "
+              f"{mem['argument_bytes'] / 1e9:.3f}, temporaries "
+              f"{mem['temp_bytes'] / 1e9:.3f}), measured "
+              f"{peak / 1e9:.3f} GB (temporaries {temp / 1e9:.3f}): "
+              f"{'met' if met else 'MISS'} (within "
+              f"{tol / 1e9:.3f} GB)", flush=True)
+        check(launches == want, f"dryrun {fig['label']}: launches "
+              f"{launches}, predicted {want}")
+        check(aten == fig["aten_flops"], f"dryrun {fig['label']}: aten "
+              f"FLOPs {aten}, predicted {fig['aten_flops']}")
+        return False
+
+
+def dryrun_phase(dev, seed: int) -> None:
+    """``--dryrun-only``: the five cells of the dry run's check at the
+    phases' cuts, each predicted and then stepped once on the card under
+    ``DryrunHold`` after a warm-up step; ferrari-web's tables are random
+    int32 of the published n (the kernel's launches and the memory do not
+    depend on their values)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import shapes_for_family
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models import api
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for phase, arch, shape_name, cut in DRYRUN_CELLS:
+        cfg = get_config(arch)
+        shp = dataclasses.replace(shapes_for_family(cfg.family)[shape_name],
+                                  **cut)
+        fig = dry_predict(phase, cfg, shape_name, shp)
+        if phase == "train":
+            tr = Trainer(arch, smoke=False, batch_override=cut["batch"],
+                         seed=seed, device=dev)
+            tr.run(1)
+            with DryrunHold(phase, fig, dev):
+                tr.run(2)
+            del tr
+            torch.cuda.empty_cache()
+            continue
+        cell = api.build_cell(cfg, shape_name, device=dev,
+                              shape_override=shp)
+        if cfg.family == "ferrari":
+            state = {k: torch.randint(0, 1 << 30, s, generator=gen,
+                                      device=dev, dtype=d)
+                     for k, (s, d) in cell.state_shapes.items()}
+        else:
+            state = api.materialize_state(cell, cfg, shape_name, gen)
+        if cfg.family == "gnn":
+            batch = _card_batch(cell, shp.n_classes, gen, dev)
+        else:
+            top = {"lm": getattr(cfg, "vocab", 0),
+                   "recsys": getattr(cfg, "n_items", 0),
+                   "ferrari": getattr(cfg, "n_nodes", 0)}[cfg.family]
+            batch = {k: (torch.ones(s, device=dev) if k == "hist_mask" else
+                         torch.randint(0, top, s, generator=gen, device=dev,
+                                       dtype=d))
+                     for k, (s, d) in cell.batch_shapes.items()}
+        state, _ = cell.step(state, batch)          # warm up
+        del _
+        with DryrunHold(phase, fig, dev):
+            out = cell.step(state, batch)
+        del cell, state, batch, out
+        torch.cuda.empty_cache()
+
+
+def dryrun_line() -> str:
+    """The dry run's check, one JSON object: per phase, the predicted and
+    measured launches, aten FLOPs and peak."""
+    return json.dumps({"dryrun": DRYRUN})
 
 
 def run_ferrari(dev, err: dict, n: int, seed: int) -> dict:
@@ -6544,6 +6687,13 @@ def run(args, t_start: float) -> int:
     if args.sharded_cells_only:
         sharded_cells_phase(dev, args.seed)
         done("sharded_cells")
+        print(card_line(), flush=True)
+        return 0
+
+    if args.dryrun_only:
+        dryrun_phase(dev, args.seed)
+        done("dryrun")
+        print(dryrun_line(), flush=True)
         print(card_line(), flush=True)
         return 0
 
@@ -6823,6 +6973,9 @@ def run(args, t_start: float) -> int:
                                            "floor_ms", "floor_warm_ms")},
                 "cell_queries_per_s": fr["qps"],
                 "frontend_s": fr["frontend_s"]}
+    check(sorted(DRYRUN) == sorted(c[0] for c in DRYRUN_CELLS),
+          f"dryrun: checked on {sorted(DRYRUN)} only")
+    print(dryrun_line(), flush=True)
     bad = {k: err[k][1] + times[k]["err"][1] for k in KERNELS}
     print("kernels: " + ", ".join(f"{r['name']} {bad[r['name']]} "
                                   f"mismatches, {r['launches']} launches"

@@ -51,6 +51,7 @@ import torch.distributed as dist
 from ..kernels import frontier_fused, ops
 from ..kernels.frontier_fused import emit_plain
 from ..launch.mesh import Mesh
+from ..parallel.collectives import all_gather_, all_reduce_
 from .query_torch import DeviceQueryEngine, StagedIds
 
 PLACEMENTS = ("replicated", "sharded")
@@ -197,32 +198,50 @@ def _pad_to(t: torch.Tensor, size: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------- phase 1
-def _owner_verdict(mesh: ServingMesh, state: dict, cs, ct):
+def _model_sum(mesh: Mesh, t: torch.Tensor, name: str) -> torch.Tensor:
+    """Sum of ``t`` over the model group (a new tensor; ``t`` itself where
+    the group is one rank), counted in ``parallel.CALLS`` under
+    ``name``."""
+    if mesh.model_group is None:
+        return t
+    return all_reduce_(t.contiguous().clone(), mesh.model_group, name)
+
+
+def _owner_verdict(mesh: Mesh, state: dict, cs, ct):
     """Compute-at-owner: t's meta rows summed over the model group from
     the ranks that own them, the owner of each source row computes the
     whole verdict there (kernel 1's owned-rows entry, 0 elsewhere), and
     one int32 sum over the group reassembles it."""
     meta = state["meta"]
     base = mesh.m * meta.shape[0]
-    meta_t = mesh.model_sum(_own_rows(meta, ct, base))
-    return mesh.model_sum(ops.classify_queries(
+    meta_t = _model_sum(mesh, _own_rows(meta, ct, base), "owner_rows")
+    return _model_sum(mesh, ops.classify_queries(
         {"_prefetched": True, "meta_t": meta_t, "meta": meta,
-         "slab": state["slab"], "base": base}, cs, ct))
+         "slab": state["slab"], "base": base}, cs, ct), "owner_verdict")
 
 
-def _over_data(mesh: ServingMesh, cs, ct, classify):
-    """``classify(cs, ct)`` of this data rank's block of the batch, the
-    blocks gathered: the whole verdict on every rank. (0, 0)
-    self-queries pad the batch to a multiple of D (POS, stripped)."""
-    q = cs.shape[0]
-    q_pad = -(-q // mesh.n_data) * mesh.n_data
-    v = classify(mesh.block(_pad_to(cs, q_pad)), mesh.block(_pad_to(ct, q_pad)))
-    return mesh.gather_data(v)[:q]
+def _over_data(mesh: Mesh, cs, ct, classify):
+    """``classify(cs, ct)`` of this rank's block of the batch over the
+    data axes ('pod', 'data'), the blocks gathered: the whole verdict on
+    every rank. (0, 0) self-queries pad the batch to a multiple of the
+    data ranks (POS, stripped)."""
+    axes = mesh.dp_axes
+    n, q = mesh.size(axes), cs.shape[0]
+    q_pad = -(-q // n) * n
+    b = q_pad // n
+    lo = mesh.index(axes) * b if n > 1 else 0
+    v = classify(_pad_to(cs, q_pad)[lo:lo + b], _pad_to(ct, q_pad)[lo:lo + b])
+    if n == 1:
+        return v[:q]
+    return all_gather_(v, mesh.group(axes), 0, mesh.members(axes),
+                       "verdicts")[:q]
 
 
-def classify_sharded(mesh: ServingMesh, state: dict, cs, ct):
+def classify_sharded(mesh: Mesh, state: dict, cs, ct):
     """Phase-1 verdict [Q] int32 with the table rows sharded over the
-    model ranks and the queries over the data ranks. ``state``: this
+    model ranks and the queries over the data ranks ('pod' and 'data';
+    ``mesh`` a ``ServingMesh`` or any ``launch.mesh.Mesh`` with a model
+    axis). ``state``: this
     rank's shard {"slab": [n_loc, 2K], "meta": [n_loc, 4]} (rows from
     m·n_loc); ``cs``, ``ct`` [Q] int32: the whole batch, the same on every
     rank. Returns the whole verdict on every rank."""

@@ -123,7 +123,9 @@ class StagedIds:
 
 def resolve_device(device) -> torch.device:
     """The engine's device: a CUDA device must exist; the CPU (plain
-    versions of the kernels) is taken only when asked for by name."""
+    versions of the kernels) and ``meta`` (a dry run: shapes only, no
+    data, the kernels recorded and not launched) are taken only when
+    asked for by name."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -132,7 +134,7 @@ def resolve_device(device) -> torch.device:
                 "device='cpu' to run the kernels' plain versions instead")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

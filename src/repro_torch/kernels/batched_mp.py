@@ -34,15 +34,18 @@ tiles that fit take more than the grid's 65,535 blocks per graph (at F =
 H = 64 the largest N is 6,448), and from N 29,055 none fit at all: such a
 graph raises ``ValueError``. On a CPU tensor the wrapper runs the plain
 version; on a CUDA tensor it launches one kernel or raises: no route
-gives way to the other. Both routes sum in another order than the plain
-version: they agree within float32 rounding, not bit for bit.
+gives way to the other. On a ``meta`` tensor (a dry run) it checks the
+route at the H100's shared memory, allocates the output, records the
+call in ``work.TALLY`` and launches nothing. Both routes sum in another
+order than the plain version: they agree within float32 rounding, not
+bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _lib, ref
-from .interval_stab import on_cpu
+from . import _lib, ref, work
+from .interval_stab import is_meta, on_cpu
 
 batched_mp_plain = ref.batched_mp_ref
 MAX_TILES = 65535        # blocks per graph: the row × H tiles on grid.y
@@ -192,6 +195,10 @@ def _call(adj, x, w, counter: str):
     b, n, _ = adj.shape
     f, h = w.shape
     dev = adj.device
+    if is_meta(adj):
+        route(n, f, h)
+        work.TALLY.add(counter, (adj, x, w))
+        return torch.empty((b, n, h), dtype=torch.float32, device=dev)
     limit = _lib.max_smem(dev)
     kind = route(n, f, h, limit)
     args = (_lib.check(adj, "adj", (b, n, n), dev, dtype="float32"),

@@ -44,8 +44,10 @@ per layer.
               on grouped k and v: no copy of k or v is made.
 
 On a CPU tensor each wrapper runs its plain version (any head dim); on a
-CUDA tensor it launches its kernel or raises. Like the TPU kernel, the
-forward kernel rounds the softmax numerators to v's dtype before the
+CUDA tensor it launches its kernel or raises; on a ``meta`` tensor (a dry
+run) it checks the head dim, allocates the outputs its launch would,
+records the call in ``work.TALLY`` and launches nothing. Like the TPU
+kernel, the forward kernel rounds the softmax numerators to v's dtype before the
 product with v and the plain version does not: they agree within 2e-5 in
 float32 and 3e-2 in bfloat16. The backward's plain version makes the TPU
 kernels' roundings (P to do's dtype, dS to q's and k's), so the two agree
@@ -55,8 +57,8 @@ from __future__ import annotations
 
 import torch
 
-from . import _lib
-from .interval_stab import on_cpu
+from . import _lib, work
+from .interval_stab import is_meta, on_cpu
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)           # the kernel's templates
@@ -120,10 +122,12 @@ def flash_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
                                      q_offset=q_offset)
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+    _check_head_dim(hd)
     dev = q.device
+    if is_meta(q):
+        work.TALLY.add("flash_fwd", (q, k, v, causal, q_offset))
+        return (torch.empty_like(q),
+                torch.empty((b, h, sq), dtype=torch.float32, device=dev))
     bf16 = int(q.dtype == torch.bfloat16)
     smem = _lib.LIBRARY.get().reach_flash_smem(hd, bf16)
     limit = _lib.max_smem(dev)
@@ -206,14 +210,18 @@ def _check_bwd(q, k, v, dout, lse, delta, q_offset: int) -> None:
                             f"{t.dtype}")
 
 
+def _check_head_dim(hd: int) -> None:
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes hd in {HEAD_DIMS}, "
+                         f"got {hd}")
+
+
 def _bwd_args(name, q, k, v, dout, lse, delta):
     """(device, operand pointers) after the kernel's checks: hd in
     HEAD_DIMS and the block's shared memory within the device's."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash attention kernel takes hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+    _check_head_dim(hd)
     dev = q.device
     smem = _lib.LIBRARY.get().reach_flash_bwd_smem(
         hd, int(name == "dkv"), int(q.dtype == torch.bfloat16))
@@ -239,6 +247,11 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
     if on_cpu(q):
         return _bwd_plain(q, k, v, dout, lse, delta, causal,
                           q_offset)[0].to(q.dtype)
+    if is_meta(q):
+        _check_head_dim(q.shape[3])
+        work.TALLY.add("flash_bwd_dq",
+                       (q, k, v, dout, lse, delta, causal, q_offset))
+        return torch.empty_like(q)
     dev, args = _bwd_args("dq", q, k, v, dout, lse, delta)
     b, sq, h, hd = q.shape
     dq = torch.empty_like(q)
@@ -259,6 +272,11 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
     if on_cpu(q):
         _, dk, dv = _bwd_plain(q, k, v, dout, lse, delta, causal, q_offset)
         return dk.to(k.dtype), dv.to(v.dtype)
+    if is_meta(q):
+        _check_head_dim(q.shape[3])
+        work.TALLY.add("flash_bwd_dkv",
+                       (q, k, v, dout, lse, delta, causal, q_offset))
+        return torch.empty_like(k), torch.empty_like(v)
     dev, args = _bwd_args("dkv", q, k, v, dout, lse, delta)
     b, sq, h, hd = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)

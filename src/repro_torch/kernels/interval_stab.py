@@ -24,7 +24,8 @@ the kernel, both kernels take the tables and the (cs, ct) ids and do the
 row gathers themselves; ids must lie in [0, n). Each query takes a group
 of lanes that load its rows together (``launch_shape``). On a CPU tensor a
 wrapper runs its plain version; on a CUDA tensor it launches the kernel or
-raises.
+raises; on a ``meta`` tensor (a dry run) kernel 1's entries allocate
+their verdicts, record the call in ``work.TALLY`` and launch nothing.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import functools
 
 import torch
 
-from . import _lib, ref
+from . import _lib, ref, work
 
 MAX_GRID = 2**31 - 1     # blocks on the grid's x dimension
 
@@ -85,12 +86,20 @@ def sm_count(index: int) -> int:
 
 
 def on_cpu(t) -> bool:
-    """True for a CPU tensor, False for a CUDA one; other devices raise."""
+    """True for a CPU tensor, False for a CUDA or a ``meta`` one (the
+    latter takes ``is_meta``'s branch); other devices raise."""
     if t.device.type == "cpu":
         return True
-    if t.device.type == "cuda":
+    if t.device.type in ("cuda", "meta"):
         return False
     raise ValueError(f"unsupported device {t.device}")
+
+
+def is_meta(t) -> bool:
+    """True for a ``meta`` tensor (a dry run): a wrapper then allocates
+    the outputs its launch would, records the call in ``work.TALLY`` and
+    launches nothing."""
+    return t.device.type == "meta"
 
 
 def stab_packed_plain(meta, slab, cs, ct):
@@ -106,6 +115,9 @@ def stab_packed(meta, slab, cs, ct):
     n, q, k2 = meta.shape[0], cs.shape[0], slab.shape[1]
     if k2 % 2:
         raise ValueError(f"slab: {k2} columns, expected 2K")
+    if is_meta(cs):
+        work.TALLY.add("stab_packed", (meta, slab, cs, ct))
+        return torch.empty(q, dtype=torch.int32, device=cs.device)
     k, dev = k2 // 2, cs.device
     vec, shape = vector_width(k), launch_shape(q, k, 0, sm_count(dev.index))
     args = (_lib.check(meta, "meta", (n, 4), dev, align=16),
@@ -138,6 +150,10 @@ def stab_packed_owned(meta_t, meta, slab, cs, ct, base: int):
     n, q, k2 = meta.shape[0], cs.shape[0], slab.shape[1]
     if k2 % 2:
         raise ValueError(f"slab: {k2} columns, expected 2K")
+    if is_meta(cs):
+        work.TALLY.add("stab_packed_owned",
+                       (meta_t, meta, slab, cs, ct, base))
+        return torch.empty(q, dtype=torch.int32, device=cs.device)
     k, dev = k2 // 2, cs.device
     vec, shape = vector_width(k), launch_shape(q, k, 0, sm_count(dev.index))
     args = (_lib.check(meta_t, "meta_t", (q, 4), dev, align=16),

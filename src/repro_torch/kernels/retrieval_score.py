@@ -12,15 +12,17 @@ against 10^6 candidates with it.
                 ``cands @ interests.T`` and its row max.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. The kernel sums in another order than the
+launches the kernel or raises; on a ``meta`` tensor (a dry run) it
+allocates the scores, records the call in ``work.TALLY`` and launches
+nothing. The kernel sums in another order than the
 plain version: they agree within float32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _lib, ref
-from .interval_stab import on_cpu
+from . import _lib, ref, work
+from .interval_stab import is_meta, on_cpu
 
 retrieval_score_plain = ref.retrieval_score_ref
 
@@ -36,6 +38,9 @@ def retrieval_score(cands, interests):
     if n_int < 1 or d < 1:
         raise ValueError(f"retrieval_score takes I >= 1 and D >= 1, got "
                          f"interests of shape {tuple(interests.shape)}")
+    if is_meta(cands):
+        work.TALLY.add("retrieval_score", (cands, interests))
+        return torch.empty(rows, dtype=torch.float32, device=dev)
     limit = _lib.max_smem(dev)
     if 4 * n_int * d > limit:
         raise ValueError(f"retrieval_score: interests of {4 * n_int * d} B "

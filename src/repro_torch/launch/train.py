@@ -234,9 +234,16 @@ class Trainer:
         return self.history
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--smoke", action="store_true", default=None,
+                    help="the arch's SMOKE config (default on the CPU)")
+    ap.add_argument("--full", dest="smoke", action="store_false",
+                    help="the arch's published config (default on a card)")
+    ap.add_argument("--shape", default="train_4k",
+                    help="the LM train shape (its batch and seq are cut by "
+                         "--batch and --seq)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -249,8 +256,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the published config, the CUDA kernels) or "
                          "cpu (the SMOKE config, the plain versions)")
-    args = ap.parse_args(argv)
-    tr = Trainer(args.arch, batch_override=args.batch, seq_override=args.seq,
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    tr = Trainer(args.arch, smoke=args.smoke, shape=args.shape,
+                 batch_override=args.batch, seq_override=args.seq,
                  seed=args.seed, device=args.device, ckpt_dir=args.ckpt_dir)
     cfg = tr.cfg
     print(f"{cfg.arch_id} ({cfg.n_layers} layers, d_model {cfg.d_model}, "

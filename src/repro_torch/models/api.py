@@ -497,7 +497,8 @@ def _recsys_cell(cfg: RecsysConfig, shape, opt_cfg: OptConfig,
                 caps = on.gather(caps, "hist_ids")
             return state, caps
 
-        return step, batch_shapes
+        return step, batch_shapes, None, lambda: B * (
+            2 * Lh * D * D + cfg.capsule_iters * 4 * K * Lh * D)
 
     if shape.kind == "retrieval":
         C = _pad(shape.n_candidates)
@@ -519,7 +520,7 @@ def _recsys_cell(cfg: RecsysConfig, shape, opt_cfg: OptConfig,
                 scores = on.gather(scores, "cand_ids")
             return state, scores
 
-        return step, batch_shapes
+        return step, batch_shapes, None, lambda: 2 * C * D * K
     raise ValueError(shape.kind)
 
 
@@ -706,11 +707,16 @@ def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig,
             cache = tf_mod.cache_shard(cfg, B, S, mesh, on.rules)
         info.update(tp=tp, expert_mesh=ep, cache_shard=cache)
 
+    # the reference's model FLOPs: 6·N_active·tokens to train, 2·N_active
+    # a token forward, and decode's attention over the cache
+    n_act = cfg.active_param_count()
     if shape.kind == "train":
+        flops_fn = lambda: 6 * n_act * B * S                 # noqa: E731
         if on is not None:
             return _lm_mesh_train_step(cfg, opt_cfg, B, on, tp,
-                                       ep), batch_shapes
-        return _lm_train_step(cfg, opt_cfg, B), batch_shapes
+                                       ep), batch_shapes, None, flops_fn
+        return _lm_train_step(cfg, opt_cfg, B), batch_shapes, None, \
+            flops_fn
 
     if shape.kind == "prefill":
         def step(state, batch):
@@ -723,7 +729,7 @@ def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig,
                 logits = on.gather(logits, "tokens")
             return state, {"logits": logits, "cache": cache_}
 
-        return step, batch_shapes
+        return step, batch_shapes, None, lambda: 2 * n_act * B * S
 
     def step(state, batch):
         # the cache is updated in place (transformer.decode_step)
@@ -732,7 +738,9 @@ def _lm_cell(cfg: LMConfig, shape, opt_cfg: OptConfig,
             batch["pos"], ep, tp, cache)
         return {"params": state["params"], "cache": cache_}, logits
 
-    return step, batch_shapes
+    att = (4 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * S * B
+           * (cfg.n_heads // cfg.n_kv_heads))
+    return step, batch_shapes, None, lambda: 2 * n_act * B + att
 
 
 def _ferrari_sharded(cfg, mesh) -> bool:
@@ -791,19 +799,24 @@ def _batch_pl(on: _OnMesh, cfg, shape, batch_shapes) -> dict:
 
 
 def build_cell(cfg, shape_name: str, device="cuda", shape_override=None,
-               opt_cfg: OptConfig | None = None, mesh=None) -> CellSpec:
+               opt_cfg: OptConfig | None = None, mesh=None,
+               rules: Optional[dict] = None) -> CellSpec:
     """The (arch, shape) cell on ``device``. ``mesh``: a
     ``launch.mesh.Mesh`` (or ``core.distributed.ServingMesh``) to place
     and step the cell on, as the reference's ``build_cell(cfg, shape,
     mesh)`` does (the module docstring); its device is then the cell's.
-    This rank must be in the mesh."""
+    This rank must be in the mesh. ``rules``: logical-axis overrides on
+    the mesh, as the reference's ``rules=`` (the cell's own overrides,
+    MoE decode's and the sharded ferrari cell's, take precedence, as
+    there)."""
     shape = shape_override or shapes_for_family(cfg.family)[shape_name]
     opt_cfg = opt_cfg or OptConfig()
     on, info, sharded = None, {}, {}
     if mesh is not None:
         if not mesh.member:
             raise ValueError(f"rank {mesh.rank} is not in {mesh!r}")
-        rules = _rules(cfg, shape, mesh)
+        rules = {**(rules or {}), **(_rules(cfg, shape, mesh) or {})} \
+            or None
         logical, whole = _state_logical(cfg, shape)
         on = _OnMesh(mesh, rules, _placements(mesh, logical, whole, True,
                                               rules), {})

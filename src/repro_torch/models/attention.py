@@ -47,10 +47,11 @@ def _scores(a, b):
     """float32 ``a @ b`` of two batched matrices in one dtype. A reduced-
     precision pair goes to cuBLAS with a float32 output on a card (it sums
     in float32 and rounds nothing); the CPU has no such product, so there
-    the operands are widened."""
+    the operands are widened. A ``meta`` pair (a dry run) takes the
+    card's product."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if a.device.type in ("cuda", "meta"):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

@@ -27,6 +27,12 @@ A group of ``None`` stands for a group of one rank (``launch.mesh.Mesh``
 creates none): every function here is then the identity and nothing is
 launched. ``CALLS`` counts the collectives made, by the function that
 made them, and ``BYTES`` their payload bytes (each rank's tensor).
+``KINDS`` counts them by the reference's HLO kind ("all-reduce",
+"all-gather", "collective-permute" for a send or a receive) and
+``KIND_BYTES`` the bytes of each kind's result on this rank (an
+all-gather's whole output), as the reference's dry run sums the result
+shapes of the collectives in its partitioned program. ``reset()`` clears
+all four.
 """
 from __future__ import annotations
 
@@ -37,11 +43,25 @@ import torch.distributed as dist
 
 CALLS: Counter = Counter()
 BYTES: Counter = Counter()
+KINDS: Counter = Counter()
+KIND_BYTES: Counter = Counter()
 
 
-def _count(name: str, t: torch.Tensor) -> None:
+def reset() -> None:
+    for c in (CALLS, BYTES, KINDS, KIND_BYTES):
+        c.clear()
+
+
+def _count(name: str, t: torch.Tensor, kind: str = "all-reduce",
+           parts: int = 1) -> None:
+    """Count one collective under ``name`` and ``kind``: ``t`` this rank's
+    tensor, ``parts`` the blocks its result holds (an all-gather's group
+    size)."""
+    nbytes = t.numel() * t.element_size()
     CALLS[name] += 1
-    BYTES[name] += t.numel() * t.element_size()
+    BYTES[name] += nbytes
+    KINDS[kind] += 1
+    KIND_BYTES[kind] += nbytes * parts
 
 
 def all_reduce_(t: torch.Tensor, group, name: str = "all_reduce",
@@ -64,7 +84,7 @@ def all_gather_(t: torch.Tensor, group, dim: int = 0, ranks=None,
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
-    _count(name, t)
+    _count(name, t, "all-gather", len(parts))
     if ranks is not None:
         order = dist.get_process_group_ranks(group)
         parts = [parts[order.index(r)] for r in ranks]

@@ -36,14 +36,14 @@ def _via_host(t: torch.Tensor, group) -> bool:
 def _send(t: torch.Tensor, dst: int, group) -> None:
     t = t.contiguous()
     dist.send(t.cpu() if _via_host(t, group) else t, dst=dst, group=group)
-    _count("pipeline_send", t)
+    _count("pipeline_send", t, "collective-permute")
 
 
 def _recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
     buf = torch.empty_like(like, device="cpu") if _via_host(like, group) \
         else torch.empty_like(like)
     dist.recv(buf, src=src, group=group)
-    _count("pipeline_recv", buf)
+    _count("pipeline_recv", buf, "collective-permute")
     return buf.to(like.device)
 
 
@@ -84,7 +84,7 @@ def pipeline_forward(mesh, stage_fn: Callable, n_stages: int,
                else torch.empty_like(x))
         if group is not None:
             dist.broadcast(out, src=ranks[-1], group=group)
-            _count("pipeline_broadcast", out)
+            _count("pipeline_broadcast", out, "broadcast")
         return out
 
     return fn

@@ -211,7 +211,21 @@ def test_classify_all_nodes_vs_target_matches_reference():
     assert e.any() and p.any()
 
 
+class _Elsewhere:
+    """A tensor's stand-in on a device that is neither the CPU, a card nor
+    ``meta`` (this build of PyTorch makes no such tensor)."""
+    device = torch.device("xpu")
+    shape = (4,)
+
+
 def test_wrappers_reject_other_devices():
-    t = torch.zeros(4, dtype=torch.int32, device="meta")
+    t = _Elsewhere()
     with pytest.raises(ValueError, match="unsupported device"):
-        stab_packed(t.view(1, 4), t.view(1, 4), t, t)
+        stab_packed(t, t, t, t)
+    with pytest.raises(ValueError, match="unsupported device"):
+        stab_naive(*[t] * 10)
+    # ``meta`` (a dry run) takes its own branch: the verdicts allocated,
+    # nothing launched
+    m = torch.zeros(4, dtype=torch.int32, device="meta")
+    v = stab_packed(m.view(1, 4), m.view(1, 4), m, m)
+    assert (v.shape, v.dtype, v.device.type) == ((4,), torch.int32, "meta")

@@ -17,7 +17,8 @@ At tinyllama-1.1b's SMOKE widths (8 heads over 2 kv heads) on meshes 2x1
 (data parallel + ZeRO-1), 1x2 (tensor parallel), 2x2 and (pod 2, data 1,
 model 2), and at smollm-360m's (3 heads over 1 kv head: heads padded to
 4 and kv expanded at a model width of 2, its wq/wk/wv/wo blocks cut
-inside a head and re-sliced over the model group) on 1x2, with 2
+inside a head and re-sliced over the model group) on 1x2, and on 1x4,
+where the last model rank holds only a padded head, with 2
 microbatches and remat: the specs equal the reference's; every rank's
 drawn state is its block of the whole drawn from the same seed under the
 reference's specs, bit for bit; one step's loss and grad_norm, and the
@@ -65,7 +66,8 @@ CASES = [("tinyllama-1.1b", (2, 1), ("data", "model")),
          ("tinyllama-1.1b", (1, 2), ("data", "model")),
          ("tinyllama-1.1b", (2, 2), ("data", "model")),
          ("tinyllama-1.1b", (2, 1, 2), ("pod", "data", "model")),
-         ("smollm-360m", (1, 2), ("data", "model"))]
+         ("smollm-360m", (1, 2), ("data", "model")),
+         ("smollm-360m", (1, 4), ("data", "model"))]
 IDS = [f"{a.split('-')[0]}-{'x'.join(map(str, s))}" for a, s, _ in CASES]
 
 REF = r"""
